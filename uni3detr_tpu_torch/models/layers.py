@@ -1,0 +1,79 @@
+"""Common building blocks (port of ``uni3detr_tpu/models/layers.py``).
+
+Module and parameter names follow the reference PyTorch ``state_dict``
+(see ``uni3detr_tpu/train/torch_import.py``), so a reference checkpoint
+loads as it is.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+
+class MaskedBatchNorm(nn.BatchNorm1d):
+    """BatchNorm1d over a masked voxel list (B, V, C), eval form.
+
+    Running statistics, eps 1e-3; computed in fp32, multiplied by the
+    mask and returned in the input dtype. The state_dict keys are those
+    of ``nn.BatchNorm1d``.
+    """
+
+    def __init__(self, num_features: int, eps: float = 1e-3,
+                 momentum: float = 0.01):
+        super().__init__(num_features, eps=eps, momentum=momentum)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError("MaskedBatchNorm: eval only")
+        y = (x.float() - self.running_mean) * torch.rsqrt(
+            self.running_var + self.eps)
+        y = y * self.weight + self.bias
+        return (y * mask[..., None]).to(x.dtype)
+
+
+class MLP(nn.Module):
+    """Linear-ReLU x (n-1) + Linear; keys ``layers.{i}``."""
+
+    def __init__(self, input_dim: int, hidden_dim: int, output_dim: int,
+                 num_layers: int):
+        super().__init__()
+        dims = [input_dim] + [hidden_dim] * (num_layers - 1)
+        self.layers = nn.ModuleList(
+            nn.Linear(i, o) for i, o in zip(dims, dims[1:] + [output_dim]))
+
+    def forward(self, x):
+        for i, layer in enumerate(self.layers):
+            x = layer(x)
+            if i < len(self.layers) - 1:
+                x = torch.relu(x)
+        return x
+
+
+def branch_mlp(dim: int, output_dim: int, layer_norm: bool,
+               num_fcs: int = 2) -> nn.Sequential:
+    """Head branch: num_fcs x (Linear [+LN] + ReLU) + Linear, as the
+    reference Sequential (cls: indices 0,1,3,4,6; reg/iou: 0,2,4)."""
+    mods = []
+    for _ in range(num_fcs):
+        mods.append(nn.Linear(dim, dim))
+        if layer_norm:
+            mods.append(nn.LayerNorm(dim, eps=1e-5))
+        mods.append(nn.ReLU())
+    mods.append(nn.Linear(dim, output_dim))
+    return nn.Sequential(*mods)
+
+
+def sine_pos_embed(pos: torch.Tensor, num_feats: int = 128,
+                   temperature: float = 10000.0) -> torch.Tensor:
+    """(..., n) positions -> (..., n * num_feats): per coordinate the
+    interleaved [sin(x/t0), cos(x/t1), ...], t_i = temperature^(2(i//2)/
+    num_feats), scale 2*pi."""
+    dim_t = torch.arange(num_feats, dtype=torch.float32, device=pos.device)
+    dim_t = temperature ** (2 * torch.div(dim_t, 2, rounding_mode="floor")
+                            / num_feats)
+    x = pos[..., None] * (2 * math.pi) / dim_t
+    out = torch.stack([torch.sin(x[..., 0::2]), torch.cos(x[..., 1::2])],
+                      dim=-1).reshape(*x.shape[:-1], num_feats)
+    return out.reshape(*pos.shape[:-1], pos.shape[-1] * num_feats)

@@ -1,0 +1,92 @@
+"""Build and load the port's CUDA kernels.
+
+All sources under ``uni3detr_tpu_torch/csrc/`` compile with ``nvcc`` into
+one shared library with a plain C interface, loaded with ``ctypes``. The
+library lands in ``build/uni3detr_tpu_torch/`` at the repository root,
+named after a hash of the sources, so an edit rebuilds and an unchanged
+tree reuses the library. Nothing builds at import: the first kernel
+launch calls :func:`library`.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "uni3detr_tpu_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-lineinfo", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# name -> argument types (pointers and the stream as c_void_p)
+_SIGNATURES = {
+    "u3d_match_positions": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "u3d_gather_conv_f32": [_P, _P, _P, _P] + [_I] * 6 + [_P],
+    "u3d_gather_conv_bf16": [_P, _P, _P, _P] + [_I] * 6 + [_P],
+    "u3d_gather_conv_ids_f32": [_P, _P, _P, _P, _P] + [_I] * 6 + [_P],
+    "u3d_gather_conv_ids_bf16": [_P, _P, _P, _P, _P] + [_I] * 6 + [_P],
+    "u3d_fps_pair": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P],
+}
+_ERROR_STRING = "u3d_error_string"
+
+
+def _sources():
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(cuda_home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels of "
+                           "uni3detr_tpu_torch need the CUDA toolkit")
+    return found
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The kernel library, built on first use."""
+    srcs = _sources()
+    digest = hashlib.sha256()
+    for p in srcs:
+        digest.update(p.name.encode())
+        digest.update(p.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    so = BUILD_DIR / f"libu3d_kernels_{digest.hexdigest()[:16]}.so"
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".tmp{os.getpid()}")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               *[str(p) for p in srcs if p.suffix == ".cu"]]
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        (BUILD_DIR / "build.log").write_text(
+            " ".join(cmd) + "\n" + r.stdout + r.stderr)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    getattr(lib, _ERROR_STRING).argtypes = [_I]
+    getattr(lib, _ERROR_STRING).restype = ctypes.c_char_p
+    return lib
+
+
+def check(status: int, name: str) -> None:
+    """Raise on a refused or failed launch (the C side returns
+    cudaGetLastError())."""
+    if status != 0:
+        msg = getattr(library(), _ERROR_STRING)(status).decode()
+        raise RuntimeError(f"{name}: CUDA error {status} at launch: {msg}")

@@ -1,0 +1,48 @@
+"""Presets of the port: the same values as ``uni3detr_tpu/presets.py``.
+
+Only the configurations the port runs today are here;
+``tests/test_torch_port_modules.py`` checks each against the JAX preset
+of the same name.
+"""
+from __future__ import annotations
+
+from .config import Uni3DETRConfig
+
+# uni3detr_sunrgbd.py:10-12,26-140,230-242
+SUNRGBD = Uni3DETRConfig(
+    num_classes=10, code_size=8,
+    pc_range=(-3.2, -0.2, -2.0, 3.2, 6.2, 0.56),
+    voxel_size=(0.02, 0.02, 0.02), grid_size=(128, 320, 320),
+    max_points_per_voxel=5, max_voxels=16000, max_voxels_test=40000,
+    num_points=100000, max_gt=64, in_point_features=4,
+    encoder_base_channels=16, encoder_out_channels=256,
+    encoder_channels=((16, 16, 32), (32, 32, 64), (64, 64, 128), (128, 128)),
+    encoder_downsample_paddings=((1, 1, 1), (1, 1, 1), (0, 1, 1)),
+    num_query=300, num_decoder_layers=3,
+    post_center_range=(-3.2, -0.2, -2.0, 3.2, 6.2, 0.56),
+    max_num=1000, coder_alpha=1.0, post_processing="nms", nms_thr=0.5,
+    encoder_budget_shrink=(0.7, 0.3, 0.12),
+    compute_dtype="bfloat16",
+)
+
+# tiny model for tests (not a reference config)
+TINY_SYNTHETIC = Uni3DETRConfig(
+    num_classes=3, code_size=8,
+    pc_range=(-2.0, -2.0, -1.0, 2.0, 2.0, 1.0),
+    voxel_size=(0.125, 0.125, 0.25), grid_size=(8, 32, 32),
+    max_points_per_voxel=4, max_voxels=256, max_voxels_test=256,
+    num_points=2048, max_gt=8, in_point_features=3,
+    encoder_base_channels=8, encoder_out_channels=32,
+    encoder_channels=((8, 8, 8), (8, 8, 16), (16, 16, 16), (16, 16)),
+    encoder_downsample_paddings=((1, 1, 1), (1, 1, 1), (1, 1, 1)),
+    backbone_channels=(16, 16, 16), backbone_layers=(1, 1, 1),
+    neck_channels=(32, 32, 32),
+    num_query=16, embed_dim=32, num_decoder_layers=2, num_heads=4,
+    ffn_dim=64, max_num=32,
+    post_center_range=(-2.0, -2.0, -1.0, 2.0, 2.0, 1.0),
+)
+
+PRESETS = {
+    "uni3detr_sunrgbd": SUNRGBD,
+    "uni3detr_tiny_synthetic": TINY_SYNTHETIC,
+}
