@@ -17,7 +17,21 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    that run, which must be K1 4, K2 17, K3 3 and K4 1 per scene;
 5. fp32: one scene through the port on the card (kernels) and on the
    CPU (plain versions), TF32 off: voxels and FPS indices must be equal,
-   head outputs close.
+   head outputs close;
+6. train kernels: K7 and K10 (sparse-conv weight gradients) against
+   their plain versions at the shapes of the SUN RGB-D train step (B=4,
+   V=16000), K12 (auction) at the flagship's (12, 64, 384) and a
+   KITTI-shaped (10, 256, 384) instance set, with median kernel and
+   plain times per call shape and summed per step;
+7. train: ``uni3detr_sunrgbd`` as preset (bf16, fp32 params), B=4
+   synthetic scenes, seeded random weights, AdamW lr 1e-4 with clip 10:
+   warm-up steps, then timed steps on one fixed batch; per step the loss,
+   gradient norm, ms and peak memory. Losses and gradients must be
+   finite, the loss must fall, and each step must launch K1 4, K2 33, K3
+   6, K4 1, K7 17, K10 3 and K12 3 times;
+8. fp32 train parity: one step in fp32, dropout 0, scipy matching, TF32
+   off, on the card (kernels) and on the CPU (plain versions): losses and
+   gradients close.
 
 Then one JSON line of the kernels, the card line, and the result line
 ``{"ok": true, "device": {...}}``. There is no CPU fallback: without a
@@ -25,6 +39,7 @@ CUDA device the script fails before any phase.
 """
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import time
@@ -32,6 +47,15 @@ import time
 N_SCENES = 5          # the first is the warm-up
 FP32_ATOL = 5e-3      # phase 5, see fp32_phase
 WEIGHT_SEED = 0
+TRAIN_B = 4           # phase 7: the reference's samples_per_gpu
+TRAIN_WARMUP, TRAIN_STEPS = 3, 20
+TRAIN_LR = 1e-4
+DW_RTOL = {"float32": 1e-4, "bfloat16": 1e-3}   # phase 6, see dw_phase
+PARITY_B = 2          # phase 8 batch (the CPU side runs the full model)
+PARITY_LOSS_RTOL = 2e-3
+# phase 8, max |grad diff| / max |grad| per group; see train_parity_phase
+PARITY_GRAD_RTOL = {"sparse-conv weights": 0.3, "backbone+neck": 0.3,
+                    "head": 0.01}
 
 
 def fail(msg):
@@ -166,15 +190,24 @@ def kernel_phase(torch, model, pts, dev):
     return report
 
 
+def kernel_wrappers():
+    """Every kernel's wrapper by the name the JSON line reports; the
+    first four run in inference, all seven in training."""
+    from uni3detr_tpu_torch.ops import fps, matching, sparse_conv_cuda as sc
+    return {"match_positions": sc.match_positions,
+            "gather_conv": sc.gather_conv,
+            "gather_conv_ids": sc.gather_conv_ids,
+            "fps_pair": fps.farthest_point_sample_pair,
+            "gather_conv_dw": sc.gather_conv_dw,
+            "gather_conv_ids_dw": sc.gather_conv_ids_dw,
+            "auction_lap": matching.auction_lap}
+
+
 def flagship_phase(torch, model, scenes, dev):
-    from uni3detr_tpu_torch.ops import fps, sparse_conv_cuda as sc
     from uni3detr_tpu_torch.train.coder import decode_predictions, post_process
 
     cfg = model.cfg
-    wrappers = {"match_positions": sc.match_positions,
-                "gather_conv": sc.gather_conv,
-                "gather_conv_ids": sc.gather_conv_ids,
-                "fps_pair": fps.farthest_point_sample_pair}
+    wrappers = dict(list(kernel_wrappers().items())[:4])
     subm, strided = conv_cases(cfg)
     per_scene = {"match_positions": len(cfg.encoder_channels),
                  "gather_conv": sum(c[-1] for c in subm),
@@ -262,6 +295,226 @@ def fp32_phase(torch, sd, scene, dev):
         fail(f"fp32: head outputs differ by {errs}")
 
 
+def train_per_step(cfg):
+    """Kernel launches of one train step: the forward's K1-K4, K2/K3
+    again for the feature gradients (not of conv_input, whose input needs
+    none), K7/K10 for every weight gradient, K12 once per decoder
+    layer."""
+    subm, strided = conv_cases(cfg)
+    n_subm = sum(c[-1] for c in subm)
+    return {"match_positions": len(cfg.encoder_channels),
+            "gather_conv": 2 * n_subm - 1,
+            "gather_conv_ids": 2 * len(strided), "fps_pair": 1,
+            "gather_conv_dw": n_subm, "gather_conv_ids_dw": len(strided),
+            "auction_lap": cfg.num_decoder_layers}
+
+
+def dw_phase(torch, model, batch, dev):
+    """K7, K10 and K12 against their plain versions at the train step's
+    shapes. Tolerances DW_RTOL of max |dW|: fp32 sums of up to B*V=64000
+    rows in another order; bf16 rows and cotangents widen to fp32
+    exactly, looser only for safety. Auction: equal."""
+    from uni3detr_tpu_torch.ops import matching, sparse_conv_cuda as sc
+
+    cfg = model.cfg
+    feats, coords, vmask = model.voxelize(batch["points"], batch["pts_mask"])
+    sets = model.pts_middle_encoder.site_sets(coords, vmask, backward=True)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    report = {}
+
+    def add(name, err, ms, plain_ms, calls):
+        r = report.setdefault(name, dict(max_abs_err=0.0, ms=0.0,
+                                         plain_ms=0.0))
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["ms"] += ms * calls
+        r["plain_ms"] += plain_ms * calls
+
+    def dw_check(name, kern, plain, rest, C, Cout, V, Vout, calls):
+        for dtype, key in ((torch.float32, "float32"),
+                           (torch.bfloat16, "bfloat16")):
+            x = torch.randn((TRAIN_B, V, C), generator=gen, device=dev)
+            g = torch.randn((TRAIN_B, Vout, Cout), generator=gen, device=dev)
+            a = (x.to(dtype),) + rest + (g.to(dtype),)
+            got, ref = kern(*a), plain(*a)
+            err = (got - ref).abs().max().item()
+            scale = ref.abs().max().item()
+            if not err <= DW_RTOL[key] * max(scale, 1e-6):
+                fail(f"{name} C={C}->{Cout} {dtype}: max err {err} > "
+                     f"{DW_RTOL[key]} x {scale}")
+            ms = median_ms(torch, lambda: kern(*a), 10)
+            pms = median_ms(torch, lambda: plain(*a), 10)
+            if dtype == torch.bfloat16:   # the flagship's dtype: reported
+                add(name, err, ms, pms, calls)
+            print(f"[train-kernels] {name} B={TRAIN_B} Vout={Vout} "
+                  f"C={C}->{Cout} {dtype} max_abs_err={err:.3g} (max |ref| "
+                  f"{scale:.3g}, rtol {DW_RTOL[key]}) ms={ms:.4f} "
+                  f"plain_ms={pms:.4f} x{calls}/step")
+
+    subm, strided = conv_cases(cfg)
+    for si, C, Cout, calls in subm:
+        s = sets[si]
+        nb = sc.match_positions_plain(s["ids"], s["qids"], s["n_sites"])
+        dw_check("gather_conv_dw", sc.gather_conv_dw,
+                 sc.gather_conv_dw_plain, (nb,), C, Cout, s["n_sites"],
+                 s["n_sites"], calls)
+    for si, C, Cout, calls in strided:
+        prev, s = sets[si - 1], sets[si]
+        dw_check("gather_conv_ids_dw", sc.gather_conv_ids_dw,
+                 sc.gather_conv_ids_dw_plain, (prev["ids"], s["sq"]), C,
+                 Cout, prev["n_sites"], s["n_sites"], calls)
+
+    # K12: DETR-like costs (focal +-4, L1, IoU terms) padded as
+    # match_queries_to_gt pads them; KITTI: gt_repeat=5 duplicated columns
+    rng = torch.Generator(device=dev).manual_seed(3)
+
+    def costs(G, nq, n_gt, rep):
+        c = (2 * torch.randn((G, nq, n_gt), generator=rng, device=dev)
+             + 2 * torch.rand((G, nq, n_gt), generator=rng, device=dev)
+             + 1.2 * torch.rand((G, nq, n_gt), generator=rng, device=dev))
+        return c.repeat(1, 1, rep)
+
+    # KITTI: 300 queries, 50 GT columns tiled 5 times, eps spread / 8**3
+    for label, grouped, eps_div, calls in (
+            ("sunrgbd", costs(TRAIN_B * 3, cfg.num_query, cfg.max_gt, 1),
+             2048.0, cfg.num_decoder_layers),
+            ("kitti-shaped", costs(10, 300, 50, 5), 8.0 ** 3, 0)):
+        benefit, spread = matching._auction_instances(grouped)
+        got = matching.auction_lap(benefit, spread, eps_div)
+        ref = matching.auction_lap_plain(benefit, spread, eps_div)
+        if not torch.equal(got, ref) or bool((got < 0).any()):
+            fail(f"K12 auction_lap differs from the plain version ({label})")
+        ms = median_ms(torch, lambda: matching.auction_lap(
+            benefit, spread, eps_div), 10)
+        pms = median_ms(torch, lambda: matching.auction_lap_plain(
+            benefit, spread, eps_div), 3, 1)
+        in_smem = matching.auction_lap.benefit_in_smem
+        print(f"[train-kernels] K12 auction_lap {label} "
+              f"{tuple(benefit.shape)} exact, benefit in "
+              f"{'shared' if in_smem else 'global'} memory ms={ms:.4f} "
+              f"plain_ms={pms:.4f} x{calls}/step")
+        if calls:
+            add("auction_lap", 0.0, ms, pms, calls)
+    print(f"[train-kernels] voxels={int(vmask.sum())} of {vmask.numel()} "
+          f"sites per stage={[int(s['mask'].sum()) for s in sets]} "
+          f"budgets={[s['n_sites'] for s in sets]}")
+    return report
+
+
+def train_phase(torch, cfg, sd, batch, dev):
+    from uni3detr_tpu_torch.models.detector import Uni3DETR
+    from uni3detr_tpu_torch.train.step import make_optimizer, train_step
+
+    model = Uni3DETR(cfg)
+    model.load_state_dict(sd, strict=True)
+    model.to(dev)
+    opt = make_optimizer(model, TRAIN_LR)
+    counters = kernel_wrappers()
+    losses, times = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+        if i == TRAIN_WARMUP:
+            for fn in counters.values():
+                fn.launches = 0
+        t0 = time.perf_counter()
+        logs = train_step(model, opt, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        loss, gnorm = float(logs["total_loss"]), float(logs["grad_norm"])
+        losses.append(loss)
+        print(f"[train] step {i}: total_loss={loss:.5f} grad_norm="
+              f"{gnorm:.5f} ms={times[-1]:.3f} peak_mem_bytes="
+              f"{torch.cuda.max_memory_allocated(dev)}"
+              f"{' (warm-up)' if i < TRAIN_WARMUP else ''}")
+        if not all(math.isfinite(float(v)) for v in logs.values()):
+            fail(f"train step {i}: non-finite logs {logs}")
+    launches = {k: fn.launches for k, fn in counters.items()}
+    if not all(bool(torch.isfinite(p).all()) for p in model.parameters()):
+        fail("train: non-finite parameters after the run")
+    want = {k: v * TRAIN_STEPS for k, v in train_per_step(cfg).items()}
+    timed = times[TRAIN_WARMUP:]
+    print(f"[train] ms/step median of {TRAIN_STEPS} after {TRAIN_WARMUP} "
+          f"warm-up={statistics.median(timed):.3f} min={min(timed):.3f} "
+          f"max={max(timed):.3f} peak_mem_bytes="
+          f"{torch.cuda.max_memory_allocated(dev)}")
+    print(f"[train] launches={launches} expected={want}")
+    if launches != want:
+        fail(f"train kernel launch counts {launches} != {want}")
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    print(f"[train] loss mean of the first 5 steps {first:.5f}, of the "
+          f"last 5 {last:.5f}")
+    if not last < first:
+        fail("train: the loss did not fall")
+    return launches
+
+
+def train_parity_phase(torch, sd, batch_np, dev):
+    """One fp32 train step on the card (kernels) and on the CPU (plain
+    versions): TF32 off, dropout 0, scipy's exact matching on both.
+
+    Losses within PARITY_LOSS_RTOL relative (the eval phase's head
+    outputs differ by ~2e-3 absolute between card and CPU). Gradients,
+    read from AdamW's first moment (0.1 x the clipped gradient on both),
+    within PARITY_GRAD_RTOL of the largest gradient of their group. The
+    deep groups are loose because fp32 gradients of this network at
+    random init are that sensitive: two card runs that differ only in
+    cuDNN's algorithm choice (or in nothing, through atomics) differ by
+    2-6% (sparse encoder) and 4-15% (backbone) with the head at ~0.1%,
+    the same assignment replayed on both. A second card step prints that
+    floor beside the card-vs-CPU numbers."""
+    from uni3detr_tpu_torch.models.detector import Uni3DETR
+    from uni3detr_tpu_torch.presets import SUNRGBD
+    from uni3detr_tpu_torch.train.step import make_optimizer, train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(SUNRGBD, compute_dtype="float32", dropout=0.0,
+                              matcher="scipy")
+    res = {}
+    for label, where in (("card", dev), ("card again", dev),
+                         ("cpu", torch.device("cpu"))):
+        model = Uni3DETR(cfg)
+        model.load_state_dict(sd, strict=True)
+        model.to(where)
+        opt = make_optimizer(model, TRAIN_LR)
+        batch = {k: torch.from_numpy(v).to(where) for k, v in batch_np.items()}
+        t0 = time.perf_counter()
+        logs = train_step(model, opt, batch)
+        mu = {n: opt.adamw.state[p]["exp_avg"].cpu()
+              for n, p in model.named_parameters()}
+        res[label] = ({k: float(v) for k, v in logs.items()}, mu,
+                      time.perf_counter() - t0)
+    lc, mc, tc = res["cpu"]
+    groups = {
+        "sparse-conv weights": [n for n in mc if n.startswith(
+            "pts_middle_encoder") and mc[n].dim() == 5],
+        "backbone+neck": [n for n in mc if n.split(".")[0] in (
+            "pts_backbone", "pts_neck")],
+        "head": [n for n in mc if n.startswith("pts_bbox_head")]}
+    for label in ("card", "card again"):
+        lg, mg, tg = res[label]
+        loss_err = {k: abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-6)
+                    for k in lc}
+        worst = max(loss_err, key=loss_err.get)
+        print(f"[fp32-train] B={PARITY_B} {label}: total_loss "
+              f"{lg['total_loss']:.6f} cpu {lc['total_loss']:.6f}; worst "
+              f"relative loss error {loss_err[worst]:.3g} ({worst}, rtol "
+              f"{PARITY_LOSS_RTOL}); {label} {tg:.2f}s cpu {tc:.2f}s")
+        if label == "card" and loss_err[worst] > PARITY_LOSS_RTOL:
+            fail(f"fp32 train: losses differ {loss_err}")
+    _, m1, _ = res["card"]
+    _, m2, _ = res["card again"]
+    for group, names in groups.items():
+        scale = max(mc[n].abs().max().item() for n in names)
+        err = max((m1[n] - mc[n]).abs().max().item() for n in names)
+        floor = max((m1[n] - m2[n]).abs().max().item() for n in names)
+        print(f"[fp32-train] grads {group}: card vs cpu {err / scale:.3g} "
+              f"of max |grad| {scale:.3g} (rtol {PARITY_GRAD_RTOL[group]});"
+              f" card vs card again {floor / scale:.3g}")
+        if not err <= PARITY_GRAD_RTOL[group] * scale:
+            fail(f"fp32 train: {group} gradients differ by {err} of {scale}")
+
+
 def main():
     import torch
 
@@ -275,7 +528,8 @@ def main():
     from uni3detr_tpu_torch.models.detector import Uni3DETR
     from uni3detr_tpu_torch.ops import cuda_lib
     from uni3detr_tpu_torch.presets import SUNRGBD
-    from uni3detr_tpu_torch.synthetic import clustered_scene
+    from uni3detr_tpu_torch.synthetic import (clustered_scene,
+                                              clustered_train_batch)
     from uni3detr_tpu_torch.weights import random_state_dict
 
     t0 = time.perf_counter()
@@ -297,6 +551,15 @@ def main():
         launches = flagship_phase(torch, model, scenes, dev)
         fp32_phase(torch, sd, scenes[0], dev)
 
+    torch.backends.cudnn.allow_tf32 = True     # the defaults again
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             clustered_train_batch(0, cfg, TRAIN_B).items()}
+    with torch.no_grad():
+        report.update(dw_phase(torch, model.train(), batch, dev))
+    train_launches = train_phase(torch, cfg, sd, batch, dev)
+    train_parity_phase(torch, sd, clustered_train_batch(1, cfg, PARITY_B),
+                       dev)
+
     meta = {
         "match_positions": ("uni3detr_tpu_torch/csrc/sparse_conv.cu",
                             "uni3detr_tpu/ops/sparse_conv_pallas.py:944"),
@@ -306,7 +569,18 @@ def main():
                             "uni3detr_tpu/ops/sparse_conv_pallas.py:619"),
         "fps_pair": ("uni3detr_tpu_torch/csrc/fps.cu",
                      "uni3detr_tpu/ops/fps.py:123"),
+        "gather_conv_dw": ("uni3detr_tpu_torch/csrc/sparse_conv.cu",
+                           "uni3detr_tpu/ops/sparse_conv_pallas.py:444"),
+        "gather_conv_ids_dw": ("uni3detr_tpu_torch/csrc/sparse_conv.cu",
+                               "uni3detr_tpu/ops/sparse_conv_pallas.py:646"),
+        "auction_lap": ("uni3detr_tpu_torch/csrc/matching.cu",
+                        "uni3detr_tpu/ops/matching_pallas.py:46"),
     }
+    # launches: K1-K4 from the inference run (phase 4), K7/K10/K12 from
+    # the timed train steps (phase 7); ms summed per scene (K1-K4) or per
+    # train step (K7/K10/K12)
+    launches = {**launches, **{k: v for k, v in train_launches.items()
+                               if k not in launches}}
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], **report[name])
                for name, (src, rep) in meta.items()]

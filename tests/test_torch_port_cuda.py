@@ -5,18 +5,22 @@ This file imports no JAX, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 
-Tolerances: rulebooks and FPS indices must be equal; fp32 convs within
-1e-4 relative of the largest output (the kernel and the plain matmul sum
-27*C products in different orders); bf16 convs within 2 bf16 ulps of the
-largest output (both round one fp32 sum to bf16).
+Tolerances: rulebooks, FPS indices and auction assignments must be
+equal; fp32 convs within 1e-4 relative of the largest output (the kernel
+and the plain matmul sum 27*C products in different orders); bf16 convs
+within 2 bf16 ulps of the largest output (both round one fp32 sum to
+bf16); weight gradients (fp32 sums over all rows, in another order)
+within 1e-4 relative of the largest entry, for bf16 and fp32 inputs
+alike, since bf16 rows and cotangents widen to fp32 exactly.
 """
 import numpy as np
 import pytest
 import torch
 
-from uni3detr_tpu_torch.ops import fps, sparse_conv_cuda as sc
+from uni3detr_tpu_torch.ops import fps, matching, sparse_conv_cuda as sc
 from uni3detr_tpu_torch.ops.sparse_conv import (
-    downsample_sites, linear_ids, strided_query_ids, subm_query_ids)
+    downsample_sites, linear_ids, strided_inverse_query_ids,
+    strided_query_ids, subm_query_ids)
 
 pytestmark = pytest.mark.cuda
 
@@ -121,3 +125,107 @@ def test_cuda_wrappers_reject_cpu_mix(dev):
     q = torch.zeros(1, 8, 27, dtype=torch.int32)
     with pytest.raises(ValueError):
         sc.match_positions(ids.to(dev), q, 8)
+    with pytest.raises(ValueError):
+        sc.gather_conv_ids_dw(torch.zeros(1, 8, 4, device=dev), ids.to(dev),
+                              q, torch.zeros(1, 8, 4, device=dev))
+
+
+def _dw_close(out, ref):
+    scale = ref.abs().max().item() + 1e-6
+    err = (out - ref).abs().max().item()
+    assert out.dtype == torch.float32 and err <= 1e-4 * scale, (err, scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,Cout,B", [(4, 16, 2), (16, 16, 1), (32, 32, 2),
+                                      (128, 128, 1), (5, 70, 1)])
+def test_gather_conv_dw_kernel(dev, dtype, C, Cout, B):
+    rng = np.random.RandomState(C + 7 * Cout)
+    grid = (16, 40, 40)
+    V = 2500
+    parts = [_sites(rng, grid, 2300, V) for _ in range(B)]
+    coords = torch.cat([p[0] for p in parts])
+    mask = torch.cat([p[1] for p in parts])
+    nb = sc.match_positions_plain(linear_ids(coords, mask, grid),
+                                  subm_query_ids(coords, mask, grid), V)
+    feats = torch.from_numpy(rng.randn(B, V, C).astype(np.float32)).to(dtype)
+    g = torch.from_numpy(rng.randn(B, V, Cout).astype(np.float32)).to(dtype)
+    args = [t.to(dev) for t in (feats, nb, g)]
+    ref = sc.gather_conv_dw_plain(*args)
+    got = sc.gather_conv_dw(*args)
+    torch.cuda.synchronize()
+    _dw_close(got, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_conv_ids_dw_kernel(dev, dtype):
+    rng = np.random.RandomState(4)
+    grid = (16, 40, 40)
+    V, C, Cout = 3000, 32, 64
+    coords, mask = _sites(rng, grid, 2500, V)
+    oc, om, og = downsample_sites(coords, mask, grid, (1, 1, 1), 1024)
+    ids = linear_ids(coords, mask, grid)
+    sq = strided_query_ids(oc, om, grid, (1, 1, 1))
+    feats = torch.from_numpy(rng.randn(1, V, C).astype(np.float32)).to(dtype)
+    g = torch.from_numpy(rng.randn(1, 1024, Cout).astype(np.float32)
+                         ).to(dtype)
+    args = [t.to(dev) for t in (feats, ids, sq, g)]
+    ref = sc.gather_conv_ids_dw_plain(*args)
+    got = sc.gather_conv_ids_dw(*args)
+    torch.cuda.synchronize()
+    _dw_close(got, ref)
+
+
+def test_conv_fns_backward_on_card_match_cpu(dev):
+    """GatherConvFn / GatherConvIdsFn on the card (K2/K3 for dfeats,
+    K7/K10 for dW) against the same Functions on the CPU (plain)."""
+    rng = np.random.RandomState(6)
+    grid = (16, 40, 40)
+    V = 2000
+    coords, mask = _sites(rng, grid, 1800, V)
+    ids = linear_ids(coords, mask, grid)
+    nb = sc.match_positions_plain(ids, subm_query_ids(coords, mask, grid), V)
+    oc, om, og = downsample_sites(coords, mask, grid, (0, 1, 1), 800)
+    sq = strided_query_ids(oc, om, grid, (0, 1, 1))
+    invq = strided_inverse_query_ids(coords, mask, og, (0, 1, 1))
+    oids = linear_ids(oc, om, og)
+    feats = torch.from_numpy(rng.randn(1, V, 16).astype(np.float32))
+    w1 = torch.from_numpy(rng.randn(27, 16, 16).astype(np.float32) * 0.1)
+    w2 = torch.from_numpy(rng.randn(27, 16, 32).astype(np.float32) * 0.1)
+    grads = {}
+    for where in ("cpu", dev):
+        f, a, b = (t.to(where, copy=True).requires_grad_()
+                   for t in (feats, w1, w2))
+        y = sc.GatherConvFn.apply(f, nb.to(where), a)
+        z = sc.GatherConvIdsFn.apply(y, ids.to(where), sq.to(where), b,
+                                     invq.to(where), oids.to(where))
+        (z.float() ** 2).sum().backward()
+        grads[str(where)] = [t.grad.cpu() for t in (f, a, b)]
+    torch.cuda.synchronize()
+    for got, ref in zip(grads[str(dev)], grads["cpu"]):
+        _dw_close(got, ref)
+
+
+def _duplicated_benefit(rng, G, M, N, n_real):
+    """KITTI-like instances: gt_repeat=5 duplicated bidders, -1e6 dummy
+    items, as match_queries_to_gt pads them."""
+    base = rng.randn(G, M // 5 + 1, n_real)
+    b = np.full((G, M, N), -1e6)
+    b[:, :, :n_real] = np.tile(base, (1, 5, 1))[:, :M] \
+        + 1e-6 * rng.randn(G, M, n_real)
+    b = torch.from_numpy(b.astype(np.float32))
+    flat = b[:, :, :n_real].reshape(G, -1)
+    return b, (flat.amax(1) - flat.amin(1)).clamp(min=1e-6)
+
+
+@pytest.mark.parametrize("G,M,N,eps_div", [(12, 64, 384, 2048.0),
+                                           (10, 256, 384, 512.0)])
+def test_auction_kernel_equals_plain(dev, G, M, N, eps_div):
+    """SUN RGB-D (benefit in shared memory) and KITTI (benefit in global
+    memory) instance shapes."""
+    b, spread = _duplicated_benefit(np.random.RandomState(M), G, M, N, 300)
+    ref = matching.auction_lap_plain(b.to(dev), spread.to(dev), eps_div)
+    got = matching.auction_lap(b.to(dev), spread.to(dev), eps_div)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), ref.cpu())
+    assert (ref >= 0).all()

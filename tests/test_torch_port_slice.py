@@ -104,12 +104,20 @@ def test_tiny_detector_boxes_match_jax(runs, scene):
     assert jv.sum() > 0
 
 
-def test_port_refuses_train_mode():
-    model = TModel(tpresets.TINY_SYNTHETIC)
-    pts, mask, rnd = _scene(2)
-    with pytest.raises(NotImplementedError):
-        model(torch.from_numpy(pts), torch.from_numpy(mask),
-              torch.from_numpy(rnd))
-    with pytest.raises(NotImplementedError):
-        model.eval()(torch.from_numpy(pts), torch.from_numpy(mask),
-                     torch.from_numpy(rnd), train=True)
+def test_port_train_mode_forward_shapes():
+    """Train mode (``model.train()``): three query groups per layer (no
+    random group), finite outputs with a graph back to the weights, the
+    train voxel budget and batch statistics."""
+    model = TModel(tpresets.TINY_SYNTHETIC).train()
+    pts, mask, _ = _scene(2)
+    outs, inter = model(torch.from_numpy(pts), torch.from_numpy(mask),
+                        return_intermediates=True)
+    L, nq = CFG.num_decoder_layers, 3 * CFG.num_query
+    assert tuple(outs["all_cls_scores"].shape) == (L, 1, nq, CFG.num_classes)
+    assert tuple(outs["all_bbox_preds"].shape) == (L, 1, nq, CFG.code_size)
+    assert tuple(outs["all_iou_preds"].shape) == (L, 1, nq)
+    for v in outs.values():
+        assert v.requires_grad and bool(torch.isfinite(v).all())
+    assert inter["vmask"].shape[1] == CFG.max_voxels
+    bn = model.pts_middle_encoder.conv_input[1]
+    assert int(bn.num_batches_tracked) == 1

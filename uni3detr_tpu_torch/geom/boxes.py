@@ -20,10 +20,29 @@ def inverse_sigmoid(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return torch.log(x1 / x2)
 
 
+def gravity_center_boxes(boxes: torch.Tensor) -> torch.Tensor:
+    """Storage box (bottom z) -> model box (gravity-centre z)."""
+    z = boxes[..., 2:3] + boxes[..., 5:6] * 0.5
+    return torch.cat([boxes[..., :2], z, boxes[..., 3:]], dim=-1)
+
+
 def bottom_center_boxes(boxes: torch.Tensor) -> torch.Tensor:
     """Model box (gravity-centre z) -> storage box (bottom z)."""
     z = boxes[..., 2:3] - boxes[..., 5:6] * 0.5
     return torch.cat([boxes[..., :2], z, boxes[..., 3:]], dim=-1)
+
+
+def encode_boxes(boxes: torch.Tensor) -> torch.Tensor:
+    """Gravity-centred boxes (..., 7|9) -> normalized code (..., 8|10):
+    log sizes with a 1e-5 floor, rotation as (sin r', cos r')."""
+    rot = -boxes[..., 6:7] - math.pi / 2
+    out = [boxes[..., 0:1], boxes[..., 1:2],
+           torch.log(boxes[..., 3:4] + 1e-5), torch.log(boxes[..., 4:5] + 1e-5),
+           boxes[..., 2:3], torch.log(boxes[..., 5:6] + 1e-5),
+           torch.sin(rot), torch.cos(rot)]
+    if boxes.shape[-1] > 7:
+        out.append(boxes[..., 7:9])
+    return torch.cat(out, dim=-1)
 
 
 def decode_boxes(code: torch.Tensor) -> torch.Tensor:

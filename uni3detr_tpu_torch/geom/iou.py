@@ -8,6 +8,8 @@ half-planes keeps at most 8 vertices). Box layout:
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from .boxes import corners_bev
@@ -97,19 +99,84 @@ def _z_overlap(boxes1, boxes2, z_origin):
     return (torch.minimum(hi1, hi2) - torch.maximum(lo1, lo2)).clamp(min=0.0)
 
 
+def _iou3d_from_parts(inter_bev, zo, boxes1, boxes2, eps):
+    inter = inter_bev * zo
+    v1 = boxes1[..., 3] * boxes1[..., 4] * boxes1[..., 5]
+    v2 = boxes2[..., 3] * boxes2[..., 4] * boxes2[..., 5]
+    return (inter / (v1 + v2 - inter).clamp(min=eps)).clamp(0.0, 1.0)
+
+
+def iou3d_rotated_aligned(boxes1, boxes2, z_origin: str = "center",
+                          eps: float = 1e-6):
+    """Elementwise exact rotated 3D IoU: (..., >=7) x (..., >=7) -> (...)."""
+    shape = torch.broadcast_shapes(boxes1.shape[:-1], boxes2.shape[:-1])
+    b1 = _bev5(boxes1).expand(*shape, 5).reshape(-1, 5)
+    b2 = _bev5(boxes2).expand(*shape, 5).reshape(-1, 5)
+    inter_bev = _rect_intersection_area(b1, b2).reshape(shape)
+    zo = _z_overlap(boxes1, boxes2, z_origin)
+    return _iou3d_from_parts(inter_bev, zo, boxes1, boxes2, eps)
+
+
 def iou3d_rotated(boxes1, boxes2, z_origin: str = "center",
                   eps: float = 1e-6):
-    """Pairwise exact rotated 3D IoU: (N, >=7) x (M, >=7) -> (N, M).
+    """Pairwise exact rotated 3D IoU: (..., N, >=7) x (..., M, >=7) ->
+    (..., N, M).
 
     mmdet3d ``bbox_overlaps_3d`` semantics: rotated BEV polygon
     intersection times the z overlap.
     """
-    N, M = boxes1.shape[0], boxes2.shape[0]
-    b1 = _bev5(boxes1)[:, None, :].expand(N, M, 5).reshape(N * M, 5)
-    b2 = _bev5(boxes2)[None, :, :].expand(N, M, 5).reshape(N * M, 5)
-    inter_bev = _rect_intersection_area(b1, b2).reshape(N, M)
-    zo = _z_overlap(boxes1[:, None, :], boxes2[None, :, :], z_origin)
-    inter = inter_bev * zo
-    v1 = (boxes1[:, 3] * boxes1[:, 4] * boxes1[:, 5])[:, None]
-    v2 = (boxes2[:, 3] * boxes2[:, 4] * boxes2[:, 5])[None, :]
-    return (inter / (v1 + v2 - inter).clamp(min=eps)).clamp(0.0, 1.0)
+    return iou3d_rotated_aligned(boxes1[..., :, None, :],
+                                 boxes2[..., None, :, :], z_origin, eps)
+
+
+def _limit_period(val, offset: float = 0.5, period: float = math.pi):
+    return val - torch.floor(val / period + offset) * period
+
+
+def _nearest_bev_xyxy(boxes):
+    """(..., >=7) -> xyxy of the nearest axis-aligned BEV box (mmdet3d
+    ``nearest_bev``: yaw limited to [-pi/2, pi/2), dx/dy swapped when
+    |yaw| > pi/4, rotation dropped)."""
+    rot = _limit_period(boxes[..., 6])
+    cond = rot.abs() > math.pi / 4
+    w = torch.where(cond, boxes[..., 4], boxes[..., 3])
+    l = torch.where(cond, boxes[..., 3], boxes[..., 4])
+    cx, cy = boxes[..., 0], boxes[..., 1]
+    return torch.stack([cx - w * 0.5, cy - l * 0.5, cx + w * 0.5,
+                        cy + l * 0.5], dim=-1)
+
+
+def _iou2d_xyxy(b1, b2, eps: float = 1e-6):
+    lt = torch.maximum(b1[..., :2], b2[..., :2])
+    rb = torch.minimum(b1[..., 2:], b2[..., 2:])
+    wh = (rb - lt).clamp(min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    a1 = (b1[..., 2] - b1[..., 0]) * (b1[..., 3] - b1[..., 1])
+    a2 = (b2[..., 2] - b2[..., 0]) * (b2[..., 3] - b2[..., 1])
+    return inter / (a1 + a2 - inter).clamp(min=eps)
+
+
+def nearest_bev_iou(boxes1, boxes2):
+    """Pairwise 2D IoU of the nearest axis-aligned BEV boxes:
+    (..., N, >=7) x (..., M, >=7) -> (..., N, M) (mmdet3d
+    ``bbox_overlaps_nearest_3d``)."""
+    b1 = _nearest_bev_xyxy(boxes1)
+    b2 = _nearest_bev_xyxy(boxes2)
+    return _iou2d_xyxy(b1[..., :, None, :], b2[..., None, :, :])
+
+
+def nearest_bev_iou_aligned(boxes1, boxes2):
+    """Elementwise nearest-BEV 2D IoU: (..., >=7) x (..., >=7) -> (...)."""
+    return _iou2d_xyxy(_nearest_bev_xyxy(boxes1), _nearest_bev_xyxy(boxes2))
+
+
+def z_interval_iou_aligned(boxes1, boxes2, eps: float = 1e-6):
+    """Elementwise 1D IoU of the centre-origin z extents (overlap over the
+    enclosing span)."""
+    lo1 = boxes1[..., 2] - boxes1[..., 5] * 0.5
+    hi1 = boxes1[..., 2] + boxes1[..., 5] * 0.5
+    lo2 = boxes2[..., 2] - boxes2[..., 5] * 0.5
+    hi2 = boxes2[..., 2] + boxes2[..., 5] * 0.5
+    inter = (torch.minimum(hi1, hi2) - torch.maximum(lo1, lo2)).clamp(min=0.0)
+    span = torch.maximum(hi1, hi2) - torch.minimum(lo1, lo2)
+    return inter / span.clamp(min=eps)

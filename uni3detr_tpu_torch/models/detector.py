@@ -1,11 +1,11 @@
-"""Uni3DETR detector, eval form (port of
-``uni3detr_tpu/models/detector.py``).
+"""Uni3DETR detector (port of ``uni3detr_tpu/models/detector.py``).
 
 points -> hard voxelize + mean VFE -> SparseEncoderHD -> SECOND3D ->
 SECOND3DFPN -> paired D-FPS query seeds -> Uni3DETRHead. Submodule names
 are the reference's (``pts_middle_encoder``, ``pts_backbone``,
 ``pts_neck``, ``pts_bbox_head``), so ``state_dict()`` is a reference
-checkpoint.
+checkpoint. ``model.train()`` is the JAX package's ``train=True``: the
+train voxel budget, batch statistics, dropout and three query groups.
 """
 from __future__ import annotations
 
@@ -55,8 +55,9 @@ class Uni3DETR(nn.Module):
             code_size=cfg.code_size, embed_dim=cfg.embed_dim,
             num_decoder_layers=cfg.num_decoder_layers,
             num_heads=cfg.num_heads, ffn_dim=cfg.ffn_dim,
-            pc_range=tuple(cfg.pc_range))
+            dropout=cfg.dropout, pc_range=tuple(cfg.pc_range))
 
+    @torch.no_grad()
     def voxelize(self, points, pts_mask):
         cfg = self.cfg
         return hard_voxelize(
@@ -64,20 +65,25 @@ class Uni3DETR(nn.Module):
             voxel_size=tuple(cfg.voxel_size),
             grid_size=tuple(cfg.grid_size),
             max_points=cfg.max_points_per_voxel,
-            max_voxels=cfg.max_voxels_test)
+            max_voxels=cfg.max_voxels if self.training
+            else cfg.max_voxels_test)
 
-    @torch.no_grad()
-    def forward(self, points, pts_mask, random_points, train: bool = False,
+    def forward(self, points, pts_mask, random_points=None,
                 return_intermediates: bool = False):
         """points (B, P, C) xyz first; pts_mask (B, P) bool;
-        random_points (B, nq, 3) uniform [0, 1) for the eval query group.
+        random_points (B, nq, 3) uniform [0, 1) for the eval query group
+        (unused in training).
 
         Returns the head's per-layer output stacks; with
         ``return_intermediates`` also a dict of the voxelization and the
-        FPS indices.
+        FPS indices. In eval mode no autograd graph is recorded;
+        voxelization and FPS never record one.
         """
-        if train or self.training:
-            raise NotImplementedError("the port supports eval only")
+        with torch.set_grad_enabled(self.training and torch.is_grad_enabled()):
+            return self._forward(points, pts_mask, random_points,
+                                 return_intermediates)
+
+    def _forward(self, points, pts_mask, random_points, return_intermediates):
         cfg = self.cfg
         dtype = cfg.torch_dtype
         feats, coords, vmask = self.voxelize(points, pts_mask)
@@ -87,15 +93,17 @@ class Uni3DETR(nn.Module):
         fused = fused.permute(0, 2, 3, 4, 1).contiguous()   # (B, D, H, W, C)
 
         nq = cfg.num_query
-        xyz = points[..., :3].float().contiguous()
-        # voxel-coordinate FPS: (z, y, x) ints -> (x, y, z) floats
-        vc = coords.flip(-1).float()
-        vc = torch.where(vmask[..., None], vc, torch.zeros_like(vc))
-        idx1, idx2 = farthest_point_sample_pair(xyz, pts_mask, vc, vmask, nq)
-        take = lambda p, i: torch.gather(
-            p, 1, i.long()[..., None].expand(-1, -1, 3))
-        fpsbpts = torch.cat([_minmax_norm(take(xyz, idx1)),
-                             _minmax_norm(take(vc, idx2))], dim=1)
+        with torch.no_grad():
+            xyz = points[..., :3].float().contiguous()
+            # voxel-coordinate FPS: (z, y, x) ints -> (x, y, z) floats
+            vc = coords.flip(-1).float()
+            vc = torch.where(vmask[..., None], vc, torch.zeros_like(vc))
+            idx1, idx2 = farthest_point_sample_pair(xyz, pts_mask, vc,
+                                                    vmask, nq)
+            take = lambda p, i: torch.gather(
+                p, 1, i.long()[..., None].expand(-1, -1, 3))
+            fpsbpts = torch.cat([_minmax_norm(take(xyz, idx1)),
+                                 _minmax_norm(take(vc, idx2))], dim=1)
         outs = self.pts_bbox_head(fused, fpsbpts, random_points)
         if return_intermediates:
             return outs, {"feats": feats, "coords": coords, "vmask": vmask,

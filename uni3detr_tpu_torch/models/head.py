@@ -1,9 +1,9 @@
-"""Uni3DETR detection head (port of ``uni3detr_tpu/models/head.py``),
-eval form.
+"""Uni3DETR detection head (port of ``uni3detr_tpu/models/head.py``).
 
-Four query groups of ``num_query`` each: learned anchors with their own
-content embedding, then FPS-on-points, FPS-on-voxels and random points,
-which share the second content embedding. Per decoder layer the cls
+Query groups of ``num_query`` each: learned anchors with their own
+content embedding, then FPS-on-points and FPS-on-voxels, which share the
+second content embedding; in eval a fourth group of random points shares
+it too (train 3 groups, eval 4). Per decoder layer the cls
 (Linear+LN+ReLU), reg and IoU branches decode boxes in ``pc_range``.
 Returns the (L, B, G*nq, .) stacks that the coder reads.
 """
@@ -27,7 +27,7 @@ class Uni3DETRHead(nn.Module):
     def __init__(self, num_classes: int, num_query: int = 300,
                  code_size: int = 8, embed_dim: int = 256,
                  num_decoder_layers: int = 3, num_heads: int = 8,
-                 ffn_dim: int = 512,
+                 ffn_dim: int = 512, dropout: float = 0.0,
                  pc_range: Tuple[float, ...] = (-3.2, -0.2, -2.0, 3.2, 6.2,
                                                 0.56)):
         super().__init__()
@@ -45,22 +45,28 @@ class Uni3DETRHead(nn.Module):
         self.iou_branches = nn.ModuleList(
             branch_mlp(C, 1, layer_norm=False) for _ in range(L))
         self.transformer = _Transformer(Uni3DETRDecoder(
-            L, embed_dim=C, num_heads=num_heads, ffn_dim=ffn_dim))
+            L, embed_dim=C, num_heads=num_heads, ffn_dim=ffn_dim,
+            dropout=dropout))
 
-    def forward(self, volume, fpsbpts, random_points):
+    def forward(self, volume, fpsbpts, random_points=None):
         """volume (B, D, H, W, C) channels-last; fpsbpts (B, 2*nq, 3) in
-        [0, 1]; random_points (B, nq, 3) uniform in [0, 1)."""
+        [0, 1]; random_points (B, nq, 3) uniform in [0, 1), the eval
+        group (unused in training)."""
         B = fpsbpts.shape[0]
         nq = self.num_query
         tgt = self.tgt_embed.weight
         C = tgt.shape[1]
         shared = tgt[nq:].expand(B, 1, nq, C)
-        query = torch.cat([tgt[:nq].expand(B, 1, nq, C), shared, shared,
-                           shared], dim=1)                  # (B, 4, nq, C)
-        ref = torch.cat([
-            self.refpoint_embed.weight.expand(B, 1, nq, 3),
-            inverse_sigmoid(fpsbpts).reshape(B, 2, nq, 3),
-            inverse_sigmoid(random_points)[:, None]], dim=1)
+        contents = [tgt[:nq].expand(B, 1, nq, C), shared, shared]
+        refs = [self.refpoint_embed.weight.expand(B, 1, nq, 3),
+                inverse_sigmoid(fpsbpts).reshape(B, 2, nq, 3)]
+        if not self.training:
+            if random_points is None:
+                raise ValueError("eval needs the random query group")
+            contents.append(shared)
+            refs.append(inverse_sigmoid(random_points)[:, None])
+        query = torch.cat(contents, dim=1)                  # (B, G, nq, C)
+        ref = torch.cat(refs, dim=1)
         G = query.shape[1]
         states, refs_in = self.transformer.decoder(query, ref, volume,
                                                    self.reg_branches)

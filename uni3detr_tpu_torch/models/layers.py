@@ -13,11 +13,14 @@ from torch import nn
 
 
 class MaskedBatchNorm(nn.BatchNorm1d):
-    """BatchNorm1d over a masked voxel list (B, V, C), eval form.
+    """BatchNorm1d over a masked voxel list (B, V, C), eps 1e-3.
 
-    Running statistics, eps 1e-3; computed in fp32, multiplied by the
-    mask and returned in the input dtype. The state_dict keys are those
-    of ``nn.BatchNorm1d``.
+    Computed in fp32, multiplied by the mask and returned in the input
+    dtype. In training the statistics are taken over the mask-valid rows
+    of the whole batch, two-pass, with the biased variance, and the
+    running statistics move by ``momentum`` towards the same biased
+    values (flax's rule; ``nn.BatchNorm1d`` would store the unbiased
+    variance). The state_dict keys are those of ``nn.BatchNorm1d``.
     """
 
     def __init__(self, num_features: int, eps: float = 1e-3,
@@ -25,10 +28,20 @@ class MaskedBatchNorm(nn.BatchNorm1d):
         super().__init__(num_features, eps=eps, momentum=momentum)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
         if self.training:
-            raise NotImplementedError("MaskedBatchNorm: eval only")
-        y = (x.float() - self.running_mean) * torch.rsqrt(
-            self.running_var + self.eps)
+            m = mask[..., None].float()
+            red = tuple(range(x.dim() - 1))
+            cnt = m.sum().clamp(min=1.0)
+            mean = (xf * m).sum(dim=red) / cnt
+            var = (((xf - mean) ** 2) * m).sum(dim=red) / cnt
+            with torch.no_grad():
+                self.running_mean.lerp_(mean, self.momentum)
+                self.running_var.lerp_(var, self.momentum)
+                self.num_batches_tracked.add_(1)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (xf - mean) * torch.rsqrt(var + self.eps)
         y = y * self.weight + self.bias
         return (y * mask[..., None]).to(x.dtype)
 

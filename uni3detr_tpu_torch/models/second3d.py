@@ -17,12 +17,41 @@ from typing import Sequence
 
 import torch
 from torch import nn
+from torch.nn import functional as F
+
+
+class BatchNorm3d(nn.BatchNorm3d):
+    """``nn.BatchNorm3d`` (eps 1e-3, momentum 0.01) whose running
+    variance follows flax's ``BatchNorm``: it moves towards the biased
+    batch variance E[x^2] - E[x]^2, where torch would store the unbiased
+    one. Normalization and the state_dict keys are torch's."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=1e-3, momentum=0.01)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            dims = (0, 2, 3, 4)
+            mean = x.mean(dim=dims)
+            var = ((x * x).mean(dim=dims) - mean * mean).clamp(min=0.0)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked.add_(1)
+        if x.numel() == x.shape[1]:
+            # one value per channel: torch refuses, flax normalizes with
+            # variance 0: x - mean(x) = 0 (gradient 0), output the bias
+            shape = (1, -1, 1, 1, 1)
+            return (x - x) * self.weight.view(shape) + self.bias.view(shape)
+        return F.batch_norm(x, None, None, self.weight, self.bias,
+                            training=True, eps=self.eps)
 
 
 def _conv_bn_relu(cin, cout, kernel, stride=1, padding=0):
     return [nn.Conv3d(cin, cout, kernel, stride=stride, padding=padding,
                       bias=False),
-            nn.BatchNorm3d(cout, eps=1e-3, momentum=0.01), nn.ReLU()]
+            BatchNorm3d(cout), nn.ReLU()]
 
 
 def _run(seq: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
@@ -70,9 +99,7 @@ class SECOND3DFPN(nn.Module):
                                         stride=(1, s, s), bias=False)
             else:
                 up = nn.Conv3d(cin, cout, 1, bias=False)
-            deblocks.append(nn.Sequential(
-                up, nn.BatchNorm3d(cout, eps=1e-3, momentum=0.01),
-                nn.ReLU()))
+            deblocks.append(nn.Sequential(up, BatchNorm3d(cout), nn.ReLU()))
         self.deblocks = nn.ModuleList(deblocks)
         extra = []
         for _ in range(num_extra_conv):

@@ -9,7 +9,10 @@ One route on every device: each site set gets ONE rulebook from
 ``match_positions`` (K1), shared by all its submanifold convs, which run
 ``gather_conv`` (K2); the strided convs run ``gather_conv_ids`` (K3),
 which finds its neighbours by id. Strided site sets come from the sort
-route of ``downsample_sites``, cut to the per-stage budget.
+route of ``downsample_sites``, cut to the per-stage budget. The convs go
+through ``GatherConvFn`` / ``GatherConvIdsFn``, whose backward runs K2 /
+K3 for the feature gradient and K7 / K10 for the weight gradient; the
+site sets and rulebooks are integer work, built without autograd.
 """
 from __future__ import annotations
 
@@ -20,8 +23,9 @@ import torch
 from torch import nn
 
 from ..ops.sparse_conv import (downsample_sites, linear_ids,
-                               strided_query_ids, subm_query_ids)
-from ..ops.sparse_conv_cuda import (gather_conv, gather_conv_ids,
+                               strided_inverse_query_ids, strided_query_ids,
+                               subm_query_ids)
+from ..ops.sparse_conv_cuda import (GatherConvFn, GatherConvIdsFn,
                                     match_positions)
 from ..ops.voxelize import scatter_to_dense
 from .layers import MaskedBatchNorm
@@ -55,9 +59,9 @@ class SparseBasicBlock(nn.Module):
         self.bn2 = MaskedBatchNorm(channels)
 
     def forward(self, x, nb, mask):
-        y = torch.relu(self.bn1(gather_conv(x, nb, self.conv1.kernel()),
-                                mask))
-        y = self.bn2(gather_conv(y, nb, self.conv2.kernel()), mask)
+        y = GatherConvFn.apply(x, nb, self.conv1.kernel())
+        y = torch.relu(self.bn1(y, mask))
+        y = self.bn2(GatherConvFn.apply(y, nb, self.conv2.kernel()), mask)
         return torch.relu(y + x)
 
 
@@ -112,13 +116,16 @@ class SparseEncoderHD(nn.Module):
             budget = min(budget, self.budget_caps[i])
         return max(budget, 256)
 
-    def site_sets(self, coords, vmask):
+    @torch.no_grad()
+    def site_sets(self, coords, vmask, backward: bool = False):
         """The site set of every stage, from the voxel list alone.
 
         A list with one dict per stage: ``coords``, ``mask``, ``grid``,
         ``ids`` (sorted linear ids), ``qids`` (submanifold query ids),
         ``n_sites`` (the row budget) and, after the first, ``sq`` (the
-        strided conv's query ids into the previous set)."""
+        strided conv's query ids into the previous set) and, with
+        ``backward``, ``invq`` (the output-space ids each input of the
+        strided conv feeds, for its feature gradient)."""
         V = coords.shape[1]
         sets = [dict(coords=coords, mask=vmask, grid=self.sparse_shape,
                      n_sites=V)]
@@ -129,6 +136,9 @@ class SparseEncoderHD(nn.Module):
                                        prev["grid"], pad, budget)
             sets.append(dict(coords=c, mask=m, grid=g, n_sites=budget,
                              sq=strided_query_ids(c, m, prev["grid"], pad)))
+            if backward:
+                sets[-1]["invq"] = strided_inverse_query_ids(
+                    prev["coords"], prev["mask"], g, pad)
         for s in sets:
             s["ids"] = linear_ids(s["coords"], s["mask"], s["grid"])
             s["qids"] = subm_query_ids(s["coords"], s["mask"], s["grid"])
@@ -139,19 +149,19 @@ class SparseEncoderHD(nn.Module):
         linear id with invalid rows last, vmask (B, V).
 
         Returns (volume (B, D', H', W', Cout), out_grid)."""
-        sets = self.site_sets(coords, vmask)
+        sets = self.site_sets(coords, vmask, backward=torch.is_grad_enabled())
         x = feats.to(self.compute_dtype)
         for i, s in enumerate(sets):
             mods = self.encoder_layers[f"encoder_layer{i + 1}"]
+            nb = match_positions(s["ids"], s["qids"], s["n_sites"])
             if i == 0:
-                nb = match_positions(s["ids"], s["qids"], s["n_sites"])
                 conv, bn, _ = self.conv_input
-                x = gather_conv(x, nb, conv.kernel())
+                x = GatherConvFn.apply(x, nb, conv.kernel())
             else:
                 conv, bn, _ = self.encoder_layers[f"encoder_layer{i}"][-1]
-                x = gather_conv_ids(x, sets[i - 1]["ids"], s["sq"],
-                                    conv.kernel())
-                nb = match_positions(s["ids"], s["qids"], s["n_sites"])
+                x = GatherConvIdsFn.apply(x, sets[i - 1]["ids"], s["sq"],
+                                          conv.kernel(), s.get("invq"),
+                                          s["ids"])
             x = torch.relu(bn(x, s["mask"]))
             for block in (mods if i == len(sets) - 1 else mods[:-1]):
                 x = block(x, nb, s["mask"])

@@ -7,12 +7,16 @@ the sigmoided reference point, weighted by a learned per-query sigmoid,
 and adds an MLP encoding of the raw reference. After each layer the
 reference moves by the reg branch's xy/z in logit space, detached.
 Query groups fold into the batch axis, so they never attend to each
-other. Keys follow the reference ``transformer.decoder`` layout.
+other. Keys follow the reference ``transformer.decoder`` layout. In
+training, dropout acts where the JAX package puts it: on the attention
+weights and the output of the self-attention, on the cross-attention's
+projected output, and after both FFN layers.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from ..ops.sample import grid_sample_3d
 from .layers import MLP, sine_pos_embed
@@ -21,10 +25,10 @@ from .layers import MLP, sine_pos_embed
 class _SelfAttention(nn.Module):
     """Holds ``attn`` so keys read ``attentions.0.attn.in_proj_weight``."""
 
-    def __init__(self, embed_dim, num_heads):
+    def __init__(self, embed_dim, num_heads, dropout=0.0):
         super().__init__()
         self.attn = nn.MultiheadAttention(embed_dim, num_heads,
-                                          batch_first=True)
+                                          dropout=dropout, batch_first=True)
 
     def forward(self, q, v):
         return self.attn(q, q, v, need_weights=False)[0]
@@ -34,8 +38,9 @@ class UniCrossAtten(nn.Module):
     """Volume-sampling cross-attention, one sample point per query
     (num_points=1, as every shipped config)."""
 
-    def __init__(self, embed_dim: int = 256):
+    def __init__(self, embed_dim: int = 256, dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.attention_weights = nn.Linear(embed_dim, 1)
         self.output_proj = nn.Linear(embed_dim, embed_dim)
         self.position_encoder = nn.Sequential(
@@ -51,30 +56,36 @@ class UniCrossAtten(nn.Module):
         grid = torch.sigmoid(ref_raw) * 2.0 - 1.0       # (x, y, z)
         sampled = grid_sample_3d(volume, grid.reshape(B, G * nq, 3))
         sampled = sampled.reshape(B, G, nq, C)
-        out = self.output_proj(sampled * attw)
+        out = F.dropout(self.output_proj(sampled * attw), self.dropout,
+                        self.training)
         return out + x + self.position_encoder(ref_raw)
 
 
 class _FFN(nn.Module):
     """mmcv FFN key layout: ``layers.0.0`` and ``layers.1``."""
 
-    def __init__(self, embed_dim, ffn_dim):
+    def __init__(self, embed_dim, ffn_dim, dropout=0.0):
         super().__init__()
+        self.dropout = dropout
         self.layers = nn.Sequential(
             nn.Sequential(nn.Linear(embed_dim, ffn_dim), nn.ReLU()),
             nn.Linear(ffn_dim, embed_dim))
 
     def forward(self, x):
-        return self.layers(x)
+        y = F.dropout(self.layers[0](x), self.dropout, self.training)
+        return F.dropout(self.layers[1](y), self.dropout, self.training)
 
 
 class DecoderLayer(nn.Module):
 
-    def __init__(self, embed_dim=256, num_heads=8, ffn_dim=512):
+    def __init__(self, embed_dim=256, num_heads=8, ffn_dim=512,
+                 dropout=0.0):
         super().__init__()
+        self.dropout = dropout
         self.attentions = nn.ModuleList([
-            _SelfAttention(embed_dim, num_heads), UniCrossAtten(embed_dim)])
-        self.ffns = nn.ModuleList([_FFN(embed_dim, ffn_dim)])
+            _SelfAttention(embed_dim, num_heads, dropout),
+            UniCrossAtten(embed_dim, dropout)])
+        self.ffns = nn.ModuleList([_FFN(embed_dim, ffn_dim, dropout)])
         self.norms = nn.ModuleList(
             nn.LayerNorm(embed_dim, eps=1e-5) for _ in range(3))
 
@@ -82,6 +93,7 @@ class DecoderLayer(nn.Module):
         B, G, nq, C = x.shape
         q = (x + query_pos).reshape(B * G, nq, C)
         attn = self.attentions[0](q, x.reshape(B * G, nq, C))
+        attn = F.dropout(attn, self.dropout, self.training)
         x = self.norms[0](x + attn.reshape(B, G, nq, C))
         x = self.norms[1](self.attentions[1](x, query_pos, volume, ref_raw))
         return self.norms[2](x + self.ffns[0](x))
@@ -89,12 +101,13 @@ class DecoderLayer(nn.Module):
 
 class Uni3DETRDecoder(nn.Module):
 
-    def __init__(self, num_layers, embed_dim=256, num_heads=8, ffn_dim=512):
+    def __init__(self, num_layers, embed_dim=256, num_heads=8, ffn_dim=512,
+                 dropout=0.0):
         super().__init__()
         self.ref_point_head = MLP(3 * 128, embed_dim, embed_dim, 3)
         self.query_scale = MLP(embed_dim, embed_dim, embed_dim, 3)
         self.layers = nn.ModuleList(
-            DecoderLayer(embed_dim, num_heads, ffn_dim)
+            DecoderLayer(embed_dim, num_heads, ffn_dim, dropout)
             for _ in range(num_layers))
 
     def forward(self, query, ref, volume, reg_branches):

@@ -7,7 +7,8 @@ finds the neighbour of site v at kernel offset k by looking up the
 *query id* of (v, k) in the sorted id list: ``match_positions`` turns
 query ids into a rulebook, ``gather_conv_ids`` searches them itself
 (both in ``sparse_conv_cuda``). Query id -1 marks an offset that falls
-off the grid or an invalid row.
+off the grid or an invalid row. The backward of a strided conv looks up
+:func:`strided_inverse_query_ids` in the output site list.
 
 Batched over a leading B axis; coords are int32 (z, y, x).
 """
@@ -62,6 +63,26 @@ def strided_query_ids(out_coords, out_mask, in_grid, padding: Sequence[int],
     pad = torch.as_tensor(padding, device=out_coords.device)
     src = out_coords.long()[..., None, :] * stride - pad + offs
     return _ids_in_grid(src, out_mask[..., None], in_grid)
+
+
+def strided_inverse_query_ids(in_coords, in_mask, out_grid,
+                              padding: Sequence[int], stride: int = 2,
+                              kernel: int = 3) -> torch.Tensor:
+    """(B, V, K) OUTPUT-space linear ids of the output each input feeds
+    at offset k (input = ``stride*o - padding + off``), the read set of
+    the transposed conv; -1 off the stride lattice, off the grid or on an
+    invalid row. An output cut by the site budget simply misses when it
+    is looked up, as it does in the forward."""
+    Do, Ho, Wo = out_grid
+    offs = kernel_offsets(kernel, in_coords.device)
+    pad = torch.as_tensor(padding, device=in_coords.device)
+    num = in_coords.long()[..., None, :] + pad - offs
+    div = torch.div(num, stride, rounding_mode="floor")
+    ok = ((num % stride == 0).all(-1) & (num >= 0).all(-1)
+          & (div[..., 0] < Do) & (div[..., 1] < Ho) & (div[..., 2] < Wo)
+          & in_mask[..., None])
+    nid = (div[..., 0] * Ho + div[..., 1]) * Wo + div[..., 2]
+    return torch.where(ok, nid, torch.full_like(nid, -1)).to(torch.int32)
 
 
 def downsample_sites(coords, mask, grid, padding: Sequence[int],

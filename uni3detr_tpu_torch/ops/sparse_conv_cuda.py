@@ -12,9 +12,16 @@ wrapper's ``launches`` attribute counts kernel launches.
   ``out[b, v] = sum_k feats[b, nb[b, v, k]] @ W[k]``, ``nb == V`` -> 0.
 - :func:`gather_conv_ids` (K3, replaces ``_kernel_idmatch``): the same
   conv with the neighbours found by id inside the kernel.
+- :func:`gather_conv_dw` (K7, replaces ``_gather_rows_kernel_unpacked``
+  and its packed twin): the weight gradient of a K2 conv,
+  ``dW[k] = sum_{b,v} feats[b, nb[b,v,k]]^T g[b,v]`` in fp32.
+- :func:`gather_conv_ids_dw` (K10, replaces ``_rows_kernel_idmatch`` and
+  its packed twin): the same for a K3 conv.
 
 Outputs keep the input dtype (bf16 or fp32); products accumulate in
-fp32. Eval only: there is no autograd rule yet.
+fp32. :class:`GatherConvFn` and :class:`GatherConvIdsFn` give the convs
+the backward rules of ``sparse_conv_pallas.py`` (``_bwd``, ``_ids_bwd``),
+built from the same kernels; the model calls the convs through them.
 """
 from __future__ import annotations
 
@@ -39,8 +46,9 @@ def _check_cuda_args(name: str, tensors) -> None:
                  f"{name}: all tensors must be on one CUDA device")
         _require(t.is_contiguous(), f"{name}: tensors must be contiguous")
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(f"{name}: the CUDA kernel has no "
-                                  "backward yet (eval only)")
+        raise RuntimeError(f"{name}: a kernel launch records no gradient; "
+                           "differentiate through GatherConvFn or "
+                           "GatherConvIdsFn")
 
 
 # --------------------------------------------------------------------------
@@ -97,15 +105,16 @@ def gather_conv_plain(features: torch.Tensor, neighbor_idx: torch.Tensor,
     weights (K, C, Cout) -> (B, Vout, Cout) in the features' dtype.
 
     The gathered rows and the weights are taken in the features' dtype
-    and multiplied in fp32, as the JAX reference's dot with fp32
-    accumulation."""
+    and multiplied in fp32 (fp64 for fp64 features), as the JAX
+    reference's dot with fp32 accumulation."""
     B, V, C = features.shape
     _, Vout, K = neighbor_idx.shape
+    acc = torch.promote_types(features.dtype, torch.float32)
     padded = torch.cat([features, features.new_zeros(B, 1, C)], dim=1)
     bidx = torch.arange(B, device=features.device)[:, None, None]
     gathered = padded[bidx, neighbor_idx.long().clamp(0, V)]
-    w = weights.to(features.dtype).reshape(K * C, -1).float()
-    out = gathered.reshape(B, Vout, K * C).float() @ w
+    w = weights.to(features.dtype).reshape(K * C, -1).to(acc)
+    out = gathered.reshape(B, Vout, K * C).to(acc) @ w
     return out.to(features.dtype)
 
 
@@ -195,3 +204,165 @@ def gather_conv_ids(features: torch.Tensor, site_ids: torch.Tensor,
 
 
 gather_conv_ids.launches = 0
+
+
+# --------------------------------------------------------------------------
+# K7 / K10: weight gradients
+# --------------------------------------------------------------------------
+
+# rows of the flattened (B*Vout) axis per block of the dW kernels; each
+# block writes one partial dW tile, summed in a second pass
+DW_CHUNK_ROWS = 1024
+
+
+def gather_conv_dw_plain(features: torch.Tensor, neighbor_idx: torch.Tensor,
+                         g: torch.Tensor) -> torch.Tensor:
+    """features (B, V, C); neighbor_idx (B, Vout, K) with V = missing;
+    g (B, Vout, Cout) -> dW (K, C, Cout) fp32 (fp64 for fp64 inputs).
+
+    The gathered rows stay in the features' dtype and are widened to
+    fp32 with the cotangent before the contraction, as the JAX backward
+    (``_bwd``: rows and g cast to fp32 before the einsum)."""
+    B, V, C = features.shape
+    _, Vout, K = neighbor_idx.shape
+    acc = torch.promote_types(features.dtype, torch.float32)
+    padded = torch.cat([features, features.new_zeros(B, 1, C)], dim=1)
+    bidx = torch.arange(B, device=features.device)[:, None, None]
+    rows = padded[bidx, neighbor_idx.long().clamp(0, V)]
+    dw = rows.reshape(B * Vout, K * C).to(acc).T @ \
+        g.reshape(B * Vout, -1).to(acc)
+    return dw.reshape(K, C, -1)
+
+
+def gather_conv_ids_dw_plain(features: torch.Tensor, site_ids: torch.Tensor,
+                             qids: torch.Tensor, g: torch.Tensor
+                             ) -> torch.Tensor:
+    """As :func:`gather_conv_dw_plain`, the neighbours found by id (see
+    :func:`gather_conv_ids_plain`)."""
+    nb = match_positions_plain(site_ids, qids, features.shape[1])
+    return gather_conv_dw_plain(features, nb, g)
+
+
+def _dw_launch(name, features, index_args, g, K):
+    B, V, C = features.shape
+    Vout, Cout = g.shape[1], g.shape[2]
+    n_chunks = -(-(B * Vout) // DW_CHUNK_ROWS)
+    partial = torch.empty((max(n_chunks, 1), K, C, Cout),
+                          dtype=torch.float32, device=features.device)
+    dw = torch.empty((K, C, Cout), dtype=torch.float32,
+                     device=features.device)
+    name = f"{name}_{_conv_suffix(features.dtype)}"
+    with torch.cuda.device(features.device):
+        status = getattr(cuda_lib.library(), name)(
+            features.data_ptr(), *[t.data_ptr() for t in index_args],
+            g.data_ptr(), partial.data_ptr(), dw.data_ptr(), B, V, C, Vout,
+            K, Cout, DW_CHUNK_ROWS, _stream(features))
+    cuda_lib.check(status, name)
+    return dw
+
+
+def _dw_args(name, features, g, Vout):
+    _require(features.dim() == 3 and g.dim() == 3
+             and g.shape[0] == features.shape[0] and g.shape[1] == Vout,
+             f"{name}: features (B, V, C), g (B, Vout, Cout)")
+    _require(features.dtype in (torch.float32, torch.bfloat16)
+             and g.dtype == features.dtype,
+             f"{name}: features and g must share one dtype, float32 or "
+             "bfloat16")
+
+
+def gather_conv_dw(features: torch.Tensor, neighbor_idx: torch.Tensor,
+                   g: torch.Tensor) -> torch.Tensor:
+    """K7. See :func:`gather_conv_dw_plain` for the contract."""
+    _require(neighbor_idx.dim() == 3 and neighbor_idx.dtype == torch.int32
+             and neighbor_idx.shape[0] == features.shape[0],
+             "gather_conv_dw: neighbor_idx (B, Vout, K) int32")
+    _dw_args("gather_conv_dw", features, g, neighbor_idx.shape[1])
+    if all(t.device.type == "cpu" for t in (features, neighbor_idx, g)):
+        return gather_conv_dw_plain(features, neighbor_idx, g)
+    _check_cuda_args("gather_conv_dw", (features, neighbor_idx, g))
+    dw = _dw_launch("u3d_gather_conv_dw", features, (neighbor_idx,), g,
+                    neighbor_idx.shape[2])
+    gather_conv_dw.launches += 1
+    return dw
+
+
+gather_conv_dw.launches = 0
+
+
+def gather_conv_ids_dw(features: torch.Tensor, site_ids: torch.Tensor,
+                       qids: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """K10. See :func:`gather_conv_ids_dw_plain` for the contract."""
+    _require(site_ids.dtype == torch.int32 and qids.dtype == torch.int32
+             and site_ids.shape == features.shape[:2] and qids.dim() == 3
+             and qids.shape[0] == features.shape[0],
+             "gather_conv_ids_dw: site_ids (B, V), qids (B, Vout, K) int32")
+    _dw_args("gather_conv_ids_dw", features, g, qids.shape[1])
+    if all(t.device.type == "cpu" for t in (features, site_ids, qids, g)):
+        return gather_conv_ids_dw_plain(features, site_ids, qids, g)
+    _check_cuda_args("gather_conv_ids_dw", (features, site_ids, qids, g))
+    dw = _dw_launch("u3d_gather_conv_ids_dw", features, (site_ids, qids), g,
+                    qids.shape[2])
+    gather_conv_ids_dw.launches += 1
+    return dw
+
+
+gather_conv_ids_dw.launches = 0
+
+
+# --------------------------------------------------------------------------
+# autograd: the backward rules of sparse_conv_pallas.py (_bwd, _ids_bwd)
+# --------------------------------------------------------------------------
+
+class GatherConvFn(torch.autograd.Function):
+    """Submanifold conv ``gather_conv(features, nb, W)`` with its backward:
+    the relation is symmetric (n(v, k) = u iff n(u, K-1-k) = v), so dfeats
+    is K2 over the same rulebook with the kernel-flipped, transposed
+    weights, and dW is K7. The weight gradient comes back in the weights'
+    dtype; dfeats is skipped when the features need none."""
+
+    @staticmethod
+    def forward(ctx, features, neighbor_idx, weights):
+        ctx.save_for_backward(features, neighbor_idx, weights)
+        return gather_conv(features, neighbor_idx, weights)
+
+    @staticmethod
+    def backward(ctx, g):
+        features, nb, weights = ctx.saved_tensors
+        g = g.to(features.dtype).contiguous()
+        df = dw = None
+        if ctx.needs_input_grad[0]:
+            df = gather_conv(g, nb, weights.flip(0).transpose(1, 2))
+        if ctx.needs_input_grad[2]:
+            dw = gather_conv_dw(features, nb, g).to(weights.dtype)
+        return df, None, dw
+
+
+class GatherConvIdsFn(torch.autograd.Function):
+    """Strided conv ``gather_conv_ids(features, site_ids, qids, W)`` with
+    its backward: dfeats is K3 from the output sites (``bwd_ids``, their
+    sorted ids) over ``bwd_qids`` (``strided_inverse_query_ids``: the
+    output-space id each input feeds at offset k) with the transposed,
+    unflipped weights; dW is K10."""
+
+    @staticmethod
+    def forward(ctx, features, site_ids, qids, weights, bwd_qids, bwd_ids):
+        ctx.save_for_backward(features, site_ids, qids, weights, bwd_qids,
+                              bwd_ids)
+        return gather_conv_ids(features, site_ids, qids, weights)
+
+    @staticmethod
+    def backward(ctx, g):
+        features, site_ids, qids, weights, bwd_qids, bwd_ids = \
+            ctx.saved_tensors
+        g = g.to(features.dtype).contiguous()
+        df = dw = None
+        if ctx.needs_input_grad[0]:
+            if bwd_qids is None or bwd_ids is None:
+                raise RuntimeError("GatherConvIdsFn: dfeats needs bwd_qids "
+                                   "and bwd_ids")
+            df = gather_conv_ids(g, bwd_ids, bwd_qids, weights.transpose(1, 2))
+        if ctx.needs_input_grad[3]:
+            dw = gather_conv_ids_dw(features, site_ids, qids, g).to(
+                weights.dtype)
+        return df, None, None, dw, None, None

@@ -1,4 +1,5 @@
-"""Seeded synthetic scenes for the port's smoke run and profiles."""
+"""Seeded synthetic scenes and train batches for the port's smoke run,
+profiles and tests."""
 from __future__ import annotations
 
 import numpy as np
@@ -6,14 +7,8 @@ import numpy as np
 from .config import Uni3DETRConfig
 
 
-def clustered_scene(seed: int, cfg: Uni3DETRConfig):
-    """One scene of ``cfg.num_points`` points shaped like a real scan: 24
-    tight Gaussian blobs inside ``pc_range``, each squashed along one
-    random axis into a planar patch; extra channels uniform in [0, 1).
-
-    Returns (points (1, P, C) float32, random query points (1, nq, 3)).
-    """
-    rng = np.random.RandomState(seed)
+def _blobs(rng, cfg: Uni3DETRConfig):
+    """(points (P, C), blob centres (K, 3), per-blob std (K, 3))."""
     P = cfg.num_points
     lo = np.asarray(cfg.pc_range[:3])
     span = np.asarray(cfg.pc_range[3:]) - lo
@@ -25,6 +20,48 @@ def clustered_scene(seed: int, cfg: Uni3DETRConfig):
     xyz = np.clip(centers[assign] + offs * squash[assign],
                   lo + 1e-4, lo + span - 1e-3)
     extra = rng.rand(P, cfg.in_point_features - 3)
-    pts = np.concatenate([xyz, extra], -1).astype(np.float32)[None]
+    pts = np.concatenate([xyz, extra], -1).astype(np.float32)
+    return pts, centers, span * 0.02 * squash
+
+
+def clustered_scene(seed: int, cfg: Uni3DETRConfig):
+    """One scene of ``cfg.num_points`` points shaped like a real scan: 24
+    tight Gaussian blobs inside ``pc_range``, each squashed along one
+    random axis into a planar patch; extra channels uniform in [0, 1).
+
+    Returns (points (1, P, C) float32, random query points (1, nq, 3)).
+    """
+    rng = np.random.RandomState(seed)
+    pts, _, _ = _blobs(rng, cfg)
     rnd = rng.rand(1, cfg.num_query, 3).astype(np.float32)
-    return pts, rnd
+    return pts[None], rnd
+
+
+def clustered_train_batch(seed: int, cfg: Uni3DETRConfig, batch: int):
+    """``batch`` clustered scenes with one GT box around each of the
+    first ``min(24, 3 * max_gt // 4)`` blobs (centre on the blob, sides
+    4 standard deviations, yaw 0, labels cycling over the classes),
+    padded to ``max_gt`` rows with ``gt_mask``.
+
+    Returns numpy arrays in the layout of the JAX ``make_train_step``:
+    points (B, P, C) float32, pts_mask (B, P), gt_boxes (B, G, 7) float32
+    with the bottom-z storage centre, gt_labels (B, G) int32, gt_mask
+    (B, G)."""
+    G = cfg.max_gt
+    n_gt = min(24, max(1, 3 * G // 4))
+    pts, boxes = [], np.zeros((batch, G, 7), np.float32)
+    labels = np.zeros((batch, G), np.int32)
+    gmask = np.zeros((batch, G), bool)
+    for b in range(batch):
+        p, centers, std = _blobs(np.random.RandomState([seed, b]), cfg)
+        pts.append(p)
+        size = np.maximum(4.0 * std[:n_gt], 0.05)
+        bottom = centers[:n_gt, 2] - size[:, 2] / 2
+        boxes[b, :n_gt] = np.concatenate(
+            [centers[:n_gt, :2], bottom[:, None], size,
+             np.zeros((n_gt, 1))], -1)
+        labels[b, :n_gt] = np.arange(n_gt) % cfg.num_classes
+        gmask[b, :n_gt] = True
+    pts = np.stack(pts)
+    return {"points": pts, "pts_mask": np.ones(pts.shape[:2], bool),
+            "gt_boxes": boxes, "gt_labels": labels, "gt_mask": gmask}

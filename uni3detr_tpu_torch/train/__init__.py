@@ -1,1 +1,1 @@
-"""Decode and post-processing of the port (training comes later)."""
+"""Training of the port: losses, the train step, decode and post-processing."""
