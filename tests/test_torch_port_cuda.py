@@ -229,3 +229,159 @@ def test_auction_kernel_equals_plain(dev, G, M, N, eps_div):
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), ref.cpu())
     assert (ref >= 0).all()
+
+
+# -- big voxel sets (uni3detr_nuscenes): where the TPU runs K5/K6/K8/K9 ------
+
+BIG_GRID = (16, 200, 200)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,Cout", [(5, 16), (16, 16), (32, 32)])
+def test_gather_conv_kernel_big_v(dev, dtype, C, Cout):
+    """K2 at V=60000 (the TPU's K5 above ~48.5k sites)."""
+    rng = np.random.RandomState(C + 3 * Cout)
+    V = 60000
+    coords, mask = _sites(rng, BIG_GRID, 55000, V)
+    ids = linear_ids(coords, mask, BIG_GRID)
+    nb = sc.match_positions_plain(ids, subm_query_ids(coords, mask,
+                                                      BIG_GRID), V)
+    feats = torch.from_numpy(rng.randn(1, V, C).astype(np.float32)).to(dtype)
+    w = torch.from_numpy(rng.randn(27, C, Cout).astype(np.float32) * 0.1)
+    args = [t.to(dev) for t in (feats, nb, w)]
+    ref = sc.gather_conv_plain(*args)
+    got = sc.gather_conv(*args)
+    torch.cuda.synchronize()
+    _conv_close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_conv_ids_kernels_big_v(dev, dtype):
+    """K3 and K10 from V_in=60000 (the TPU's K8/K9 territory)."""
+    rng = np.random.RandomState(8)
+    V, C, Cout = 60000, 16, 32
+    coords, mask = _sites(rng, BIG_GRID, 55000, V)
+    oc, om, og = downsample_sites(coords, mask, BIG_GRID, (1, 1, 1), 50000)
+    ids = linear_ids(coords, mask, BIG_GRID)
+    sq = strided_query_ids(oc, om, BIG_GRID, (1, 1, 1))
+    feats = torch.from_numpy(rng.randn(1, V, C).astype(np.float32)).to(dtype)
+    w = torch.from_numpy(rng.randn(27, C, Cout).astype(np.float32) * 0.1)
+    g = torch.from_numpy(rng.randn(1, 50000, Cout).astype(np.float32)
+                         ).to(dtype)
+    f, i, q, w, g = (t.to(dev) for t in (feats, ids, sq, w, g))
+    _conv_close(sc.gather_conv_ids(f, i, q, w),
+                sc.gather_conv_ids_plain(f, i, q, w), dtype)
+    _dw_close(sc.gather_conv_ids_dw(f, i, q, g),
+              sc.gather_conv_ids_dw_plain(f, i, q, g))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("C,Cout", [(5, 16), (16, 16)])
+def test_gather_conv_dw_kernel_big_v(dev, C, Cout):
+    """K7 at B=2, V=60000 (the TPU's K6 above ~48.5k sites)."""
+    rng = np.random.RandomState(C + 5 * Cout)
+    V = 60000
+    parts = [_sites(rng, BIG_GRID, 55000, V) for _ in range(2)]
+    coords = torch.cat([p[0] for p in parts])
+    mask = torch.cat([p[1] for p in parts])
+    nb = sc.match_positions_plain(linear_ids(coords, mask, BIG_GRID),
+                                  subm_query_ids(coords, mask, BIG_GRID), V)
+    feats = torch.from_numpy(rng.randn(2, V, C).astype(np.float32)
+                             ).bfloat16()
+    g = torch.from_numpy(rng.randn(2, V, Cout).astype(np.float32)).bfloat16()
+    args = [t.to(dev) for t in (feats, nb, g)]
+    _dw_close(sc.gather_conv_dw(*args), sc.gather_conv_dw_plain(*args))
+    torch.cuda.synchronize()
+
+
+def test_fps_kernel(dev):
+    """K11: masked points and an exhausted set (duplicates)."""
+    rng = np.random.RandomState(9)
+    xyz = torch.from_numpy(rng.randn(3, 20000, 3).astype(np.float32))
+    xyz[2, :50] = torch.from_numpy(rng.randint(0, 4, (50, 3)).astype(
+        np.float32))
+    mask = torch.ones(3, 20000, dtype=torch.bool)
+    mask[1, 15000:] = False
+    mask[2, 50:] = False                   # 50 valid points, 128 samples
+    ref = fps.farthest_point_sample_plain(xyz, mask, 128)
+    before = fps.farthest_point_sample.launches
+    got = fps.farthest_point_sample(xyz.to(dev), mask.to(dev), 128)
+    torch.cuda.synchronize()
+    assert fps.farthest_point_sample.launches == before + 1
+    assert torch.equal(got.cpu(), ref)
+    assert (ref[1] < 15000).all() and (ref[2] < 50).all()
+
+
+def test_tiny_nuscenes_forward_on_card_matches_cpu(dev):
+    """The nuScenes grid, budgets, point features, 900 queries and
+    10-dim code at tiny widths, fp32, TF32 off: voxels and FPS equal;
+    the first decoder layer's outputs within 1e-3 (sums in another order
+    through ~20 convs), and 99% of all layers' outputs: under random
+    weights the later layers amplify such differences through their
+    reference-point updates (see chip_smoke.py, fp32_phase)."""
+    import dataclasses
+    from uni3detr_tpu_torch.models.detector import Uni3DETR
+    from uni3detr_tpu_torch.presets import NUSCENES, TINY_SYNTHETIC
+    from uni3detr_tpu_torch.synthetic import clustered_scene
+    from uni3detr_tpu_torch.weights import random_state_dict
+
+    widths = ("encoder_base_channels", "encoder_out_channels",
+              "encoder_channels", "backbone_channels", "backbone_layers",
+              "neck_channels", "embed_dim", "num_heads", "ffn_dim")
+    cfg = dataclasses.replace(
+        NUSCENES, compute_dtype="float32",
+        **{k: getattr(TINY_SYNTHETIC, k) for k in widths})
+    torch.backends.cudnn.allow_tf32 = False
+    model = Uni3DETR(cfg).eval()
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in
+                           random_state_dict(model, 1).items()})
+    pts, rnd = (torch.from_numpy(a) for a in clustered_scene(2, cfg))
+    mask = torch.ones(pts.shape[:2], dtype=torch.bool)
+    res = []
+    try:
+        for where in ("cpu", dev):
+            model.to(where)
+            outs, inter = model(pts.to(where), mask.to(where),
+                                rnd.to(where), return_intermediates=True)
+            res.append(({k: v.cpu() for k, v in outs.items()},
+                        inter["coords"].cpu(),
+                        [i.cpu() for i in inter["fps_idx"]]))
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    (oc, cc, fc), (og, cg, fg) = res
+    assert torch.equal(cc, cg)
+    assert all(torch.equal(a, b) for a, b in zip(fc, fg))
+    assert tuple(og["all_bbox_preds"].shape) == (3, 1, 3600, 10)
+    for k in oc:
+        err = (og[k] - oc[k]).abs()
+        assert err[0].max().item() <= 1e-3, k
+        assert (err <= 1e-3).float().mean().item() >= 0.99, k
+
+
+def test_voxelize_cell_edges_on_card_match_cpu(dev):
+    """Points within an ulp of a cell edge at the nuScenes cell sizes
+    land in the same voxels on the card and on the CPU (the voxelizer
+    multiplies by the fp32 reciprocal of the cell size, as XLA does for
+    the JAX package, on every device)."""
+    from uni3detr_tpu_torch.ops.voxelize import hard_voxelize
+    from uni3detr_tpu_torch.presets import NUSCENES as cfg
+
+    rng = np.random.RandomState(0)
+    x = rng.uniform(-54, 54, (2_000_000, 3)).astype(np.float32)
+    d = x - np.float32(-54)
+    vs = np.float32(0.075)
+    on_edge = np.floor(d / vs) != np.floor(d * (np.float32(1) / vs))
+    edge = x[on_edge[:, 0], :1][:64]
+    n = len(edge)
+    pts = np.concatenate([edge, rng.uniform(-50, 50, (n, 1)),
+                          rng.uniform(-4, 2, (n, 3))], -1)
+    pts = torch.from_numpy(pts.astype(np.float32))[None]
+    mask = torch.ones(pts.shape[:2], dtype=torch.bool)
+    kw = dict(pc_range=cfg.pc_range, voxel_size=cfg.voxel_size,
+              grid_size=cfg.grid_size, max_points=10, max_voxels=96)
+    ref = hard_voxelize(pts, mask, **kw)
+    got = hard_voxelize(pts.to(dev), mask.to(dev), **kw)
+    torch.cuda.synchronize()
+    assert int(ref[2].sum()) > 16
+    assert torch.equal(got[1].cpu(), ref[1]) and torch.equal(got[2].cpu(),
+                                                              ref[2])

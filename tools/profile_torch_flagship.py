@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Where the time of the port's flagship inference goes, on one GPU.
+"""Where the time of the port's inference goes, on one GPU.
 
-    python3 tools/profile_torch_flagship.py [n_scenes]
+    python3 tools/profile_torch_flagship.py [n_scenes] [preset]
 
-Runs ``uni3detr_sunrgbd`` (bf16, seeded random weights) on clustered
-100k-point scenes, points -> boxes, after two warm-up scenes:
+Runs a preset (default ``uni3detr_sunrgbd``; bf16, seeded random
+weights) on clustered scenes of its ``num_points`` points, points ->
+boxes, after two warm-up scenes:
 
 - per stage, CUDA-event time on the stream (voxelize + FPS + glue is
   what the encoder, backbone, neck, head, decode and NMS leave of the
@@ -25,7 +26,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from uni3detr_tpu_torch.models.detector import Uni3DETR  # noqa: E402
-from uni3detr_tpu_torch.presets import SUNRGBD  # noqa: E402
+from uni3detr_tpu_torch.presets import PRESETS  # noqa: E402
 from uni3detr_tpu_torch.synthetic import clustered_scene  # noqa: E402
 from uni3detr_tpu_torch.train.coder import (  # noqa: E402
     decode_predictions, post_process)
@@ -34,14 +35,14 @@ from uni3detr_tpu_torch.weights import random_state_dict  # noqa: E402
 STAGES = ("pts_middle_encoder", "pts_backbone", "pts_neck", "pts_bbox_head")
 
 
-def main(n_scenes: int = 5):
+def main(n_scenes: int = 5, preset: str = "uni3detr_sunrgbd"):
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     dev = torch.device("cuda", 0)
-    cfg = SUNRGBD
+    cfg = PRESETS[preset]
     model = Uni3DETR(cfg).eval()
     model.load_state_dict({k: torch.from_numpy(v) for k, v in
                            random_state_dict(model, 0).items()})
@@ -127,4 +128,4 @@ def main(n_scenes: int = 5):
 
 
 if __name__ == "__main__":
-    main(*(int(a) for a in sys.argv[1:2]))
+    main(*[int(a) for a in sys.argv[1:2]], *sys.argv[2:3])

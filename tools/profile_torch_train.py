@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Where the time of the port's flagship train step goes, on one GPU.
+"""Where the time of the port's train step goes, on one GPU.
 
-    python3 tools/profile_torch_train.py [n_steps]
+    python3 tools/profile_torch_train.py [n_steps] [preset]
 
-Runs ``uni3detr_sunrgbd`` train steps (bf16 compute, fp32 params, B=4
-synthetic scenes, seeded random weights, AdamW lr 1e-4) on one fixed
-batch, after three warm-up steps:
+Runs train steps of a preset (default ``uni3detr_sunrgbd``; bf16
+compute, fp32 params, B=4 synthetic scenes, seeded random weights, AdamW
+lr 1e-4) on one fixed batch, after three warm-up steps:
 
 - per phase, CUDA-event time on the stream, median over the steps:
   forward (voxelize, encoder, backbone, neck, FPS, head), loss (the
@@ -27,7 +27,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from uni3detr_tpu_torch.geom.boxes import gravity_center_boxes  # noqa: E402
 from uni3detr_tpu_torch.models.detector import Uni3DETR  # noqa: E402
-from uni3detr_tpu_torch.presets import SUNRGBD  # noqa: E402
+from uni3detr_tpu_torch.presets import PRESETS  # noqa: E402
 from uni3detr_tpu_torch.synthetic import clustered_train_batch  # noqa: E402
 from uni3detr_tpu_torch.train.losses import uni3detr_loss  # noqa: E402
 from uni3detr_tpu_torch.train.step import make_optimizer  # noqa: E402
@@ -36,14 +36,14 @@ from uni3detr_tpu_torch.weights import random_state_dict  # noqa: E402
 PHASES = ("forward", "loss", "backward", "optimizer")
 
 
-def main(n_steps: int = 5):
+def main(n_steps: int = 5, preset: str = "uni3detr_sunrgbd"):
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     dev = torch.device("cuda", 0)
-    cfg = SUNRGBD
+    cfg = PRESETS[preset]
     model = Uni3DETR(cfg)
     model.load_state_dict({k: torch.from_numpy(v) for k, v in
                            random_state_dict(model, 0).items()})
@@ -104,4 +104,4 @@ def main(n_steps: int = 5):
 
 
 if __name__ == "__main__":
-    main(*(int(a) for a in sys.argv[1:2]))
+    main(*[int(a) for a in sys.argv[1:2]], *sys.argv[2:3])

@@ -3,6 +3,8 @@
 // Replaces the Pallas kernel uni3detr_tpu/ops/fps.py::_fps_pair_kernel
 // (entry farthest_point_sample_pair_pallas): two independent D-FPS runs
 // (the raw points and the voxel coordinates of one scene) in one launch.
+// u3d_fps runs the same kernel on one set and replaces _fps_kernel (entry
+// farthest_point_sample_pallas).
 //
 // Design: one block per (set, batch element). Each of the S-1 steps
 // updates every point's min distance to the last pick and takes a block
@@ -124,5 +126,16 @@ extern "C" int u3d_fps_pair(const void* planes_a, const void* mask_a,
       (const float*)planes_a, (const uint8_t*)mask_a, (float*)mind_a,
       (int*)idx_a, Na, (const float*)planes_b, (const uint8_t*)mask_b,
       (float*)mind_b, (int*)idx_b, Nb, S);
+  return (int)cudaGetLastError();
+}
+
+// Single-set D-FPS (K11): a grid of (1, B) blocks only ever takes set a.
+extern "C" int u3d_fps(const void* planes, const void* mask, void* mind,
+                       void* idx, int N, int B, int S, void* stream) {
+  if (B == 0 || S == 0) return (int)cudaSuccess;
+  dim3 grid(1, B);
+  fps_pair_kernel<<<grid, FPS_THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)planes, (const uint8_t*)mask, (float*)mind, (int*)idx, N,
+      nullptr, nullptr, nullptr, nullptr, 0, S);
   return (int)cudaGetLastError();
 }

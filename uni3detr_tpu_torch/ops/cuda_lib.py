@@ -37,6 +37,7 @@ _SIGNATURES = {
     "u3d_gather_conv_ids_dw_f32": [_P] * 6 + [_I] * 7 + [_P],
     "u3d_gather_conv_ids_dw_bf16": [_P] * 6 + [_I] * 7 + [_P],
     "u3d_fps_pair": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P],
+    "u3d_fps": [_P, _P, _P, _P, _I, _I, _I, _P],
     "u3d_auction_lap": [_P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _P, _P],
 }
 _ERROR_STRING = "u3d_error_string"

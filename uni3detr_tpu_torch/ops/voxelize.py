@@ -2,9 +2,10 @@
 ``uni3detr_tpu/ops/voxelize.py``).
 
 One stable sort over linear voxel ids, then per-voxel sums from
-differences of a prefix sum: static shapes, no atomics, so the result is
-the same on every run. Rows come out in ascending linear-id order with
-the invalid rows last; the sparse encoder relies on that order.
+differences of an fp64 prefix sum: static shapes, no atomics, so the
+result is the same on every run and on every device. Rows come out in
+ascending linear-id order with the invalid rows last; the sparse encoder
+relies on that order.
 ``grid_size = (D, H, W)`` over (z, y, x); coords are int32 ``(z, y, x)``.
 """
 from __future__ import annotations
@@ -32,9 +33,14 @@ def cumsum_lines(x: torch.Tensor, dim: int) -> torch.Tensor:
 def _voxel_ids(points, mask, pc_range, voxel_size, grid_size):
     """(B, P) linear voxel id (z*H*W + y*W + x) or -1, and validity."""
     D, H, W = grid_size
-    ix = torch.floor((points[..., 0] - pc_range[0]) / voxel_size[0]).long()
-    iy = torch.floor((points[..., 1] - pc_range[1]) / voxel_size[1]).long()
-    iz = torch.floor((points[..., 2] - pc_range[2]) / voxel_size[2]).long()
+    lo = torch.tensor(pc_range[:3], dtype=points.dtype, device=points.device)
+    # XLA folds the JAX package's division by the constant cell size into
+    # a product with its fp32 reciprocal, which puts a point within an ulp
+    # of a cell edge in another cell than a division would; the same
+    # product here, on every device
+    inv = torch.tensor(voxel_size, dtype=torch.float32).reciprocal()
+    inv = inv.to(device=points.device, dtype=points.dtype)
+    ix, iy, iz = torch.floor((points[..., :3] - lo) * inv).long().unbind(-1)
     inb = ((ix >= 0) & (ix < W) & (iy >= 0) & (iy < H)
            & (iz >= 0) & (iz < D) & mask)
     lin = (iz * H + iy) * W + ix
@@ -77,13 +83,17 @@ def hard_voxelize(points: torch.Tensor, mask: torch.Tensor, *,
 
     first_slot = torch.where(newseg & (seg_id < V), seg_id,
                              torch.full_like(seg_id, V))
-    # centre each channel before the prefix sum so that each voxel sum,
-    # a difference of two prefix values, keeps its fp32 precision
-    keepf = keep[..., None].to(torch.float32)
-    n_keep = keepf.sum(dim=1).clamp(min=1.0)                   # (B, 1)
-    center = (s_pts.float() * keepf).sum(dim=1) / n_keep       # (B, C)
-    centered = torch.where(keep[..., None], s_pts.float() - center[:, None],
-                           torch.zeros_like(s_pts, dtype=torch.float32))
+    # each voxel sum is a difference of two prefix sums over the sorted
+    # points: centre each channel and sum in fp64. In fp32 (the JAX
+    # package's choice) a 300k-point nuScenes scan loses ~1e-2 m per
+    # voxel mean, and the card's parallel scan rounds otherwise than the
+    # CPU's sequential one; in fp64 both give the mean within one fp32
+    # rounding.
+    keepd = keep[..., None].to(torch.float64)
+    n_keep = keepd.sum(dim=1).clamp(min=1.0)                   # (B, 1)
+    center = (s_pts.double() * keepd).sum(dim=1) / n_keep      # (B, C)
+    centered = torch.where(keep[..., None], s_pts.double() - center[:, None],
+                           torch.zeros_like(s_pts, dtype=torch.float64))
     csum = cumsum_lines(centered, 1)
     ccnt = cumsum_lines(keep.long(), 1)
     starts = torch.full((B, V + 1), P, dtype=torch.long, device=dev)

@@ -25,6 +25,22 @@ SUNRGBD = Uni3DETRConfig(
     compute_dtype="bfloat16",
 )
 
+# uni3detr_nuscenes.py:13-19,31-130,265-317 (10-dim code with velocity)
+NUSCENES = Uni3DETRConfig(
+    num_classes=10, code_size=10,
+    pc_range=(-54.0, -54.0, -5.0, 54.0, 54.0, 3.0),
+    voxel_size=(0.075, 0.075, 0.2), grid_size=(41, 1440, 1440),
+    max_points_per_voxel=10, max_voxels=90000, max_voxels_test=120000,
+    num_points=300000, max_gt=90, in_point_features=5,
+    num_query=900, num_decoder_layers=3,
+    code_weights=(1.0,) * 10,
+    post_center_range=(-61.2, -61.2, -10.0, 61.2, 61.2, 10.0),
+    max_num=900, coder_alpha=1.0, post_processing="nms", nms_thr=0.2,
+    num_thr=500,
+    encoder_budget_shrink=(0.9, 0.4, 0.15),
+    compute_dtype="bfloat16",
+)
+
 # tiny model for tests (not a reference config)
 TINY_SYNTHETIC = Uni3DETRConfig(
     num_classes=3, code_size=8,
@@ -44,5 +60,6 @@ TINY_SYNTHETIC = Uni3DETRConfig(
 
 PRESETS = {
     "uni3detr_sunrgbd": SUNRGBD,
+    "uni3detr_nuscenes": NUSCENES,
     "uni3detr_tiny_synthetic": TINY_SYNTHETIC,
 }

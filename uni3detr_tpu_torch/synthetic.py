@@ -43,23 +43,30 @@ def clustered_train_batch(seed: int, cfg: Uni3DETRConfig, batch: int):
     4 standard deviations, yaw 0, labels cycling over the classes),
     padded to ``max_gt`` rows with ``gt_mask``.
 
+    With ``code_size > 8`` the boxes carry velocity (vx, vy) drawn from
+    ``uniform(-2, 2)``, as the JAX package's train bench draws it.
+
     Returns numpy arrays in the layout of the JAX ``make_train_step``:
-    points (B, P, C) float32, pts_mask (B, P), gt_boxes (B, G, 7) float32
-    with the bottom-z storage centre, gt_labels (B, G) int32, gt_mask
-    (B, G)."""
+    points (B, P, C) float32, pts_mask (B, P), gt_boxes (B, G, 7|9)
+    float32 with the bottom-z storage centre, gt_labels (B, G) int32,
+    gt_mask (B, G)."""
     G = cfg.max_gt
     n_gt = min(24, max(1, 3 * G // 4))
-    pts, boxes = [], np.zeros((batch, G, 7), np.float32)
+    box_dim = 9 if cfg.code_size > 8 else 7
+    pts, boxes = [], np.zeros((batch, G, box_dim), np.float32)
     labels = np.zeros((batch, G), np.int32)
     gmask = np.zeros((batch, G), bool)
     for b in range(batch):
-        p, centers, std = _blobs(np.random.RandomState([seed, b]), cfg)
+        rng = np.random.RandomState([seed, b])
+        p, centers, std = _blobs(rng, cfg)
         pts.append(p)
         size = np.maximum(4.0 * std[:n_gt], 0.05)
         bottom = centers[:n_gt, 2] - size[:, 2] / 2
-        boxes[b, :n_gt] = np.concatenate(
-            [centers[:n_gt, :2], bottom[:, None], size,
-             np.zeros((n_gt, 1))], -1)
+        cols = [centers[:n_gt, :2], bottom[:, None], size,
+                np.zeros((n_gt, 1))]
+        if box_dim == 9:
+            cols.append(rng.uniform(-2, 2, (n_gt, 2)))
+        boxes[b, :n_gt] = np.concatenate(cols, -1)
         labels[b, :n_gt] = np.arange(n_gt) % cfg.num_classes
         gmask[b, :n_gt] = True
     pts = np.stack(pts)

@@ -1,11 +1,12 @@
-"""NMS-free decode and per-class NMS (port of the ``nms`` branch of
-``uni3detr_tpu/train/coder.py``).
+"""NMS-free decode, per-class NMS and the score / count thresholds (port
+of the ``nms`` branch of ``uni3detr_tpu/train/coder.py``).
 
 Decode averages decoder layers 1..L-1, takes the ``max_num`` best flat
 class scores, denormalizes the boxes, masks them by
 ``post_center_range`` and blends ``score = cls^alpha * iou^(1-alpha)``.
-Post-processing shifts z to the bottom face and runs rotated 3D-IoU NMS
-per class. Outputs stay fixed-size with validity masks.
+Post-processing shifts z to the bottom face, runs rotated 3D-IoU NMS
+per class and applies ``score_thr`` and ``num_thr``. Outputs stay
+fixed-size with validity masks.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import torch
 from ..config import Uni3DETRConfig
 from ..geom.boxes import bottom_center_boxes, decode_boxes
 from ..geom.iou import iou3d_rotated
-from ..ops.nms import _greedy_suppress
+from ..ops.nms import _greedy_suppress, _rank_order
 
 
 def decode_predictions(outs, cfg: Uni3DETRConfig):
@@ -43,17 +44,17 @@ def decode_predictions(outs, cfg: Uni3DETRConfig):
 
 
 def post_process(boxes, scores, labels, valid, cfg: Uni3DETRConfig):
-    """Per-class rotated 3D-IoU NMS; boxes gravity-centred.
+    """Per-class NMS, then the score and count thresholds; boxes
+    gravity-centred.
 
-    Returns (boxes with bottom z, scores, labels, valid), still fixed
-    size. Only the flagship's post-processing is ported: ``nms`` without
-    score or count thresholds.
+    ``score_thr`` (scalar, or one per class) keeps scores strictly above
+    it; ``num_thr`` keeps the ``num_thr`` best surviving boxes, ties to
+    the lower index as ``jnp.argsort``. Returns (boxes with bottom z,
+    scores, labels, valid), still fixed size. ``soft_nms`` and
+    ``box_merging`` are not ported.
     """
-    if (cfg.post_processing != "nms" or cfg.score_thr is not None
-            or cfg.num_thr is not None):
-        raise NotImplementedError(
-            "only post_processing='nms' without score_thr/num_thr is "
-            "ported")
+    if cfg.post_processing != "nms":
+        raise NotImplementedError("only post_processing='nms' is ported")
     boxes = bottom_center_boxes(boxes)
     cls_ids = torch.arange(cfg.num_classes, device=labels.device)
     out_valid = []
@@ -62,4 +63,17 @@ def post_process(boxes, scores, labels, valid, cfg: Uni3DETRConfig):
         per_cls = v[None, :] & (lab[None, :] == cls_ids[:, None])
         out_valid.append(
             _greedy_suppress(iou, s, per_cls, cfg.nms_thr).any(dim=0))
-    return boxes, scores, labels, torch.stack(out_valid)
+    valid = torch.stack(out_valid)
+    if cfg.score_thr is not None:
+        thr = torch.tensor(cfg.score_thr, dtype=scores.dtype,
+                           device=scores.device)
+        if thr.dim():
+            thr = thr[labels.long()]
+        valid = valid & (scores > thr)
+    if cfg.num_thr is not None:
+        order = _rank_order(scores, valid)
+        rank = torch.empty_like(order).scatter_(
+            -1, order, torch.arange(order.shape[-1], device=order.device
+                                    ).expand_as(order))
+        valid = valid & (rank < cfg.num_thr)
+    return boxes, scores, labels, valid

@@ -4,12 +4,15 @@ One step: forward in train mode -> matching -> set losses -> backward ->
 global-norm clip -> AdamW, as the JAX package's ``make_train_step`` with
 ``make_optimizer`` (optax ``chain(clip_by_global_norm, adamw)`` over all
 parameters, no mask). The lr follows a schedule of the step count, as
-optax's ``scale_by_schedule`` does.
+optax's ``scale_by_schedule`` does; an optional momentum schedule sets
+AdamW's beta1 each step, as ``inject_hyperparams(adamw)(b1=...)`` does
+for the nuScenes cyclic policy.
 """
 from __future__ import annotations
 
 import bisect
-from typing import Callable, Dict, Iterable, Union
+import math
+from typing import Callable, Dict, Iterable, Optional, Union
 
 import torch
 from torch import nn
@@ -21,21 +24,25 @@ Schedule = Callable[[int], float]
 
 
 class Optimizer:
-    """Global-norm clip to ``clip_norm``, then AdamW (betas 0.9/0.999,
-    eps 1e-8, decoupled weight decay) with the lr of ``lr_schedule`` at
-    the number of steps taken so far."""
+    """Global-norm clip to ``clip_norm``, then AdamW (beta2 0.999, eps
+    1e-8, decoupled weight decay) with the lr of ``lr_schedule`` and the
+    beta1 of ``momentum_schedule`` (0.9 without one) at the number of
+    steps taken so far."""
 
     def __init__(self, params: Iterable[nn.Parameter],
                  lr_schedule: Union[float, Schedule],
-                 weight_decay: float = 0.01, clip_norm: float = 10.0):
+                 weight_decay: float = 0.01, clip_norm: float = 10.0,
+                 momentum_schedule: Optional[Schedule] = None):
         self.params = [p for p in params if p.requires_grad]
         self.schedule = lr_schedule if callable(lr_schedule) \
             else (lambda step: lr_schedule)
+        self.momentum = momentum_schedule or (lambda step: 0.9)
         self.clip_norm = clip_norm
         self.steps = 0
         self.adamw = torch.optim.AdamW(
-            self.params, lr=float(self.schedule(0)), betas=(0.9, 0.999),
-            eps=1e-8, weight_decay=weight_decay)
+            self.params, lr=float(self.schedule(0)),
+            betas=(float(self.momentum(0)), 0.999), eps=1e-8,
+            weight_decay=weight_decay)
 
     def zero_grad(self) -> None:
         for p in self.params:
@@ -58,18 +65,44 @@ class Optimizer:
         torch._foreach_mul_(grads, scale)
         for group in self.adamw.param_groups:
             group["lr"] = float(self.schedule(self.steps))
+            group["betas"] = (float(self.momentum(self.steps)),
+                              group["betas"][1])
         self.adamw.step()
         self.steps += 1
         return norm
 
+    def state_dict(self) -> Dict:
+        """AdamW's moments and step counts, and the schedule's step."""
+        return {"adamw": self.adamw.state_dict(), "steps": self.steps}
+
+    def load_state_dict(self, state: Dict) -> None:
+        self.adamw.load_state_dict(state["adamw"])
+        self.steps = int(state["steps"])
+
 
 def make_optimizer(model: nn.Module, lr_schedule: Union[float, Schedule],
-                   weight_decay: float = 0.01,
-                   clip_norm: float = 10.0) -> Optimizer:
+                   weight_decay: float = 0.01, clip_norm: float = 10.0,
+                   momentum_schedule: Optional[Schedule] = None
+                   ) -> Optimizer:
     """AdamW + global-norm clip over all of ``model``'s parameters (the
     reference's optimizer_config, uni3detr_sunrgbd.py)."""
     return Optimizer(model.parameters(), lr_schedule, weight_decay,
-                     clip_norm)
+                     clip_norm, momentum_schedule)
+
+
+def _linear(init: float, end: float, steps: int) -> Schedule:
+    """optax ``linear_schedule``: init -> end over ``steps``, then end."""
+    if steps <= 0:
+        return lambda step: init
+    return lambda step: (init - end) * (
+        1 - min(max(step, 0), steps) / steps) + end
+
+
+def _join(first: Schedule, second: Schedule, boundary: int) -> Schedule:
+    """optax ``join_schedules`` of two: ``second`` gets the steps since
+    the boundary."""
+    return lambda step: first(step) if step < boundary \
+        else second(step - boundary)
 
 
 def step_lr_schedule(base_lr: float, steps_per_epoch: int, milestones,
@@ -81,14 +114,52 @@ def step_lr_schedule(base_lr: float, steps_per_epoch: int, milestones,
     ``piecewise_constant_schedule`` joined after a ``linear_schedule``)."""
     bounds = sorted(int(m * steps_per_epoch) for m in milestones)
 
-    def schedule(step: int) -> float:
-        if step < warmup_steps:
-            return (base_lr * warmup_ratio - base_lr) * (
-                1 - step / warmup_steps) + base_lr
-        s = step - warmup_steps
-        return base_lr * gamma ** bisect.bisect_right(bounds, s)
+    def steps(step: int) -> float:
+        return base_lr * gamma ** bisect.bisect_right(bounds, step)
 
-    return schedule
+    return _join(_linear(base_lr * warmup_ratio, base_lr, warmup_steps),
+                 steps, warmup_steps)
+
+
+def cyclic_lr_schedule(base_lr: float, total_steps: int,
+                       target_ratio=(10, 1e-4),
+                       step_ratio_up: float = 0.4) -> Schedule:
+    """mmcv's cyclic policy (uni3detr_nuscenes.py lr_config): linear
+    from ``base_lr`` up to ``base_lr * r0`` over the first
+    ``step_ratio_up`` of the run, then a cosine down to ``base_lr * r1``
+    (optax ``cosine_decay_schedule`` with ``alpha = r1 / r0``)."""
+    up = int(total_steps * step_ratio_up)
+    down = total_steps - up
+    if down <= 0:
+        raise ValueError("cyclic_lr_schedule needs total_steps * "
+                         "(1 - step_ratio_up) >= 1")
+    peak = base_lr * target_ratio[0]
+    alpha = target_ratio[1] / target_ratio[0]
+
+    def cosine(step):
+        t = min(step, down)
+        return peak * ((1 - alpha) * 0.5 * (1 + math.cos(math.pi * t / down))
+                       + alpha)
+
+    return _join(_linear(base_lr, peak, up), cosine, up)
+
+
+def cyclic_momentum_schedule(base_m: float, total_steps: int,
+                             target_ratio=(0.85 / 0.95, 1.0),
+                             step_ratio_up: float = 0.4) -> Schedule:
+    """mmcv's CyclicMomentumUpdater (uni3detr_nuscenes.py
+    momentum_config): beta1 moves against the lr cycle, linear from
+    ``base_m`` to ``base_m * r0`` over the up phase, then a cosine back
+    to ``base_m * r1``."""
+    up = int(total_steps * step_ratio_up)
+    down = max(total_steps - up, 1)
+    m1, m2 = base_m * target_ratio[0], base_m * target_ratio[1]
+
+    def cos_rise(step):
+        f = min(max(step / down, 0.0), 1.0)
+        return m2 + (m1 - m2) * 0.5 * (1 + math.cos(math.pi * f))
+
+    return _join(_linear(base_m, m1, up), cos_rise, up)
 
 
 def train_step(model: nn.Module, opt: Optimizer,
