@@ -10,7 +10,15 @@ Phases, one or more lines each; any failure raises and exits non-zero:
 3. kernels: each of K1-K4 and K11 against its plain PyTorch version on
    the card, at the shapes the flagship path gives it on a clustered
    100k-point SUN RGB-D scene: max error, median kernel and plain times
-   (CUDA events, after warm-up), per call shape and summed per scene;
+   (CUDA events, after warm-up), the bound from the roofline helper
+   (``roofline`` and the ``*_roofline`` functions below: operations over
+   the H100's peak rate for their type, bytes over its memory rate,
+   counting the neighbour pairs and valid points this scene has), the
+   yardsticks ``library_ms`` (K1: ``torch.searchsorted``, positions only)
+   and ``gemm_ms`` (K2, K3: the cuBLAS product of the already gathered
+   rows, which the port never calls), and for K4 its latency floor (the
+   same kernel and steps on one point per block); per call shape, summed
+   per scene, and summed per TPU kernel that the JAX package would run;
 4. flagship: ``uni3detr_sunrgbd`` as preset (bf16), seeded random
    weights, points -> head -> decode -> per-class NMS on a few scenes:
    valid boxes, ms/scene, peak memory, and the kernel launch counts of
@@ -22,7 +30,8 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    their plain versions at the shapes of the SUN RGB-D train step (B=4,
    V=16000), K12 (auction) at the flagship's (12, 64, 384) and a
    KITTI-shaped (10, 256, 384) instance set, with median kernel and
-   plain times per call shape and summed per step;
+   plain times, bounds and (K7, K10) ``gemm_ms`` per call shape and
+   summed per step;
 7. train: ``uni3detr_sunrgbd`` as preset (bf16, fp32 params), B=4
    synthetic scenes, seeded random weights, AdamW lr 1e-4 with clip 10:
    warm-up steps, then timed steps on one fixed batch; per step the loss,
@@ -57,8 +66,10 @@ K11 (single-set FPS), a public op that no model path calls, is driven
 once more on its own, as its callers call it, for its launch count.
 
 Then one JSON line of the kernels (launch counts of the nuScenes runs;
-times and errors of the nuScenes shapes, summed per scene for K1-K4, per
-train step for K7/K10/K12, per call for K11), the card line, and the
+times, errors, ``bound_ms`` with ``bound_by``, ``library_ms`` (null where
+no single PyTorch call computes the kernel's function) and, for the
+convs, ``gemm_ms``, at the nuScenes shapes, summed per scene for K1-K4,
+per train step for K7/K10/K12, per call for K11), the card line, and the
 result line ``{"ok": true, "device": {...}}``. There is no CPU
 fallback: without a CUDA device the script fails before any phase.
 """
@@ -166,14 +177,143 @@ def tpu_route(kind, V, Vout=None):
     return "K7" if _unpacked_fits(V) else "K6 (packed)"
 
 
-def _report_add(report, name, err, ms, plain_ms, calls):
-    r = report.setdefault(name, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0))
+# -- roofline ------------------------------------------------------------
+# Published peaks of one NVIDIA H100 SXM (data sheet, dense, at 700 W):
+# memory 3.35 TB/s; bf16 tensor cores 989 TFLOP/s; fp32 outside the tensor
+# cores 67 TFLOP/s (also taken for the integer compares of K1).
+H100_BYTES_PER_S = 3.35e12
+H100_PEAK_OPS = {"bf16": 989e12, "fp32": 67e12}
+FPS_OPS_PER_POINT_STEP = 9    # 3 subtractions, 3 products, 2 sums, 1 min
+
+
+def roofline(ops, nbytes, peak):
+    """The least time the card could take for a call: the larger of
+    ``ops`` over the peak rate ``H100_PEAK_OPS[peak]`` and ``nbytes``
+    (each input read once, each output written once) over the memory
+    rate; ``bound_by`` names the larger term."""
+    t_ops = ops / H100_PEAK_OPS[peak] * 1e3
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    return {"ops": ops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def conv_roofline(pairs, V, C, Vout, K, Cout, B=1, elem=2, ids=False,
+                  peak="bf16"):
+    """K2 (K3 with ``ids``): 2 * pairs * C * Cout products, ``pairs`` the
+    (output row, offset) pairs that have a neighbour; reads the features
+    (B, V, C), the rulebook or query ids (B, Vout, K) int32 (K3: and the
+    site ids (B, V) int32) and the weights (K, C, Cout), writes (B, Vout,
+    Cout); ``elem`` bytes a feature."""
+    nbytes = (elem * (B * V * C + K * C * Cout + B * Vout * Cout)
+              + 4 * B * Vout * K + (4 * B * V if ids else 0))
+    return roofline(2 * pairs * C * Cout, nbytes, peak)
+
+
+def dw_roofline(pairs, V, C, Vout, K, Cout, B, elem=2, ids=False):
+    """K7 (K10 with ``ids``): dW = 2 * pairs * C * Cout fp32 products on
+    the CUDA cores; reads the features, the index (and site ids) and the
+    cotangent (B, Vout, Cout), writes dW (K, C, Cout) fp32."""
+    nbytes = (elem * (B * V * C + B * Vout * Cout) + 4 * B * Vout * K
+              + (4 * B * V if ids else 0) + 4 * K * C * Cout)
+    return roofline(2 * pairs * C * Cout, nbytes, "fp32")
+
+
+def match_roofline(V, Vout, K, B=1):
+    """K1: ceil(log2(V + 1)) compares of a binary search per query; reads
+    the site ids and the query ids, writes one row per query."""
+    queries = B * Vout * K
+    return roofline(queries * math.ceil(math.log2(V + 1)),
+                    4 * (B * V + 2 * queries), "fp32")
+
+
+def fps_roofline(valid, sizes, S):
+    """K4 (two sets) or K11 (one): FPS_OPS_PER_POINT_STEP fp32 operations
+    per valid point (``valid``, per set) and step over S - 1 steps; reads
+    the x/y/z planes and the mask of every point (``sizes``), writes S
+    int32 indices per set. The S - 1 steps are also a chain of dependent
+    reductions across the card, which this bound does not count."""
+    return roofline(FPS_OPS_PER_POINT_STEP * sum(valid) * (S - 1),
+                    13 * sum(sizes) + 4 * S * len(sizes), "fp32")
+
+
+def auction_roofline(G, M, N):
+    """K12, a lower bound of its data-dependent bidding: every bidder
+    weighs every item at least once (a subtraction and a compare per
+    benefit entry); reads the (G, M, N) fp32 benefit and the spreads,
+    writes (G, M) int32."""
+    return roofline(2 * G * M * N, 4 * (G * M * N + G + G * M), "fp32")
+
+
+# the kernels of uni3detr_tpu_torch/csrc/, by their function names
+PORT_KERNELS = ("match_positions_kernel", "gather_conv_mma_kernel",
+                "gather_conv_f32_kernel", "fps_grid_kernel",
+                "gather_conv_dw_kernel", "sum_chunks_kernel",
+                "auction_kernel")
+
+
+def print_port_kernels(torch, ka, n, unit):
+    """Device time of each of the port's own kernels in a profiler's
+    ``key_averages()`` over ``n`` scenes or steps: launches and ms per
+    ``unit``."""
+    for e in ka:
+        if e.device_type == torch.autograd.DeviceType.CUDA and any(
+                k in e.key for k in PORT_KERNELS):
+            print(f"port kernel {e.key[:90]}: {e.count / n:g} launches and "
+                  f"{e.self_device_time_total / 1e3 / n:.3f} ms per {unit}")
+
+
+def _report_add(report, name, err, ms, plain_ms, calls, bound,
+                gemm_ms=None, library_ms=None):
+    """Sum a call shape's numbers into ``report[name]`` (x ``calls``);
+    ``by_term`` keeps how much of the bound each roofline term binds."""
+    r = report.setdefault(name, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
+                                     bound_ms=0.0, library_ms=None,
+                                     by_term={}))
     r["max_abs_err"] = max(r["max_abs_err"], err)
     r["ms"] += ms * calls
     r["plain_ms"] += plain_ms * calls
+    r["bound_ms"] += bound["bound_ms"] * calls
+    t = r["by_term"]
+    t[bound["bound_by"]] = t.get(bound["bound_by"], 0.0) + \
+        bound["bound_ms"] * calls
+    for key, v in (("gemm_ms", gemm_ms), ("library_ms", library_ms)):
+        if v is not None:
+            r[key] = (r.get(key) or 0.0) + v * calls
+
+
+def _report_entry(r):
+    """A report entry for the JSON line: ``bound_by`` is the term that
+    binds the larger part of the summed bound."""
+    out = {k: v for k, v in r.items() if k != "by_term"}
+    out["bound_by"] = max(r["by_term"], key=r["by_term"].get)
+    return out
+
+
+def print_report(tag, report, by_route):
+    for name, r in report.items():
+        e = _report_entry(r)
+        print(f"[{tag}] sum {name}: " + " ".join(
+            f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in e.items()))
+    for route, r in sorted(by_route.items()):
+        print(f"[{tag}] sum tpu={route}: ms={r['ms']:.4f} plain_ms="
+              f"{r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f}"
+              + (f" gemm_ms={r['gemm_ms']:.4f}" if "gemm_ms" in r else ""))
+
+
+def _gathered(torch, features, nb):
+    """(B*Vout, K*C) rows of a rulebook conv, gathered: the left operand
+    of the ``gemm_ms`` yardstick."""
+    B, V, C = features.shape
+    padded = torch.cat([features, features.new_zeros(B, 1, C)], dim=1)
+    bidx = torch.arange(B, device=features.device)[:, None, None]
+    return padded[bidx, nb.long().clamp(0, V)].reshape(-1, nb.shape[2] * C)
 
 
 def kernel_phase(torch, model, pts, dev, tag):
+    """K1-K4 and K11 against their plain versions at the preset's
+    inference shapes; prints the sums by kernel and by the TPU kernel the
+    JAX package would run, and returns the report by kernel."""
     from uni3detr_tpu_torch.ops import fps, sparse_conv_cuda as sc
 
     cfg = model.cfg
@@ -181,12 +321,13 @@ def kernel_phase(torch, model, pts, dev, tag):
     feats, coords, vmask = model.voxelize(pts, mask)
     sets = model.pts_middle_encoder.site_sets(coords, vmask)
     gen = torch.Generator(device=dev).manual_seed(1)
-    report = {}
+    report, by_route = {}, {}
 
-    def add(*a):
-        _report_add(report, *a)
+    def add(name, route, *a, **kw):
+        _report_add(report, name, *a, **kw)
+        _report_add(by_route, route, *a, **kw)
 
-    # K1: one rulebook per site set, exact
+    # K1: one rulebook per site set, exact; library: torch.searchsorted
     for s in sets:
         args = (s["ids"], s["qids"], s["n_sites"])
         got, ref = sc.match_positions(*args), sc.match_positions_plain(*args)
@@ -194,12 +335,18 @@ def kernel_phase(torch, model, pts, dev, tag):
             fail(f"K1 match_positions differs at V={s['n_sites']}")
         ms = median_ms(torch, lambda: sc.match_positions(*args), 20)
         pms = median_ms(torch, lambda: sc.match_positions_plain(*args), 20)
+        q = s["qids"].reshape(s["ids"].shape[0], -1)
+        lms = median_ms(torch, lambda: torch.searchsorted(s["ids"], q), 20)
+        bound = match_roofline(s["n_sites"], *s["qids"].shape[1:])
         print(f"[{tag}] K1 match_positions V={s['n_sites']} "
               f"queries={tuple(s['qids'].shape)} exact ms={ms:.4f} "
-              f"plain_ms={pms:.4f}")
-        add("match_positions", 0.0, ms, pms, 1)
+              f"plain_ms={pms:.4f} searchsorted_ms={lms:.4f} (positions "
+              f"only) bound_ms={bound['bound_ms']:.5f} ({bound['bound_by']})")
+        add("match_positions", "K1", 0.0, ms, pms, 1, bound, library_ms=lms)
 
-    def conv_check(name, kern, plain, rest, C, Cout, V, calls, route):
+    def conv_check(name, kern, plain, rest, nb, C, Cout, V, calls, route):
+        Vout, K = nb.shape[1], nb.shape[2]
+        pairs = int((nb < V).sum())
         for dtype, rtol in ((torch.float32, 1e-4),
                             (torch.bfloat16, 2 * 2.0 ** -8)):
             x = torch.randn((1, V, C), generator=gen, device=dev)
@@ -212,12 +359,24 @@ def kernel_phase(torch, model, pts, dev, tag):
                      f"{rtol} x {scale}")
             ms = median_ms(torch, lambda: kern(*a), 20)
             pms = median_ms(torch, lambda: plain(*a), 20)
-            if dtype == torch.bfloat16:   # the presets' dtype: reported
-                add(name, err, ms, pms, calls)
-            print(f"[{tag}] {name} V={V} C={C}->{Cout} {dtype} "
+            bf16 = dtype == torch.bfloat16
+            bound = conv_roofline(pairs, V, C, Vout, K, Cout,
+                                  elem=2 if bf16 else 4,
+                                  ids=name == "gather_conv_ids",
+                                  peak="bf16" if bf16 else "fp32")
+            extra = ""
+            if bf16:   # the presets' dtype: reported
+                rows = _gathered(torch, a[0], nb)
+                w2 = a[-1].to(dtype).reshape(K * C, Cout)
+                gms = median_ms(torch, lambda: rows @ w2, 20)
+                add(name, route, err, ms, pms, calls, bound, gemm_ms=gms)
+                extra = f" gemm_ms={gms:.4f}"
+                del rows
+            print(f"[{tag}] {name} V={V} Vout={Vout} C={C}->{Cout} {dtype} "
                   f"max_abs_err={err:.3g} (max |ref| {scale:.3g}, rtol "
-                  f"{rtol:.3g}) ms={ms:.4f} plain_ms={pms:.4f} "
-                  f"x{calls}/scene tpu={route}")
+                  f"{rtol:.3g}) ms={ms:.4f} plain_ms={pms:.4f}{extra} "
+                  f"bound_ms={bound['bound_ms']:.5f} ({bound['bound_by']}, "
+                  f"{pairs} pairs) x{calls}/scene tpu={route}")
 
     subm, strided = conv_cases(cfg)
     for si, C, Cout, calls in subm:
@@ -226,14 +385,15 @@ def kernel_phase(torch, model, pts, dev, tag):
         w = torch.randn((27, C, Cout), generator=gen, device=dev) \
             / (27 * C) ** 0.5
         conv_check("gather_conv", sc.gather_conv, sc.gather_conv_plain,
-                   (nb, w), C, Cout, s["n_sites"], calls,
+                   (nb, w), nb, C, Cout, s["n_sites"], calls,
                    tpu_route("subm-conv", s["n_sites"]))
     for si, C, Cout, calls in strided:
         prev, s = sets[si - 1], sets[si]
         w = torch.randn((27, C, Cout), generator=gen, device=dev) \
             / (27 * C) ** 0.5
+        nb = sc.match_positions_plain(prev["ids"], s["sq"], prev["n_sites"])
         conv_check("gather_conv_ids", sc.gather_conv_ids,
-                   sc.gather_conv_ids_plain, (prev["ids"], s["sq"], w),
+                   sc.gather_conv_ids_plain, (prev["ids"], s["sq"], w), nb,
                    C, Cout, prev["n_sites"], calls,
                    tpu_route("strided-conv", prev["n_sites"], s["n_sites"]))
 
@@ -243,6 +403,9 @@ def kernel_phase(torch, model, pts, dev, tag):
     vc = torch.where(vmask[..., None], vc, torch.zeros_like(vc))
     S = cfg.num_query
     fargs = (xyz, mask, vc, vmask, S)
+    sizes = [xyz.shape[1], vc.shape[1]]
+    sms, smem_limit, _ = fps._device_limits(dev.index or 0)
+    grid, in_smem = fps.fps_plan(sizes, 1, sms, smem_limit)
     ga, gb = fps.farthest_point_sample_pair(*fargs)
     ra = fps.farthest_point_sample_plain(xyz, mask, S)
     rb = fps.farthest_point_sample_plain(vc, vmask, S)
@@ -252,21 +415,33 @@ def kernel_phase(torch, model, pts, dev, tag):
     pms = median_ms(torch, lambda: (
         fps.farthest_point_sample_plain(xyz, mask, S),
         fps.farthest_point_sample_plain(vc, vmask, S)), 3, 1)
-    print(f"[{tag}] K4 fps_pair N=({xyz.shape[1]}, {vc.shape[1]}) "
-          f"S={S} exact ms={ms:.4f} plain_ms={pms:.4f}")
-    add("fps_pair", 0.0, ms, pms, 1)
+    bound = fps_roofline([int(mask.sum()), int(vmask.sum())], sizes, S)
+    # the latency floor: the same kernel and steps on one point per block
+    tiny = [t[:, :grid].contiguous() for t in fargs[:4]]
+    floor = median_ms(torch, lambda: fps.farthest_point_sample_pair(
+        *tiny, S), 10)
+    print(f"[{tag}] K4 fps_pair N=({sizes[0]}, {sizes[1]}) S={S} exact "
+          f"ms={ms:.4f} plain_ms={pms:.4f} bound_ms="
+          f"{bound['bound_ms']:.5f} ({bound['bound_by']}) grid={grid} "
+          f"slices in {'shared' if in_smem else 'global'} memory; "
+          f"{grid} points a set: {floor:.4f} ms = "
+          f"{floor / max(S - 1, 1) * 1e3:.3f} us per step")
+    add("fps_pair", "K4", 0.0, ms, pms, 1, bound)
     # K11: the single-set op on the raw points, exact
     if not torch.equal(fps.farthest_point_sample(xyz, mask, S), ra):
         fail("K11 farthest_point_sample differs from the plain version")
     ms = median_ms(torch, lambda: fps.farthest_point_sample(xyz, mask, S), 10)
     pms = median_ms(torch, lambda: fps.farthest_point_sample_plain(
         xyz, mask, S), 3, 1)
-    print(f"[{tag}] K11 fps N={xyz.shape[1]} S={S} exact ms={ms:.4f} "
-          f"plain_ms={pms:.4f} (no model path calls it)")
-    add("fps", 0.0, ms, pms, 1)
+    bound = fps_roofline([int(mask.sum())], sizes[:1], S)
+    print(f"[{tag}] K11 fps N={sizes[0]} S={S} exact ms={ms:.4f} "
+          f"plain_ms={pms:.4f} bound_ms={bound['bound_ms']:.5f} "
+          f"({bound['bound_by']}) (no model path calls it)")
+    add("fps", "K11", 0.0, ms, pms, 1, bound)
     print(f"[{tag}] voxels={int(vmask.sum())} sites per stage="
           f"{[int(s['mask'].sum()) for s in sets]} budgets="
           f"{[s['n_sites'] for s in sets]}")
+    print_report(tag, report, by_route)
     return report
 
 
@@ -444,12 +619,16 @@ def dw_phase(torch, model, batch, dev, tag, kitti_auction):
     feats, coords, vmask = model.voxelize(batch["points"], batch["pts_mask"])
     sets = model.pts_middle_encoder.site_sets(coords, vmask, backward=True)
     gen = torch.Generator(device=dev).manual_seed(2)
-    report = {}
+    report, by_route = {}, {}
 
-    def add(*a):
-        _report_add(report, *a)
+    def add(name, route, *a, **kw):
+        _report_add(report, name, *a, **kw)
+        _report_add(by_route, route, *a, **kw)
 
-    def dw_check(name, kern, plain, rest, C, Cout, V, Vout, calls, route):
+    def dw_check(name, kern, plain, rest, nb, C, Cout, V, Vout, calls,
+                 route):
+        K = nb.shape[2]
+        pairs = int((nb < V).sum())
         for dtype, key in ((torch.float32, "float32"),
                            (torch.bfloat16, "bfloat16")):
             x = torch.randn((TRAIN_B, V, C), generator=gen, device=dev)
@@ -463,12 +642,24 @@ def dw_phase(torch, model, batch, dev, tag, kitti_auction):
                      f"{DW_RTOL[key]} x {scale}")
             ms = median_ms(torch, lambda: kern(*a), 10)
             pms = median_ms(torch, lambda: plain(*a), 10)
-            if dtype == torch.bfloat16:   # the presets' dtype: reported
-                add(name, err, ms, pms, calls)
+            bf16 = dtype == torch.bfloat16
+            bound = dw_roofline(pairs, V, C, Vout, K, Cout, TRAIN_B,
+                                elem=2 if bf16 else 4,
+                                ids=name == "gather_conv_ids_dw")
+            extra = ""
+            if bf16:   # the presets' dtype: reported
+                rows_t = _gathered(torch, a[0], nb).T
+                g2 = a[-1].reshape(-1, Cout)
+                gms = median_ms(torch, lambda: rows_t @ g2, 10)
+                add(name, route, err, ms, pms, calls, bound, gemm_ms=gms)
+                extra = f" gemm_ms={gms:.4f}"
+                del rows_t, g2
             print(f"[{tag}] {name} B={TRAIN_B} V={V} Vout={Vout} "
                   f"C={C}->{Cout} {dtype} max_abs_err={err:.3g} (max |ref| "
                   f"{scale:.3g}, rtol {DW_RTOL[key]}) ms={ms:.4f} "
-                  f"plain_ms={pms:.4f} x{calls}/step tpu={route}")
+                  f"plain_ms={pms:.4f}{extra} bound_ms="
+                  f"{bound['bound_ms']:.5f} ({bound['bound_by']}, {pairs} "
+                  f"pairs) x{calls}/step tpu={route}")
             del got, ref, a, x, g
 
     subm, strided = conv_cases(cfg)
@@ -476,12 +667,13 @@ def dw_phase(torch, model, batch, dev, tag, kitti_auction):
         s = sets[si]
         nb = sc.match_positions_plain(s["ids"], s["qids"], s["n_sites"])
         dw_check("gather_conv_dw", sc.gather_conv_dw,
-                 sc.gather_conv_dw_plain, (nb,), C, Cout, s["n_sites"],
+                 sc.gather_conv_dw_plain, (nb,), nb, C, Cout, s["n_sites"],
                  s["n_sites"], calls, tpu_route("subm-dw", s["n_sites"]))
     for si, C, Cout, calls in strided:
         prev, s = sets[si - 1], sets[si]
+        nb = sc.match_positions_plain(prev["ids"], s["sq"], prev["n_sites"])
         dw_check("gather_conv_ids_dw", sc.gather_conv_ids_dw,
-                 sc.gather_conv_ids_dw_plain, (prev["ids"], s["sq"]), C,
+                 sc.gather_conv_ids_dw_plain, (prev["ids"], s["sq"]), nb, C,
                  Cout, prev["n_sites"], s["n_sites"], calls,
                  tpu_route("strided-dw", prev["n_sites"], s["n_sites"]))
 
@@ -512,15 +704,18 @@ def dw_phase(torch, model, batch, dev, tag, kitti_auction):
         pms = median_ms(torch, lambda: matching.auction_lap_plain(
             benefit, spread, eps_div), 3, 1)
         in_smem = matching.auction_lap.benefit_in_smem
+        bound = auction_roofline(*benefit.shape)
         print(f"[{tag}] K12 auction_lap {label} "
               f"{tuple(benefit.shape)} exact, benefit in "
               f"{'shared' if in_smem else 'global'} memory ms={ms:.4f} "
-              f"plain_ms={pms:.4f} x{calls}/step")
+              f"plain_ms={pms:.4f} bound_ms={bound['bound_ms']:.6f} "
+              f"({bound['bound_by']}) x{calls}/step")
         if calls:
-            add("auction_lap", 0.0, ms, pms, calls)
+            add("auction_lap", "K12", 0.0, ms, pms, calls, bound)
     print(f"[{tag}] voxels={int(vmask.sum())} of {vmask.numel()} "
           f"sites per stage={[int(s['mask'].sum()) for s in sets]} "
           f"budgets={[s['n_sites'] for s in sets]}")
+    print_report(tag, report, by_route)
     return report
 
 
@@ -839,7 +1034,7 @@ def main():
     }
     kernels = [dict(name=name, route="cuda",
                     source=f"uni3detr_tpu_torch/csrc/{src}", replaces=rep,
-                    launches=launches[name], **report[name])
+                    launches=launches[name], **_report_entry(report[name]))
                for name, (src, rep) in meta.items()]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

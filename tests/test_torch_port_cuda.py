@@ -385,3 +385,129 @@ def test_voxelize_cell_edges_on_card_match_cpu(dev):
     assert int(ref[2].sum()) > 16
     assert torch.equal(got[1].cpu(), ref[1]) and torch.equal(got[2].cpu(),
                                                               ref[2])
+
+
+# -- the redesigned kernels: K4/K11 over the whole card, K2/K3 on tensor cores
+
+def _tie_sets(rng, B, N, n_valid, span):
+    """Integer coordinates in [0, span) (distance ties everywhere, also
+    across block slices) with the first n_valid[b] points valid."""
+    xyz = torch.from_numpy(rng.randint(0, span, (B, N, 3)).astype(
+        np.float32))
+    mask = torch.zeros(B, N, dtype=torch.bool)
+    for b, n in enumerate(n_valid):
+        mask[b, :n] = True
+    return xyz, mask
+
+
+@pytest.mark.parametrize("B,Na,Nb,S", [
+    (1, 20000, 7000, 256),      # N not a multiple of the slice size
+    (4, 30011, 9001, 200),      # the train batch
+    (1, 131, 50, 80),           # fewer points than blocks; 50 < S
+])
+def test_fps_pair_kernel_ties_masks_exhaustion(dev, B, Na, Nb, S):
+    rng = np.random.RandomState(Na + B)
+    xa, ma = _tie_sets(rng, B, Na, [Na - 7 * b for b in range(B)], 8)
+    xb, mb = _tie_sets(rng, B, Nb, [min(Nb, 60)] + [Nb // 2] * (B - 1), 5)
+    ra = fps.farthest_point_sample_plain(xa, ma, S)
+    rb = fps.farthest_point_sample_plain(xb, mb, S)
+    before = fps.farthest_point_sample_pair.launches
+    ga, gb = fps.farthest_point_sample_pair(xa.to(dev), ma.to(dev),
+                                            xb.to(dev), mb.to(dev), S)
+    torch.cuda.synchronize()
+    assert fps.farthest_point_sample_pair.launches == before + 1
+    assert torch.equal(ga.cpu(), ra) and torch.equal(gb.cpu(), rb)
+    assert (rb[0] < 60).all()
+
+
+def test_fps_kernels_streamed_slices(dev):
+    """Sets too large for the blocks' shared memory take the streamed
+    variant of the same kernel."""
+    sms, smem_limit, _ = fps._device_limits(torch.cuda.current_device())
+    B, Na, Nb, S = 8, 300000, 120000, 48
+    assert fps.fps_plan([Na, Nb], B, sms, smem_limit) == (sms, False)
+    assert fps.fps_plan([Na, Nb], 1, sms, smem_limit) == (sms, True)
+    rng = np.random.RandomState(12)
+    xa, ma = _tie_sets(rng, B, Na, [Na - 1000 * b for b in range(B)], 64)
+    xb, mb = _tie_sets(rng, B, Nb, [Nb] * B, 16)
+    xa, ma, xb, mb = (t.to(dev) for t in (xa, ma, xb, mb))
+    ra = fps.farthest_point_sample_plain(xa, ma, S)
+    rb = fps.farthest_point_sample_plain(xb, mb, S)
+    ga, gb = fps.farthest_point_sample_pair(xa, ma, xb, mb, S)
+    g1 = fps.farthest_point_sample(xa, ma, S)
+    torch.cuda.synchronize()
+    assert torch.equal(ga, ra) and torch.equal(gb, rb) and torch.equal(g1, ra)
+
+
+def test_fps_kernel_single_set_ties(dev):
+    """K11 on the same kernel: integer ties, a masked tail, exhaustion."""
+    rng = np.random.RandomState(14)
+    xyz, mask = _tie_sets(rng, 2, 50021, [50021, 90], 6)
+    ref = fps.farthest_point_sample_plain(xyz, mask, 128)
+    got = fps.farthest_point_sample(xyz.to(dev), mask.to(dev), 128)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), ref)
+    assert len(set(ref[1].tolist())) < 128          # duplicates
+
+
+@pytest.mark.parametrize("C,Cout", [(4, 16), (5, 16), (8, 16), (16, 16),
+                                    (64, 128), (128, 128), (136, 24)])
+def test_gather_conv_bf16_tensor_core_widths(dev, C, Cout):
+    """bf16 K2 at the widths the tensor-core body treats specially: rows
+    staged by element (C % 8 != 0), a half-empty 16-column tile (C=8),
+    two channel chunks (C=136); Vout=2000 is not a multiple of the
+    64-row tile, and row 0 has all 27 neighbours missing."""
+    rng = np.random.RandomState(C * Cout)
+    grid = (16, 40, 40)
+    V = 2000
+    coords, mask = _sites(rng, grid, 1800, V)
+    ids = linear_ids(coords, mask, grid)
+    nb = sc.match_positions_plain(ids, subm_query_ids(coords, mask, grid), V)
+    nb[0, 0] = V
+    feats = torch.from_numpy(rng.randn(1, V, C).astype(np.float32)
+                             ).bfloat16()
+    w = torch.from_numpy(rng.randn(27, C, Cout).astype(np.float32) * 0.1)
+    args = [t.to(dev) for t in (feats, nb, w)]
+    ref = sc.gather_conv_plain(*args)
+    got = sc.gather_conv(*args)
+    torch.cuda.synchronize()
+    _conv_close(got, ref, torch.bfloat16)
+    assert (got[0, 0] == 0).all()
+
+
+@pytest.mark.parametrize("C,Cout", [(4, 16), (5, 16), (16, 16), (64, 128),
+                                    (128, 128)])
+def test_gather_conv_ids_bf16_tensor_core_widths(dev, C, Cout):
+    """bf16 K3 at the same widths; 1000 output sites (not a multiple of
+    the 64-row tile)."""
+    rng = np.random.RandomState(C + Cout)
+    grid = (16, 40, 40)
+    V = 3000
+    coords, mask = _sites(rng, grid, 2500, V)
+    oc, om, og = downsample_sites(coords, mask, grid, (1, 1, 1), 1000)
+    ids = linear_ids(coords, mask, grid)
+    sq = strided_query_ids(oc, om, grid, (1, 1, 1))
+    feats = torch.from_numpy(rng.randn(1, V, C).astype(np.float32)
+                             ).bfloat16()
+    w = torch.from_numpy(rng.randn(27, C, Cout).astype(np.float32) * 0.1)
+    args = [t.to(dev) for t in (feats, ids, sq, w)]
+    ref = sc.gather_conv_ids_plain(*args)
+    got = sc.gather_conv_ids(*args)
+    torch.cuda.synchronize()
+    _conv_close(got, ref, torch.bfloat16)
+
+
+def test_gather_conv_bf16_rejects_misaligned_view(dev):
+    """A bf16 view that starts 2 bytes into its allocation cannot feed
+    the kernel's 16-byte copies: the wrapper raises."""
+    V, C = 64, 16
+    base = torch.zeros(V * C + 1, dtype=torch.bfloat16, device=dev)
+    feats = base[1:].view(1, V, C)
+    nb = torch.full((1, V, 27), V, dtype=torch.int32, device=dev)
+    w = torch.zeros(27, C, 16, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="16-byte"):
+        sc.gather_conv(feats, nb, w)
+    sites = torch.arange(V, dtype=torch.int32, device=dev)[None]
+    with pytest.raises(ValueError, match="16-byte"):
+        sc.gather_conv_ids(feats, sites, nb, w)
+    assert sc.gather_conv(feats.clone(), nb, w).abs().max().item() == 0

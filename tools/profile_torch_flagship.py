@@ -10,8 +10,9 @@ boxes, after two warm-up scenes:
 - per stage, CUDA-event time on the stream (voxelize + FPS + glue is
   what the encoder, backbone, neck, head, decode and NMS leave of the
   scene), median over the scenes;
-- ``torch.profiler``: the top device kernels by total time, and the
-  device busy share (summed kernel time over the wall time).
+- ``torch.profiler``: the top device kernels by total time, the device
+  busy share (summed kernel time over the wall time), and each of the
+  port's own kernels with its launches and device ms per scene.
 
 Needs a CUDA device; prints the card's name and power limit first.
 """
@@ -25,6 +26,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
+import chip_smoke  # noqa: E402
 from uni3detr_tpu_torch.models.detector import Uni3DETR  # noqa: E402
 from uni3detr_tpu_torch.presets import PRESETS  # noqa: E402
 from uni3detr_tpu_torch.synthetic import clustered_scene  # noqa: E402
@@ -125,6 +127,7 @@ def main(n_scenes: int = 5, preset: str = "uni3detr_sunrgbd"):
           f"{dev_total / wall:.3f}")
     print(ka.table(sort_by="self_device_time_total", row_limit=25,
                    max_name_column_width=70))
+    chip_smoke.print_port_kernels(torch, ka, n_scenes, "scene")
 
 
 if __name__ == "__main__":

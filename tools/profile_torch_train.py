@@ -11,7 +11,9 @@ lr 1e-4) on one fixed batch, after three warm-up steps:
   forward (voxelize, encoder, backbone, neck, FPS, head), loss (the
   matching included), backward, optimizer (clip + AdamW);
 - ``torch.profiler`` over the steps: the top device kernels by total
-  time, and the device busy share (summed kernel time over wall time).
+  time, the device busy share (summed kernel time over wall time), and
+  each of the port's own kernels with its launches and device ms per
+  step.
 
 Needs a CUDA device; prints the card's name and power limit first.
 """
@@ -25,6 +27,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
+import chip_smoke  # noqa: E402
 from uni3detr_tpu_torch.geom.boxes import gravity_center_boxes  # noqa: E402
 from uni3detr_tpu_torch.models.detector import Uni3DETR  # noqa: E402
 from uni3detr_tpu_torch.presets import PRESETS  # noqa: E402
@@ -101,6 +104,7 @@ def main(n_steps: int = 5, preset: str = "uni3detr_sunrgbd"):
           f"time {dev_total:.3f} ms; busy share {dev_total / wall:.3f}")
     print(ka.table(sort_by="self_device_time_total", row_limit=25,
                    max_name_column_width=70))
+    chip_smoke.print_port_kernels(torch, ka, n_steps, "step")
 
 
 if __name__ == "__main__":

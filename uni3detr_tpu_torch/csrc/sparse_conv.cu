@@ -14,18 +14,34 @@
 //    gather_conv_ids): the same gather-GEMM, each neighbour row found
 //    inside the kernel by binary search of its query id.
 //
-// K2/K3 design: a block owns a tile of TM output rows and TN output
-// channels. It first resolves the K*TM neighbour rows of its tile into
-// shared memory (K3 searches them there), then for every offset k and
-// every TK-wide slice of input channels it gathers the TM neighbour rows
-// (zero for a miss) and the matching slice of W[k] into shared memory
-// and accumulates in fp32 registers, 4x4 outputs per thread. Each
-// gathered row is read in the input dtype and widened to fp32 exactly,
-// as the TPU kernel casts each gathered row to the input dtype before
-// the product; the result is rounded to the input dtype once at the end.
-// Bound: at the encoder's widths (C, Cout <= 128, V <= 40k) the convs
-// are a few GFLOP each and the gathers are scattered 2-byte (bf16)
-// reads; this first version runs on the fp32 CUDA cores, not wgmma.
+// K2/K3 bf16 design (u3d_gather_conv_bf16, u3d_gather_conv_ids_bf16, the
+// presets' dtype): tensor cores. What bounds these convs on this card:
+// 2 * pairs * C * Cout products (15.9 GFLOP at 18000 sites, 128->128:
+// 16 us at the 989 TFLOP/s bf16 rate) or, at the narrow widths, the bytes
+// of the rulebook and the rows (120000 sites, 16->16: 20.6 MB, 6 us).
+// The first version ran every product as scalar fp32 FMA, 1-2 orders
+// above both. A block owns TM = 64 output rows (4 warps x 16) and up to
+// 128 output channels. It resolves its K*TM neighbour rows once into
+// shared memory (K3 by binary search of the query ids), then walks the
+// (offset k, 128-channel chunk) stages through a ring of MM_STAGES = 2
+// buffers: while the tensor cores multiply stage t, cp.async (16 bytes a
+// thread, zero-filled with src-size 0 for a missing neighbour) gathers the
+// TM rows of stage t+1 and the matching rows of W[k]. (A ring of 4
+// 64-channel stages, or 128-row tiles, measured no faster on the H100.) Rows narrower than 8
+// channels (the 4/5-channel input convs) are staged with element loads
+// into a tile zero-padded to 16 columns, so one kernel serves every
+// width. The product is mma.sync m16n8k16 bf16 -> fp32 fed by ldmatrix
+// from rows padded by 16 bytes (conflict-free); the fp32 sum is rounded
+// to bf16 once at the end, as before. The wrapper checks that features
+// and weights are 16-byte aligned.
+//
+// K2/K3 fp32 design (u3d_gather_conv_f32, u3d_gather_conv_ids_f32): the
+// fp32 path must give exact fp32 products (TF32 would not), so it stays
+// on the CUDA cores: a block owns TM output rows and TN output channels,
+// resolves its neighbour rows as above, then for every offset k and
+// every TK-wide slice of input channels stages the rows (zero for a
+// miss) and the slice of W[k] in shared memory and accumulates in fp32
+// registers, 4x4 outputs per thread.
 //
 // K7 u3d_gather_conv_dw_* replaces _gather_rows_kernel_unpacked (entry
 //    _rows_unpacked, via gather_rows_pallas in the conv backward) and
@@ -93,22 +109,39 @@ template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(
     __nv_bfloat16 x) {
   return __bfloat162float(x);
 }
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16_rn(x);
+// s_row[r * K + k]: the feature row of output row m0 + r at offset k, -1
+// for a miss; the block's index rows are contiguous, so the loads are
+// coalesced, and the odd row stride K keeps later reads of s_row across
+// r free of bank conflicts. index: IDMATCH ? query ids (B, Vout, K) :
+// rulebook rows (B, Vout, K). Ends with a block barrier.
+template <bool IDMATCH, int ROWS, int THREADS>
+__device__ __forceinline__ void resolve_rows(
+    int* s_row, const int* __restrict__ index,
+    const int* __restrict__ site_ids, int b, int m0, int V, int Vout,
+    int K) {
+  const int n = min(ROWS, Vout - m0) * K;
+  const int* ib = index + ((long long)b * Vout + m0) * K;
+  for (int e = threadIdx.x; e < ROWS * K; e += THREADS) {
+    int row = -1;
+    if (e < n) {
+      const int q = ib[e];
+      if (IDMATCH) {
+        row = find_row(site_ids + (long long)b * V, V, q, -1);
+      } else {
+        row = (q >= 0 && q < V) ? q : -1;
+      }
+    }
+    s_row[e] = row;
+  }
+  __syncthreads();
 }
 
-// index: IDMATCH ? query ids (B, Vout, K) : rulebook rows (B, Vout, K)
-template <typename T, bool IDMATCH>
-__global__ void __launch_bounds__(NT) gather_conv_kernel(
-    const T* __restrict__ feats, const int* __restrict__ index,
-    const int* __restrict__ site_ids, const T* __restrict__ w,
-    T* __restrict__ out, int V, int C, int Vout, int K, int Cout) {
-  __shared__ int s_row[MAX_K][TM];
+template <bool IDMATCH>
+__global__ void __launch_bounds__(NT) gather_conv_f32_kernel(
+    const float* __restrict__ feats, const int* __restrict__ index,
+    const int* __restrict__ site_ids, const float* __restrict__ w,
+    float* __restrict__ out, int V, int C, int Vout, int K, int Cout) {
+  __shared__ int s_row[MAX_K * TM];
   __shared__ float s_a[TM][TK];
   __shared__ float s_b[TK][TN];
   const int b = blockIdx.z;
@@ -116,23 +149,8 @@ __global__ void __launch_bounds__(NT) gather_conv_kernel(
   const int n0 = blockIdx.y * TN;
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
-  const T* fb = feats + (long long)b * V * C;
-
-  for (int e = tid; e < K * TM; e += NT) {
-    const int k = e / TM, r = e % TM;
-    const int m = m0 + r;
-    int row = -1;
-    if (m < Vout) {
-      const int q = index[((long long)b * Vout + m) * K + k];
-      if (IDMATCH) {
-        row = find_row(site_ids + (long long)b * V, V, q, -1);
-      } else {
-        row = (q >= 0 && q < V) ? q : -1;
-      }
-    }
-    s_row[k][r] = row;
-  }
-  __syncthreads();
+  const float* fb = feats + (long long)b * V * C;
+  resolve_rows<IDMATCH, TM, NT>(s_row, index, site_ids, b, m0, V, Vout, K);
 
   float acc[4][4];
 #pragma unroll
@@ -144,16 +162,16 @@ __global__ void __launch_bounds__(NT) gather_conv_kernel(
     for (int c0 = 0; c0 < C; c0 += TK) {
       for (int e = tid; e < TM * TK; e += NT) {
         const int r = e / TK, c = e % TK;
-        const int row = s_row[k][r];
+        const int row = s_row[r * K + k];
         float v = 0.f;
-        if (row >= 0 && c0 + c < C) v = to_f32(fb[(long long)row * C + c0 + c]);
+        if (row >= 0 && c0 + c < C) v = fb[(long long)row * C + c0 + c];
         s_a[r][c] = v;
       }
       for (int e = tid; e < TK * TN; e += NT) {
         const int c = e / TN, n = e % TN;
         float v = 0.f;
         if (c0 + c < C && n0 + n < Cout)
-          v = to_f32(w[((long long)k * C + c0 + c) * Cout + n0 + n]);
+          v = w[((long long)k * C + c0 + c) * Cout + n0 + n];
         s_b[c][n] = v;
       }
       __syncthreads();
@@ -181,23 +199,257 @@ __global__ void __launch_bounds__(NT) gather_conv_kernel(
     for (int j = 0; j < 4; ++j) {
       const int n = n0 + tx + 16 * j;
       if (n < Cout)
-        out[((long long)b * Vout + m) * Cout + n] = from_f32<T>(acc[i][j]);
+        out[((long long)b * Vout + m) * Cout + n] = acc[i][j];
     }
   }
 }
 
-template <typename T, bool IDMATCH>
-int launch_gather_conv(const void* feats, const void* index,
-                       const void* site_ids, const void* w, void* out, int B,
-                       int V, int C, int Vout, int K, int Cout,
-                       void* stream) {
+template <bool IDMATCH>
+int launch_gather_conv_f32(const void* feats, const void* index,
+                           const void* site_ids, const void* w, void* out,
+                           int B, int V, int C, int Vout, int K, int Cout,
+                           void* stream) {
   if (K > MAX_K) return (int)cudaErrorInvalidValue;
   if (B == 0 || Vout == 0 || Cout == 0) return (int)cudaSuccess;
   dim3 grid((Vout + TM - 1) / TM, (Cout + TN - 1) / TN, B);
-  gather_conv_kernel<T, IDMATCH><<<grid, NT, 0, (cudaStream_t)stream>>>(
-      (const T*)feats, (const int*)index, (const int*)site_ids,
-      (const T*)w, (T*)out, V, C, Vout, K, Cout);
+  gather_conv_f32_kernel<IDMATCH><<<grid, NT, 0, (cudaStream_t)stream>>>(
+      (const float*)feats, (const int*)index, (const int*)site_ids,
+      (const float*)w, (float*)out, V, C, Vout, K, Cout);
   return (int)cudaGetLastError();
+}
+
+// ---- bf16 tensor-core body --------------------------------------------------
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int MM_WARPS = 4;
+constexpr int MM_TM = 16 * MM_WARPS;   // output rows per block
+constexpr int MM_NT = 32 * MM_WARPS;   // threads per block
+constexpr int MM_TC = 128;             // input channels per stage (at most)
+constexpr int MM_STAGES = 2;           // ring of stages: double buffering
+constexpr int MM_PAD = 8;              // bf16 row padding of the tiles
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared, zero-filled when !ok (src-size 0: no read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
+                                                  const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// c (16x8 fp32) += a (16x16 bf16, row) * b (16x8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__host__ __device__ __forceinline__ int round16(int x) {
+  return (x + 15) & ~15;
+}
+
+// Staged channels of a stage: the chunk's width rounded up to 16.
+__host__ __device__ __forceinline__ int mm_stage_cols(int C) {
+  return round16(C < MM_TC ? C : MM_TC);
+}
+
+// Block: TM output rows x 8*NTILES output channels (n0 = blockIdx.y * that)
+// of batch element blockIdx.z. Warp w computes rows [16w, 16w + 16).
+template <bool IDMATCH, int NTILES>
+__global__ void __launch_bounds__(MM_NT) gather_conv_mma_kernel(
+    const bf16* __restrict__ feats, const int* __restrict__ index,
+    const int* __restrict__ site_ids, const bf16* __restrict__ w,
+    bf16* __restrict__ out, int V, int C, int Vout, int K, int Cout) {
+  constexpr int TN = 8 * NTILES;
+  constexpr int B_LD = TN + MM_PAD;
+  extern __shared__ __align__(16) unsigned char mm_smem[];
+  __shared__ int s_row[MAX_K * MM_TM];
+  const int b = blockIdx.z;
+  const int m0 = blockIdx.x * MM_TM;
+  const int n0 = blockIdx.y * TN;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const bf16* fb = feats + (long long)b * V * C;
+  const int cmax = mm_stage_cols(C);
+  const int a_ld = cmax + MM_PAD;
+  bf16* s_a0 = reinterpret_cast<bf16*>(mm_smem);
+  bf16* s_b0 = s_a0 + MM_STAGES * MM_TM * a_ld;
+
+  resolve_rows<IDMATCH, MM_TM, MM_NT>(s_row, index, site_ids, b, m0, V, Vout,
+                                      K);
+
+  const int nch = (C + MM_TC - 1) / MM_TC;
+  const int n_stages = K * nch;
+  const bool vec_a = (C % 8) == 0, vec_b = (Cout % 8) == 0;
+  const int nw = min(Cout - n0, TN);   // real output channels of the block
+
+  // stage t: rows of offset k = t / nch, channels [c0, c0 + cw)
+  auto stage = [&](int t) {
+    const int buf = t % MM_STAGES;
+    const int k = t / nch, c0 = (t % nch) * MM_TC;
+    const int cw = min(C - c0, MM_TC);
+    const int cp = round16(cw);
+    bf16* sa = s_a0 + buf * MM_TM * a_ld;
+    bf16* sb = s_b0 + buf * cmax * B_LD;
+    if (vec_a) {
+      const int chunks = cp / 8;
+      for (int e = tid; e < MM_TM * chunks; e += MM_NT) {
+        const int r = e / chunks, j = e % chunks;
+        const int row = s_row[r * K + k];
+        const bool ok = row >= 0 && j * 8 < cw;
+        cp_async16(sa + r * a_ld + j * 8,
+                   ok ? fb + (long long)row * C + c0 + j * 8 : fb, ok);
+      }
+    } else {
+      for (int e = tid; e < MM_TM * cp; e += MM_NT) {
+        const int r = e / cp, c = e % cp;
+        const int row = s_row[r * K + k];
+        sa[r * a_ld + c] = (row >= 0 && c < cw)
+                               ? fb[(long long)row * C + c0 + c]
+                               : __float2bfloat16_rn(0.f);
+      }
+    }
+    const bf16* wk = w + ((long long)k * C + c0) * Cout + n0;
+    if (vec_b) {
+      constexpr int chunks = TN / 8;
+      for (int e = tid; e < cp * chunks; e += MM_NT) {
+        const int c = e / chunks, j = e % chunks;
+        const bool ok = c < cw && j * 8 < nw;
+        cp_async16(sb + c * B_LD + j * 8,
+                   ok ? wk + (long long)c * Cout + j * 8 : w, ok);
+      }
+    } else {
+      for (int e = tid; e < cp * TN; e += MM_NT) {
+        const int c = e / TN, n = e % TN;
+        sb[c * B_LD + n] = (c < cw && n < nw) ? wk[(long long)c * Cout + n]
+                                              : __float2bfloat16_rn(0.f);
+      }
+    }
+  };
+
+  float acc[NTILES][4];
+#pragma unroll
+  for (int i = 0; i < NTILES; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  // ring of MM_STAGES buffers: stages t+1 .. t+MM_STAGES-1 load while
+  // the tensor cores multiply stage t
+#pragma unroll
+  for (int t = 0; t < MM_STAGES - 1; ++t) {
+    if (t < n_stages) stage(t);
+    cp_async_commit();
+  }
+  for (int t = 0; t < n_stages; ++t) {
+    cp_async_wait<MM_STAGES - 2>();   // stage t has landed
+    // stage t is visible to all warps, and all have finished stage t-1,
+    // whose buffer the next load refills
+    __syncthreads();
+    if (t + MM_STAGES - 1 < n_stages) stage(t + MM_STAGES - 1);
+    cp_async_commit();
+    const int cp = round16(min(C - (t % nch) * MM_TC, MM_TC));
+    const int buf = t % MM_STAGES;
+    const bf16* sa = s_a0 + buf * MM_TM * a_ld + warp * 16 * a_ld;
+    const bf16* sb = s_b0 + buf * cmax * B_LD;
+    for (int kk = 0; kk < cp; kk += 16) {
+      uint32_t a[4];
+      ldmatrix_x4(a, sa + (lane & 15) * a_ld + kk + (lane >> 4) * 8);
+#pragma unroll
+      for (int nt = 0; nt < NTILES; nt += 2) {
+        uint32_t bb[4];
+        ldmatrix_x4_trans(bb, sb + (kk + (lane & 15)) * B_LD + nt * 8 +
+                                  (lane >> 4) * 8);
+        mma_bf16(acc[nt], a, bb[0], bb[1]);
+        mma_bf16(acc[nt + 1], a, bb[2], bb[3]);
+      }
+    }
+  }
+
+  const int g = lane >> 2, q = lane & 3;
+  bf16* ob = out + (long long)b * Vout * Cout;
+#pragma unroll
+  for (int nt = 0; nt < NTILES; ++nt) {
+    const int n = n0 + nt * 8 + 2 * q;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + warp * 16 + g + 8 * h;
+      if (m >= Vout) continue;
+      if (n < Cout)
+        ob[(long long)m * Cout + n] = __float2bfloat16_rn(acc[nt][2 * h]);
+      if (n + 1 < Cout)
+        ob[(long long)m * Cout + n + 1] =
+            __float2bfloat16_rn(acc[nt][2 * h + 1]);
+    }
+  }
+}
+
+template <bool IDMATCH, int NTILES>
+int launch_mma_tiles(const void* feats, const void* index,
+                     const void* site_ids, const void* w, void* out, int B,
+                     int V, int C, int Vout, int K, int Cout,
+                     cudaStream_t stream) {
+  constexpr int TN = 8 * NTILES;
+  const int cmax = mm_stage_cols(C);
+  const size_t smem = MM_STAGES * (size_t)(MM_TM * (cmax + MM_PAD) +
+                                           cmax * (TN + MM_PAD)) *
+                      sizeof(bf16);
+  auto kern = gather_conv_mma_kernel<IDMATCH, NTILES>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((Vout + MM_TM - 1) / MM_TM, (Cout + TN - 1) / TN, B);
+  kern<<<grid, MM_NT, smem, stream>>>(
+      (const bf16*)feats, (const int*)index, (const int*)site_ids,
+      (const bf16*)w, (bf16*)out, V, C, Vout, K, Cout);
+  return (int)cudaGetLastError();
+}
+
+template <bool IDMATCH>
+int launch_gather_conv_bf16(const void* feats, const void* index,
+                            const void* site_ids, const void* w, void* out,
+                            int B, int V, int C, int Vout, int K, int Cout,
+                            void* stream_ptr) {
+  if (K > MAX_K || C <= 0) return (int)cudaErrorInvalidValue;
+  if (B == 0 || Vout == 0 || Cout == 0) return (int)cudaSuccess;
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+#define U3D_MMA(NTILES)                                                    \
+  return launch_mma_tiles<IDMATCH, NTILES>(feats, index, site_ids, w, out, \
+                                           B, V, C, Vout, K, Cout, stream)
+  if (Cout <= 16) U3D_MMA(2);
+  if (Cout <= 32) U3D_MMA(4);
+  if (Cout <= 64) U3D_MMA(8);
+  U3D_MMA(16);
+#undef U3D_MMA
 }
 
 constexpr int DW_TR = 32;     // rows per shared-memory stage
@@ -383,31 +635,32 @@ int u3d_match_positions(const void* site_ids, const void* qids, void* out,
 int u3d_gather_conv_f32(const void* feats, const void* nb, const void* w,
                         void* out, int B, int V, int C, int Vout, int K,
                         int Cout, void* stream) {
-  return launch_gather_conv<float, false>(feats, nb, nullptr, w, out, B, V,
-                                          C, Vout, K, Cout, stream);
+  return launch_gather_conv_f32<false>(feats, nb, nullptr, w, out, B, V, C,
+                                       Vout, K, Cout, stream);
 }
 
+// feats and w 16-byte aligned (the wrapper checks)
 int u3d_gather_conv_bf16(const void* feats, const void* nb, const void* w,
                          void* out, int B, int V, int C, int Vout, int K,
                          int Cout, void* stream) {
-  return launch_gather_conv<__nv_bfloat16, false>(
-      feats, nb, nullptr, w, out, B, V, C, Vout, K, Cout, stream);
+  return launch_gather_conv_bf16<false>(feats, nb, nullptr, w, out, B, V, C,
+                                        Vout, K, Cout, stream);
 }
 
 int u3d_gather_conv_ids_f32(const void* feats, const void* site_ids,
                             const void* qids, const void* w, void* out, int B,
                             int V, int C, int Vout, int K, int Cout,
                             void* stream) {
-  return launch_gather_conv<float, true>(feats, qids, site_ids, w, out, B, V,
-                                         C, Vout, K, Cout, stream);
+  return launch_gather_conv_f32<true>(feats, qids, site_ids, w, out, B, V, C,
+                                      Vout, K, Cout, stream);
 }
 
 int u3d_gather_conv_ids_bf16(const void* feats, const void* site_ids,
                              const void* qids, const void* w, void* out,
                              int B, int V, int C, int Vout, int K, int Cout,
                              void* stream) {
-  return launch_gather_conv<__nv_bfloat16, true>(
-      feats, qids, site_ids, w, out, B, V, C, Vout, K, Cout, stream);
+  return launch_gather_conv_bf16<true>(feats, qids, site_ids, w, out, B, V,
+                                       C, Vout, K, Cout, stream);
 }
 
 int u3d_gather_conv_dw_f32(const void* feats, const void* nb, const void* g,

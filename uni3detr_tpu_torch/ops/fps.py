@@ -5,14 +5,22 @@ samples two independent point sets in one launch of the kernel in
 ``csrc/fps.cu`` for CUDA tensors, and through the plain PyTorch loop
 :func:`farthest_point_sample_plain` for CPU tensors.
 :func:`farthest_point_sample` (K11, replaces ``_fps_kernel``) samples one
-set with the same kernel body. Each wrapper's ``launches`` attribute
-counts kernel launches.
+set with the same kernel. Each wrapper's ``launches`` attribute counts
+kernel launches.
+
+The kernel is one cooperative grid over the card (:func:`fps_plan`):
+every block owns a slice of every set and the blocks agree on each
+step's pick through a grid barrier. A grid that cannot be resident at
+once makes the launch fail, and the wrapper raise.
 
 Semantics (mmcv D-FPS): sampling starts at index 0, masked points are
 never chosen, ties go to the lowest index, and once the valid points are
 exhausted the sampler returns duplicates.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -39,9 +47,69 @@ def farthest_point_sample_plain(xyz: torch.Tensor, mask: torch.Tensor,
     return idx.to(torch.int32)
 
 
-def _planes(xyz: torch.Tensor) -> torch.Tensor:
-    """(B, N, 3) -> (B, 3, N) fp32 coordinate planes."""
-    return xyz.float().transpose(1, 2).contiguous()
+# bytes of shared memory a point of a block's slice takes: x, y, z and its
+# min distance, fp32
+FPS_SMEM_BYTES_PER_POINT = 16
+
+
+def fps_plan(sizes, batch: int, sms: int, smem_limit: int):
+    """Grid of the FPS kernel: one block per SM, each owning a contiguous
+    slice of every (set, batch element) problem. Returns ``(grid,
+    in_smem)``: ``in_smem`` when the slices of all problems (``sizes``
+    points per set, ``batch`` elements each) fit ``smem_limit`` bytes of a
+    block's shared memory, else the kernel streams them from global
+    memory."""
+    grid = sms
+    need = FPS_SMEM_BYTES_PER_POINT * batch * sum(-(-n // grid)
+                                                  for n in sizes)
+    return grid, need <= smem_limit
+
+
+@functools.lru_cache(maxsize=None)
+def _device_limits(index: int):
+    """(SMs, shared-memory bytes for slices, most problems per launch) of
+    CUDA device ``index``."""
+    out = (ctypes.c_int * 3)()
+    with torch.cuda.device(index):
+        cuda_lib.check(cuda_lib.library().u3d_fps_limits(out),
+                       "u3d_fps_limits")
+    return tuple(out)
+
+
+def _fps_launch(name: str, sets, num_samples: int) -> torch.Tensor:
+    """Launch ``name`` on the (xyz, mask) sets: (len(sets) * B, S) int32,
+    set-major. The points of all sets go into one (3, sum B*N) fp32
+    plane array and one mask, set after set."""
+    dev = sets[0][0].device
+    B = sets[0][0].shape[0]
+    sizes = [xyz.shape[1] for xyz, _ in sets]
+    sms, smem_limit, max_problems = _device_limits(dev.index)
+    if len(sets) * B > max_problems:
+        raise ValueError(f"{name}: {len(sets)} sets x batch {B} exceeds the "
+                         f"kernel's {max_problems} problems per launch")
+    grid, in_smem = fps_plan(sizes, B, sms, smem_limit)
+    if (num_samples - 1) * grid >= 2 ** 32:
+        raise ValueError(f"{name}: {num_samples} samples overflow the grid "
+                         "barrier's counter")
+    planes = torch.cat([xyz.float().reshape(-1, 3) for xyz, _ in sets]
+                       ).T.contiguous()
+    mask = torch.cat([m.reshape(-1) for _, m in sets]).contiguous()
+    P = len(sets) * B
+    mind = torch.empty(0 if in_smem else mask.numel(), dtype=torch.float32,
+                       device=dev)
+    part_v = torch.empty((2, P, grid, 4), dtype=torch.float32, device=dev)
+    part_i = torch.empty((2, P, grid), dtype=torch.int32, device=dev)
+    bar = torch.zeros(1, dtype=torch.int32, device=dev)
+    idx = torch.empty((P, num_samples), dtype=torch.int32, device=dev)
+    ptrs = (planes.data_ptr(), mask.data_ptr(), mind.data_ptr(),
+            part_v.data_ptr(), part_i.data_ptr(), bar.data_ptr(),
+            idx.data_ptr())
+    with torch.cuda.device(dev):
+        status = getattr(cuda_lib.library(), name)(
+            *ptrs, *sizes, B, num_samples, grid, int(in_smem),
+            torch.cuda.current_stream(dev).cuda_stream)
+    cuda_lib.check(status, name)
+    return idx
 
 
 def _check_sets(name: str, sets) -> bool:
@@ -68,17 +136,7 @@ def farthest_point_sample(xyz: torch.Tensor, mask: torch.Tensor,
     """K11: one D-FPS sample, (B, N, 3) with its mask -> (B, S) int32."""
     if _check_sets("farthest_point_sample", [(xyz, mask)]):
         return farthest_point_sample_plain(xyz, mask, num_samples)
-    dev = xyz.device
-    B, N, _ = xyz.shape
-    planes = _planes(xyz)
-    m = mask.contiguous()
-    mind = torch.empty((B, N), dtype=torch.float32, device=dev)
-    idx = torch.empty((B, num_samples), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        status = cuda_lib.library().u3d_fps(
-            planes.data_ptr(), m.data_ptr(), mind.data_ptr(), idx.data_ptr(),
-            N, B, num_samples, torch.cuda.current_stream(dev).cuda_stream)
-    cuda_lib.check(status, "u3d_fps")
+    idx = _fps_launch("u3d_fps", [(xyz, mask)], num_samples)
     farthest_point_sample.launches += 1
     return idx
 
@@ -91,28 +149,14 @@ def farthest_point_sample_pair(xyz_a: torch.Tensor, mask_a: torch.Tensor,
                                num_samples: int):
     """K4: two D-FPS samples, (B, Na, 3) and (B, Nb, 3) with their
     masks -> two (B, S) int32 index tensors."""
-    if _check_sets("farthest_point_sample_pair",
-                   [(xyz_a, mask_a), (xyz_b, mask_b)]):
+    sets = [(xyz_a, mask_a), (xyz_b, mask_b)]
+    if _check_sets("farthest_point_sample_pair", sets):
         return (farthest_point_sample_plain(xyz_a, mask_a, num_samples),
                 farthest_point_sample_plain(xyz_b, mask_b, num_samples))
-    dev = xyz_a.device
-    B, Na, _ = xyz_a.shape
-    Nb = xyz_b.shape[1]
-    pa, pb = _planes(xyz_a), _planes(xyz_b)
-    ma, mb = mask_a.contiguous(), mask_b.contiguous()
-    mind_a = torch.empty((B, Na), dtype=torch.float32, device=dev)
-    mind_b = torch.empty((B, Nb), dtype=torch.float32, device=dev)
-    idx_a = torch.empty((B, num_samples), dtype=torch.int32, device=dev)
-    idx_b = torch.empty((B, num_samples), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        status = cuda_lib.library().u3d_fps_pair(
-            pa.data_ptr(), ma.data_ptr(), mind_a.data_ptr(),
-            idx_a.data_ptr(), Na, pb.data_ptr(), mb.data_ptr(),
-            mind_b.data_ptr(), idx_b.data_ptr(), Nb, B, num_samples,
-            torch.cuda.current_stream(dev).cuda_stream)
-    cuda_lib.check(status, "u3d_fps_pair")
+    idx = _fps_launch("u3d_fps_pair", sets, num_samples)
     farthest_point_sample_pair.launches += 1
-    return idx_a, idx_b
+    B = xyz_a.shape[0]
+    return idx[:B], idx[B:]
 
 
 farthest_point_sample_pair.launches = 0

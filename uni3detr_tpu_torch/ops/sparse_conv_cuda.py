@@ -19,7 +19,9 @@ wrapper's ``launches`` attribute counts kernel launches.
   its packed twin): the same for a K3 conv.
 
 Outputs keep the input dtype (bf16 or fp32); products accumulate in
-fp32. :class:`GatherConvFn` and :class:`GatherConvIdsFn` give the convs
+fp32. The bf16 convs run on the tensor cores and need 16-byte aligned
+features and weights; the fp32 convs run exact fp32 products on the CUDA
+cores. :class:`GatherConvFn` and :class:`GatherConvIdsFn` give the convs
 the backward rules of ``sparse_conv_pallas.py`` (``_bwd``, ``_ids_bwd``),
 built from the same kernels; the model calls the convs through them.
 """
@@ -131,6 +133,16 @@ def _conv_suffix(dtype):
     return "f32" if dtype == torch.float32 else "bf16"
 
 
+def _check_conv_alignment(name, features, w):
+    """The bf16 kernel stages rows and weights with 16-byte cp.async
+    copies: a view that starts inside an allocation can break that."""
+    if features.dtype == torch.bfloat16:
+        for t in (features, w):
+            _require(t.data_ptr() % 16 == 0,
+                     f"{name}: bf16 tensors must start on a 16-byte "
+                     "boundary (got a view with a storage offset)")
+
+
 def gather_conv(features: torch.Tensor, neighbor_idx: torch.Tensor,
                 weights: torch.Tensor) -> torch.Tensor:
     """K2. See :func:`gather_conv_plain` for the contract."""
@@ -142,6 +154,7 @@ def gather_conv(features: torch.Tensor, neighbor_idx: torch.Tensor,
     if features.device.type == "cpu" and neighbor_idx.device.type == "cpu":
         return gather_conv_plain(features, neighbor_idx, weights)
     _check_cuda_args("gather_conv", (features, neighbor_idx, w))
+    _check_conv_alignment("gather_conv", features, w)
     B, V, C = features.shape
     _, Vout, K = neighbor_idx.shape
     Cout = w.shape[2]
@@ -187,6 +200,7 @@ def gather_conv_ids(features: torch.Tensor, site_ids: torch.Tensor,
     if all(t.device.type == "cpu" for t in (features, site_ids, qids)):
         return gather_conv_ids_plain(features, site_ids, qids, weights)
     _check_cuda_args("gather_conv_ids", (features, site_ids, qids, w))
+    _check_conv_alignment("gather_conv_ids", features, w)
     B, V, C = features.shape
     _, Vout, K = qids.shape
     Cout = w.shape[2]
