@@ -16,9 +16,10 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    counting the neighbour pairs and valid points this scene has), the
    yardsticks ``library_ms`` (K1: ``torch.searchsorted``, positions only)
    and ``gemm_ms`` (K2, K3: the cuBLAS product of the already gathered
-   rows, which the port never calls), and for K4 its latency floor (the
-   same kernel and steps on one point per block); per call shape, summed
-   per scene, and summed per TPU kernel that the JAX package would run;
+   rows, which the port never calls), and for K4 its step cost (the
+   same kernel and steps on one point per block: this design's cost of
+   the steps alone); per call shape, summed per scene, and summed per TPU
+   kernel that the JAX package would run;
 4. flagship: ``uni3detr_sunrgbd`` as preset (bf16), seeded random
    weights, points -> head -> decode -> per-class NMS on a few scenes:
    valid boxes, ms/scene, peak memory, and the kernel launch counts of
@@ -31,7 +32,8 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    V=16000), K12 (auction) at the flagship's (12, 64, 384) and a
    KITTI-shaped (10, 256, 384) instance set, with median kernel and
    plain times, bounds and (K7, K10) ``gemm_ms`` per call shape and
-   summed per step;
+   summed per step; K4 equal to its plain version on the train batch's
+   two sets (B=4: eight problems in one launch);
 7. train: ``uni3detr_sunrgbd`` as preset (bf16, fp32 params), B=4
    synthetic scenes, seeded random weights, AdamW lr 1e-4 with clip 10:
    warm-up steps, then timed steps on one fixed batch; per step the loss,
@@ -45,8 +47,8 @@ Phases, one or more lines each; any failure raises and exits non-zero:
 Then ``uni3detr_nuscenes`` (300k points, V=120000 eval / 90000 train
 voxels, 900 queries, a 10-dim box code with velocity):
 
-9. kernels at its eval shapes (K1-K4, K11) and train shapes (K7, K10,
-   K12), as phases 3 and 6, each shape marked with the kernel the TPU
+9. kernels at its eval shapes (K1-K4, K11) and train shapes (K4, K7,
+   K10, K12), as phases 3 and 6, each shape marked with the kernel the TPU
    package would run there (the lane-packed K5/K6/K8/K9 where a stage's
    feature table does not fit VMEM);
 10. inference, bf16, as phase 4: K1 4, K2 17, K3 3, K4 1 per scene and
@@ -210,12 +212,16 @@ def conv_roofline(pairs, V, C, Vout, K, Cout, B=1, elem=2, ids=False,
 
 
 def dw_roofline(pairs, V, C, Vout, K, Cout, B, elem=2, ids=False):
-    """K7 (K10 with ``ids``): dW = 2 * pairs * C * Cout fp32 products on
-    the CUDA cores; reads the features, the index (and site ids) and the
-    cotangent (B, Vout, Cout), writes dW (K, C, Cout) fp32."""
+    """K7 (K10 with ``ids``): dW = 2 * pairs * C * Cout products over the
+    rate of their operands: bf16 rows and cotangents (``elem`` 2) widen to
+    fp32 exactly, so the bf16 tensor-core rate with fp32 accumulation
+    bounds them, fp32 ones the CUDA-core rate. Reads the features, the
+    index (and site ids) and the cotangent (B, Vout, Cout), writes dW (K,
+    C, Cout) fp32."""
     nbytes = (elem * (B * V * C + B * Vout * Cout) + 4 * B * Vout * K
               + (4 * B * V if ids else 0) + 4 * K * C * Cout)
-    return roofline(2 * pairs * C * Cout, nbytes, "fp32")
+    return roofline(2 * pairs * C * Cout, nbytes,
+                    "bf16" if elem == 2 else "fp32")
 
 
 def match_roofline(V, Vout, K, B=1):
@@ -242,24 +248,6 @@ def auction_roofline(G, M, N):
     benefit entry); reads the (G, M, N) fp32 benefit and the spreads,
     writes (G, M) int32."""
     return roofline(2 * G * M * N, 4 * (G * M * N + G + G * M), "fp32")
-
-
-# the kernels of uni3detr_tpu_torch/csrc/, by their function names
-PORT_KERNELS = ("match_positions_kernel", "gather_conv_mma_kernel",
-                "gather_conv_f32_kernel", "fps_grid_kernel",
-                "gather_conv_dw_kernel", "sum_chunks_kernel",
-                "auction_kernel")
-
-
-def print_port_kernels(torch, ka, n, unit):
-    """Device time of each of the port's own kernels in a profiler's
-    ``key_averages()`` over ``n`` scenes or steps: launches and ms per
-    ``unit``."""
-    for e in ka:
-        if e.device_type == torch.autograd.DeviceType.CUDA and any(
-                k in e.key for k in PORT_KERNELS):
-            print(f"port kernel {e.key[:90]}: {e.count / n:g} launches and "
-                  f"{e.self_device_time_total / 1e3 / n:.3f} ms per {unit}")
 
 
 def _report_add(report, name, err, ms, plain_ms, calls, bound,
@@ -308,6 +296,30 @@ def _gathered(torch, features, nb):
     padded = torch.cat([features, features.new_zeros(B, 1, C)], dim=1)
     bidx = torch.arange(B, device=features.device)[:, None, None]
     return padded[bidx, nb.long().clamp(0, V)].reshape(-1, nb.shape[2] * C)
+
+
+def fps_sets(torch, points, pts_mask, coords, vmask):
+    """The two sets the detector samples (``models/detector.py``): the
+    raw points and the voxel coordinates as (x, y, z), zero where masked;
+    ``(xyz, mask, vc, vmask)``."""
+    xyz = points[..., :3].float().contiguous()
+    vc = coords.flip(-1).float()
+    vc = torch.where(vmask[..., None], vc, torch.zeros_like(vc))
+    return xyz, pts_mask, vc, vmask
+
+
+def fps_pair_check(torch, fargs, S, what):
+    """K4 on ``fargs`` (``fps_sets``) against its plain version, exact;
+    returns the plain indices of the raw points."""
+    from uni3detr_tpu_torch.ops import fps
+
+    ga, gb = fps.farthest_point_sample_pair(*fargs, S)
+    ra = fps.farthest_point_sample_plain(*fargs[:2], S)
+    rb = fps.farthest_point_sample_plain(*fargs[2:], S)
+    if not (torch.equal(ga, ra) and torch.equal(gb, rb)):
+        fail(f"K4 farthest_point_sample_pair differs from the plain version "
+             f"at {what}")
+    return ra
 
 
 def kernel_phase(torch, model, pts, dev, tag):
@@ -398,34 +410,30 @@ def kernel_phase(torch, model, pts, dev, tag):
                    tpu_route("strided-conv", prev["n_sites"], s["n_sites"]))
 
     # K4: both FPS runs of the detector, exact
-    xyz = pts[..., :3].contiguous()
-    vc = coords.flip(-1).float()
-    vc = torch.where(vmask[..., None], vc, torch.zeros_like(vc))
+    fargs = fps_sets(torch, pts, mask, coords, vmask)
+    xyz = fargs[0]
     S = cfg.num_query
-    fargs = (xyz, mask, vc, vmask, S)
-    sizes = [xyz.shape[1], vc.shape[1]]
+    sizes = [xyz.shape[1], fargs[2].shape[1]]
     sms, smem_limit, _ = fps._device_limits(dev.index or 0)
     grid, in_smem = fps.fps_plan(sizes, 1, sms, smem_limit)
-    ga, gb = fps.farthest_point_sample_pair(*fargs)
-    ra = fps.farthest_point_sample_plain(xyz, mask, S)
-    rb = fps.farthest_point_sample_plain(vc, vmask, S)
-    if not (torch.equal(ga, ra) and torch.equal(gb, rb)):
-        fail("K4 farthest_point_sample_pair differs from the plain version")
-    ms = median_ms(torch, lambda: fps.farthest_point_sample_pair(*fargs), 10)
+    ra = fps_pair_check(torch, fargs, S, f"{tag} N={sizes}")
+    ms = median_ms(torch, lambda: fps.farthest_point_sample_pair(*fargs, S),
+                   10)
     pms = median_ms(torch, lambda: (
-        fps.farthest_point_sample_plain(xyz, mask, S),
-        fps.farthest_point_sample_plain(vc, vmask, S)), 3, 1)
+        fps.farthest_point_sample_plain(*fargs[:2], S),
+        fps.farthest_point_sample_plain(*fargs[2:], S)), 3, 1)
     bound = fps_roofline([int(mask.sum()), int(vmask.sum())], sizes, S)
-    # the latency floor: the same kernel and steps on one point per block
-    tiny = [t[:, :grid].contiguous() for t in fargs[:4]]
-    floor = median_ms(torch, lambda: fps.farthest_point_sample_pair(
+    # this design's cost of a step alone (block update, barrier, merge of
+    # the grid's partials): the same kernel and steps on one point a block
+    tiny = [t[:, :grid].contiguous() for t in fargs]
+    step_ms = median_ms(torch, lambda: fps.farthest_point_sample_pair(
         *tiny, S), 10)
     print(f"[{tag}] K4 fps_pair N=({sizes[0]}, {sizes[1]}) S={S} exact "
           f"ms={ms:.4f} plain_ms={pms:.4f} bound_ms="
           f"{bound['bound_ms']:.5f} ({bound['bound_by']}) grid={grid} "
           f"slices in {'shared' if in_smem else 'global'} memory; "
-          f"{grid} points a set: {floor:.4f} ms = "
-          f"{floor / max(S - 1, 1) * 1e3:.3f} us per step")
+          f"{grid} points a set (the design's step cost): {step_ms:.4f} ms "
+          f"= {step_ms / max(S - 1, 1) * 1e3:.3f} us per step")
     add("fps_pair", "K4", 0.0, ms, pms, 1, bound)
     # K11: the single-set op on the raw points, exact
     if not torch.equal(fps.farthest_point_sample(xyz, mask, S), ra):
@@ -610,10 +618,12 @@ def train_per_step(cfg):
 
 def dw_phase(torch, model, batch, dev, tag, kitti_auction):
     """K7, K10 and K12 against their plain versions at the train step's
-    shapes. Tolerances DW_RTOL of max |dW|: fp32 sums of up to B*V rows
+    shapes, and K4 at the train batch's (B sets of each kind in one
+    launch). Tolerances DW_RTOL of max |dW|: fp32 sums of up to B*V rows
     in another order; bf16 rows and cotangents widen to fp32 exactly,
-    looser only for safety. Auction: equal."""
-    from uni3detr_tpu_torch.ops import matching, sparse_conv_cuda as sc
+    looser only for safety. Auction and FPS: equal."""
+    from uni3detr_tpu_torch.ops import (fps, matching,
+                                        sparse_conv_cuda as sc)
 
     cfg = model.cfg
     feats, coords, vmask = model.voxelize(batch["points"], batch["pts_mask"])
@@ -676,6 +686,21 @@ def dw_phase(torch, model, batch, dev, tag, kitti_auction):
                  sc.gather_conv_ids_dw_plain, (prev["ids"], s["sq"]), nb, C,
                  Cout, prev["n_sites"], s["n_sites"], calls,
                  tpu_route("strided-dw", prev["n_sites"], s["n_sites"]))
+
+    # K4 at the train batch: 2 * TRAIN_B problems a launch, the largest
+    # slices in shared memory of any main-path call; exact
+    fargs = fps_sets(torch, batch["points"], batch["pts_mask"], coords,
+                     vmask)
+    S = cfg.num_query
+    sizes = [fargs[0].shape[1], fargs[2].shape[1]]
+    sms, smem_limit, _ = fps._device_limits(dev.index or 0)
+    grid, in_smem = fps.fps_plan(sizes, TRAIN_B, sms, smem_limit)
+    fps_pair_check(torch, fargs, S, f"{tag} B={TRAIN_B} N={sizes}")
+    ms = median_ms(torch, lambda: fps.farthest_point_sample_pair(*fargs, S),
+                   5)
+    print(f"[{tag}] K4 fps_pair B={TRAIN_B} N=({sizes[0]}, {sizes[1]}) "
+          f"S={S} exact ms={ms:.4f} grid={grid} slices in "
+          f"{'shared' if in_smem else 'global'} memory x1/step")
 
     # K12: DETR-like costs (focal +-4, L1, IoU terms) padded as
     # match_queries_to_gt pads them; KITTI: gt_repeat=5 duplicated columns

@@ -420,6 +420,31 @@ def test_fps_pair_kernel_ties_masks_exhaustion(dev, B, Na, Nb, S):
     assert (rb[0] < 60).all()
 
 
+def test_fps_kernels_batch_beyond_one_launch(dev):
+    """More problems (sets x batch elements) than one launch takes: the
+    wrappers split the batch and count each launch."""
+    max_problems = fps._device_limits(torch.cuda.current_device())[2]
+    B, S = max_problems // 2 + 2, 40
+    rng = np.random.RandomState(15)
+    xa, ma = _tie_sets(rng, B, 3001, [3001 - 11 * b for b in range(B)], 8)
+    xb, mb = _tie_sets(rng, B, 700, [30] + [700] * (B - 1), 5)
+    ra = fps.farthest_point_sample_plain(xa, ma, S)
+    rb = fps.farthest_point_sample_plain(xb, mb, S)
+    pair0, one0 = (fps.farthest_point_sample_pair.launches,
+                   fps.farthest_point_sample.launches)
+    ga, gb = fps.farthest_point_sample_pair(xa.to(dev), ma.to(dev),
+                                            xb.to(dev), mb.to(dev), S)
+    xs = torch.cat([xa, xa[:max_problems + 1 - B]])
+    ms = torch.cat([ma, ma[:max_problems + 1 - B]])
+    g1 = fps.farthest_point_sample(xs.to(dev), ms.to(dev), S)
+    torch.cuda.synchronize()
+    assert fps.farthest_point_sample_pair.launches == pair0 + 2
+    assert fps.farthest_point_sample.launches == one0 + 2
+    assert torch.equal(ga.cpu(), ra) and torch.equal(gb.cpu(), rb)
+    assert torch.equal(g1.cpu()[:B], ra) and torch.equal(
+        g1.cpu()[B:], ra[:max_problems + 1 - B])
+
+
 def test_fps_kernels_streamed_slices(dev):
     """Sets too large for the blocks' shared memory take the streamed
     variant of the same kernel."""

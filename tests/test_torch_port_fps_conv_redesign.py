@@ -113,6 +113,43 @@ def test_fps_plan_picks_shared_or_streamed_slices(sizes, batch, in_smem):
     assert grid == 132 and got == in_smem
 
 
+@pytest.mark.parametrize("pair,B,launches", [
+    (True, 5, 3), (True, 2, 1), (False, 5, 2), (False, 4, 1)])
+def test_fps_wrappers_split_the_batch_by_problems_per_launch(
+        monkeypatch, pair, B, launches):
+    """With at most 4 problems (sets x batch elements) a launch, the
+    wrappers run the batch in chunks, count each launch and put the
+    chunks' indices back in batch order. The launch is replaced by one
+    that runs the plain sampler on the chunk it is given."""
+    def launch(name, sets, S):
+        assert len(sets) * sets[0][0].shape[0] <= 4
+        return torch.cat([tfps.farthest_point_sample_plain(x, m, S)
+                          for x, m in sets])
+
+    monkeypatch.setattr(tfps, "_device_limits", lambda index: (132, 0, 4))
+    monkeypatch.setattr(tfps, "_check_sets", lambda name, sets: False)
+    monkeypatch.setattr(tfps, "_fps_launch", launch)
+    rng = np.random.RandomState(16)
+    xa, ma = (torch.from_numpy(a) for a in _tie_set(
+        rng, B, 97, [97 - 9 * b for b in range(B)], 5))
+    xb, mb = (torch.from_numpy(a) for a in _tie_set(rng, B, 41, [41] * B, 4))
+    S = 12
+    if pair:
+        wrapper = tfps.farthest_point_sample_pair
+        before = wrapper.launches
+        got = wrapper(xa, ma, xb, mb, S)
+        want = (tfps.farthest_point_sample_plain(xa, ma, S),
+                tfps.farthest_point_sample_plain(xb, mb, S))
+    else:
+        wrapper = tfps.farthest_point_sample
+        before = wrapper.launches
+        got = (wrapper(xa, ma, S),)
+        want = (tfps.farthest_point_sample_plain(xa, ma, S),)
+    assert wrapper.launches == before + launches
+    for g, w in zip(got, want):
+        assert g.shape == (B, S) and torch.equal(g, w)
+
+
 @pytest.mark.parametrize("case,ops,nbytes,bound_ms,bound_by", [
     # K2 at 18000 sites, 128 -> 128, every offset present:
     # 2 * 18000 * 27 * 128 * 128 products; bf16 features in and out, the
@@ -127,6 +164,16 @@ def test_fps_plan_picks_shared_or_streamed_slices(sizes, batch, in_smem):
     # step over 899 steps; 13 bytes a point, 900 indices per set
     ("k4", 9 * 420000 * 899, 13 * 420000 + 4 * 900 * 2,
      3_398_220_000 / 67e12 * 1e3, "operations"),
+    # K7 at B=4 x 90000 sites, 16 -> 16, every offset present: bf16 rows
+    # and cotangents are exact in fp32, so the bf16 tensor-core rate
+    # bounds the products and the int32 index's bytes bind
+    ("k7_bf16", 2 * 4 * 90000 * 27 * 16 * 16,
+     2 * (2 * 4 * 90000 * 16) + 4 * 4 * 90000 * 27 + 4 * 27 * 16 * 16,
+     61_947_648 / 3.35e12 * 1e3, "bytes"),
+    # the same in fp32: the CUDA-core rate binds
+    ("k7_fp32", 2 * 4 * 90000 * 27 * 16 * 16,
+     4 * (2 * 4 * 90000 * 16) + 4 * 4 * 90000 * 27 + 4 * 27 * 16 * 16,
+     4_976_640_000 / 67e12 * 1e3, "operations"),
 ])
 def test_roofline_helper_hand_worked(case, ops, nbytes, bound_ms, bound_by):
     if case == "k2":
@@ -134,8 +181,11 @@ def test_roofline_helper_hand_worked(case, ops, nbytes, bound_ms, bound_by):
     elif case == "k2_narrow":
         r = chip_smoke.conv_roofline(120000 * 27, 120000, 16, 120000, 27,
                                      16)
-    else:
+    elif case == "k4":
         r = chip_smoke.fps_roofline([300000, 120000], [300000, 120000], 900)
+    else:
+        r = chip_smoke.dw_roofline(4 * 90000 * 27, 90000, 16, 90000, 27, 16,
+                                   4, elem=2 if case == "k7_bf16" else 4)
     assert r["ops"] == ops and r["bytes"] == nbytes
     assert r["bound_ms"] == pytest.approx(bound_ms, rel=1e-12)
     assert r["bound_by"] == bound_by

@@ -26,8 +26,8 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-import chip_smoke  # noqa: E402
 from uni3detr_tpu_torch.models.detector import Uni3DETR  # noqa: E402
+from uni3detr_tpu_torch.ops import cuda_lib  # noqa: E402
 from uni3detr_tpu_torch.presets import PRESETS  # noqa: E402
 from uni3detr_tpu_torch.synthetic import clustered_scene  # noqa: E402
 from uni3detr_tpu_torch.train.coder import (  # noqa: E402
@@ -127,7 +127,7 @@ def main(n_scenes: int = 5, preset: str = "uni3detr_sunrgbd"):
           f"{dev_total / wall:.3f}")
     print(ka.table(sort_by="self_device_time_total", row_limit=25,
                    max_name_column_width=70))
-    chip_smoke.print_port_kernels(torch, ka, n_scenes, "scene")
+    cuda_lib.print_kernel_times(ka, n_scenes, "scene")
 
 
 if __name__ == "__main__":

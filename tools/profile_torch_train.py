@@ -27,9 +27,9 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-import chip_smoke  # noqa: E402
 from uni3detr_tpu_torch.geom.boxes import gravity_center_boxes  # noqa: E402
 from uni3detr_tpu_torch.models.detector import Uni3DETR  # noqa: E402
+from uni3detr_tpu_torch.ops import cuda_lib  # noqa: E402
 from uni3detr_tpu_torch.presets import PRESETS  # noqa: E402
 from uni3detr_tpu_torch.synthetic import clustered_train_batch  # noqa: E402
 from uni3detr_tpu_torch.train.losses import uni3detr_loss  # noqa: E402
@@ -104,7 +104,7 @@ def main(n_steps: int = 5, preset: str = "uni3detr_sunrgbd"):
           f"time {dev_total:.3f} ms; busy share {dev_total / wall:.3f}")
     print(ka.table(sort_by="self_device_time_total", row_limit=25,
                    max_name_column_width=70))
-    chip_smoke.print_port_kernels(torch, ka, n_steps, "step")
+    cuda_lib.print_kernel_times(ka, n_steps, "step")
 
 
 if __name__ == "__main__":

@@ -117,7 +117,7 @@ __device__ __forceinline__ void grid_barrier(unsigned int* count,
 }
 
 template <bool IN_SMEM>
-__global__ void __launch_bounds__(FPS_THREADS) fps_grid_kernel(
+__global__ void __launch_bounds__(FPS_THREADS) u3d_fps_grid_kernel(
     const float* __restrict__ planes, const uint8_t* __restrict__ mask,
     float* __restrict__ mind_g, float4* part_v, int* part_i,
     unsigned int* bar, int* __restrict__ idx, int Na, int Nb, int B,
@@ -271,7 +271,7 @@ int launch_fps_grid(const void* planes, const void* mask, void* mind,
                     cudaStream_t stream) {
   const long long La = (Na + G - 1) / G, Lb = nsets > 1 ? (Nb + G - 1) / G : 0;
   const size_t smem = IN_SMEM ? (size_t)(16 * B * (La + Lb)) : 0;
-  auto kern = fps_grid_kernel<IN_SMEM>;
+  auto kern = u3d_fps_grid_kernel<IN_SMEM>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -336,7 +336,7 @@ int u3d_fps_limits(int* out) {
                                   dev)) != cudaSuccess)
     return (int)e;
   cudaFuncAttributes attr;
-  if ((e = cudaFuncGetAttributes(&attr, fps_grid_kernel<true>)) !=
+  if ((e = cudaFuncGetAttributes(&attr, u3d_fps_grid_kernel<true>)) !=
       cudaSuccess)
     return (int)e;
   out[1] = optin - (int)attr.sharedSizeBytes;

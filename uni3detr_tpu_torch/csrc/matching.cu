@@ -38,7 +38,7 @@ constexpr int AUC_THREADS = 256;
 constexpr float AUC_NEG = -1e30f;
 
 template <bool SMEM_BENEFIT>
-__global__ void __launch_bounds__(AUC_THREADS) auction_kernel(
+__global__ void __launch_bounds__(AUC_THREADS) u3d_auction_kernel(
     const float* __restrict__ benefit, const float* __restrict__ spread,
     int* __restrict__ out, int M, int N, float eps_div, int max_iters) {
   extern __shared__ float smem[];
@@ -164,19 +164,19 @@ int u3d_auction_lap(const void* benefit, const void* spread, void* out,
   if (benefit_in_smem) *benefit_in_smem = in_smem ? 1 : 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (in_smem) {
-    e = cudaFuncSetAttribute(auction_kernel<true>,
+    e = cudaFuncSetAttribute(u3d_auction_kernel<true>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)bytes);
     if (e != cudaSuccess) return (int)e;
-    auction_kernel<true><<<G, AUC_THREADS, bytes, s>>>(
+    u3d_auction_kernel<true><<<G, AUC_THREADS, bytes, s>>>(
         (const float*)benefit, (const float*)spread, (int*)out, M, N, eps_div,
         max_iters);
   } else {
-    e = cudaFuncSetAttribute(auction_kernel<false>,
+    e = cudaFuncSetAttribute(u3d_auction_kernel<false>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)bytes);
     if (e != cudaSuccess) return (int)e;
-    auction_kernel<false><<<G, AUC_THREADS, bytes, s>>>(
+    u3d_auction_kernel<false><<<G, AUC_THREADS, bytes, s>>>(
         (const float*)benefit, (const float*)spread, (int*)out, M, N, eps_div,
         max_iters);
   }

@@ -90,7 +90,7 @@ __device__ __forceinline__ int find_row(const int* __restrict__ ids, int n,
   return (lo < n && ids[lo] == q) ? lo : miss;
 }
 
-__global__ void match_positions_kernel(const int* __restrict__ site_ids,
+__global__ void u3d_match_positions_kernel(const int* __restrict__ site_ids,
                                        const int* __restrict__ qids,
                                        int* __restrict__ out, int V,
                                        long long per_batch, int n_sites) {
@@ -137,7 +137,7 @@ __device__ __forceinline__ void resolve_rows(
 }
 
 template <bool IDMATCH>
-__global__ void __launch_bounds__(NT) gather_conv_f32_kernel(
+__global__ void __launch_bounds__(NT) u3d_gather_conv_f32_kernel(
     const float* __restrict__ feats, const int* __restrict__ index,
     const int* __restrict__ site_ids, const float* __restrict__ w,
     float* __restrict__ out, int V, int C, int Vout, int K, int Cout) {
@@ -212,7 +212,7 @@ int launch_gather_conv_f32(const void* feats, const void* index,
   if (K > MAX_K) return (int)cudaErrorInvalidValue;
   if (B == 0 || Vout == 0 || Cout == 0) return (int)cudaSuccess;
   dim3 grid((Vout + TM - 1) / TM, (Cout + TN - 1) / TN, B);
-  gather_conv_f32_kernel<IDMATCH><<<grid, NT, 0, (cudaStream_t)stream>>>(
+  u3d_gather_conv_f32_kernel<IDMATCH><<<grid, NT, 0, (cudaStream_t)stream>>>(
       (const float*)feats, (const int*)index, (const int*)site_ids,
       (const float*)w, (float*)out, V, C, Vout, K, Cout);
   return (int)cudaGetLastError();
@@ -287,7 +287,7 @@ __host__ __device__ __forceinline__ int mm_stage_cols(int C) {
 // Block: TM output rows x 8*NTILES output channels (n0 = blockIdx.y * that)
 // of batch element blockIdx.z. Warp w computes rows [16w, 16w + 16).
 template <bool IDMATCH, int NTILES>
-__global__ void __launch_bounds__(MM_NT) gather_conv_mma_kernel(
+__global__ void __launch_bounds__(MM_NT) u3d_gather_conv_mma_kernel(
     const bf16* __restrict__ feats, const int* __restrict__ index,
     const int* __restrict__ site_ids, const bf16* __restrict__ w,
     bf16* __restrict__ out, int V, int C, int Vout, int K, int Cout) {
@@ -423,7 +423,7 @@ int launch_mma_tiles(const void* feats, const void* index,
   const size_t smem = MM_STAGES * (size_t)(MM_TM * (cmax + MM_PAD) +
                                            cmax * (TN + MM_PAD)) *
                       sizeof(bf16);
-  auto kern = gather_conv_mma_kernel<IDMATCH, NTILES>;
+  auto kern = u3d_gather_conv_mma_kernel<IDMATCH, NTILES>;
   const cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -458,7 +458,7 @@ constexpr int DW_TR = 32;     // rows per shared-memory stage
 // the flattened (B*Vout) axis. Thread (ty, tx) of 16 x 16 holds outputs
 // c = c0 + ty + 16 i (i < TCI), n = n0 + tx + 16 j (j < TNJ).
 template <typename T, bool IDMATCH, int TCI, int TNJ>
-__global__ void __launch_bounds__(NT) gather_conv_dw_kernel(
+__global__ void __launch_bounds__(NT) u3d_gather_conv_dw_kernel(
     const T* __restrict__ feats, const int* __restrict__ index,
     const int* __restrict__ site_ids, const T* __restrict__ g,
     float* __restrict__ partial, int B, int V, int C, int Vout, int K,
@@ -548,7 +548,7 @@ __global__ void __launch_bounds__(NT) gather_conv_dw_kernel(
 }
 
 // dW[e] = sum over chunks, in chunk order, of partial[chunk][e]
-__global__ void sum_chunks_kernel(const float* __restrict__ partial,
+__global__ void u3d_sum_chunks_kernel(const float* __restrict__ partial,
                                   float* __restrict__ dw, int n_chunks,
                                   long long per_chunk) {
   const long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
@@ -564,7 +564,7 @@ void launch_dw_tiles(dim3 grid, const void* feats, const void* index,
                      int B, int V, int C, int Vout, int K, int Cout,
                      int chunk_rows, int tiles_c, int tiles_n,
                      cudaStream_t stream) {
-  gather_conv_dw_kernel<T, IDMATCH, TCI, TNJ><<<grid, NT, 0, stream>>>(
+  u3d_gather_conv_dw_kernel<T, IDMATCH, TCI, TNJ><<<grid, NT, 0, stream>>>(
       (const T*)feats, (const int*)index, (const int*)site_ids,
       (const T*)g, partial, B, V, C, Vout, K, Cout, chunk_rows, tiles_c,
       tiles_n);
@@ -605,7 +605,7 @@ int launch_gather_conv_dw(const void* feats, const void* index,
   const int status = (int)cudaGetLastError();
   if (status != 0) return status;
   const int threads = 256;
-  sum_chunks_kernel<<<(unsigned)((per_chunk + threads - 1) / threads),
+  u3d_sum_chunks_kernel<<<(unsigned)((per_chunk + threads - 1) / threads),
                       threads, 0, stream>>>(p, (float*)dw, n_chunks,
                                             per_chunk);
   return (int)cudaGetLastError();
@@ -626,7 +626,7 @@ int u3d_match_positions(const void* site_ids, const void* qids, void* out,
   if (B == 0 || per_batch == 0) return (int)cudaSuccess;
   const int threads = 256;
   dim3 grid((unsigned)((per_batch + threads - 1) / threads), B);
-  match_positions_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+  u3d_match_positions_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
       (const int*)site_ids, (const int*)qids, (int*)out, V, per_batch,
       n_sites);
   return (int)cudaGetLastError();

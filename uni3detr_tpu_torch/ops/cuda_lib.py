@@ -5,7 +5,9 @@ one shared library with a plain C interface, loaded with ``ctypes``. The
 library lands in ``build/uni3detr_tpu_torch/`` at the repository root,
 named after a hash of the sources, so an edit rebuilds and an unchanged
 tree reuses the library. Nothing builds at import: the first kernel
-launch calls :func:`library`.
+launch calls :func:`library`. Every kernel's name starts with
+``KERNEL_PREFIX``, which picks them out of a profile
+(:func:`print_kernel_times`).
 """
 from __future__ import annotations
 
@@ -42,6 +44,7 @@ _SIGNATURES = {
     "u3d_auction_lap": [_P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _P, _P],
 }
 _ERROR_STRING = "u3d_error_string"
+KERNEL_PREFIX = "u3d_"
 
 
 def _sources():
@@ -97,3 +100,16 @@ def check(status: int, name: str) -> None:
     if status != 0:
         msg = getattr(library(), _ERROR_STRING)(status).decode()
         raise RuntimeError(f"{name}: CUDA error {status} at launch: {msg}")
+
+
+def print_kernel_times(key_averages, n: int, unit: str) -> None:
+    """Print the device time of each of the port's kernels in a
+    profiler's ``key_averages()`` over ``n`` scenes or steps: launches
+    and ms per ``unit``."""
+    import torch
+
+    for e in key_averages:
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and KERNEL_PREFIX in e.key):
+            print(f"port kernel {e.key[:90]}: {e.count / n:g} launches and "
+                  f"{e.self_device_time_total / 1e3 / n:.3f} ms per {unit}")

@@ -11,7 +11,9 @@ kernel launches.
 The kernel is one cooperative grid over the card (:func:`fps_plan`):
 every block owns a slice of every set and the blocks agree on each
 step's pick through a grid barrier. A grid that cannot be resident at
-once makes the launch fail, and the wrapper raise.
+once makes the launch fail, and the wrapper raise. One launch takes at
+most ``_device_limits(...)[2]`` problems (sets x batch elements, 32); a
+larger batch runs in several launches, each counted.
 
 Semantics (mmcv D-FPS): sampling starts at index 0, masked points are
 never chosen, ties go to the lowest index, and once the valid points are
@@ -77,16 +79,13 @@ def _device_limits(index: int):
 
 
 def _fps_launch(name: str, sets, num_samples: int) -> torch.Tensor:
-    """Launch ``name`` on the (xyz, mask) sets: (len(sets) * B, S) int32,
-    set-major. The points of all sets go into one (3, sum B*N) fp32
-    plane array and one mask, set after set."""
+    """Launch ``name`` once on the (xyz, mask) sets: (len(sets) * B, S)
+    int32, set-major. The points of all sets go into one (3, sum B*N)
+    fp32 plane array and one mask, set after set."""
     dev = sets[0][0].device
     B = sets[0][0].shape[0]
     sizes = [xyz.shape[1] for xyz, _ in sets]
-    sms, smem_limit, max_problems = _device_limits(dev.index)
-    if len(sets) * B > max_problems:
-        raise ValueError(f"{name}: {len(sets)} sets x batch {B} exceeds the "
-                         f"kernel's {max_problems} problems per launch")
+    sms, smem_limit, _ = _device_limits(dev.index)
     grid, in_smem = fps_plan(sizes, B, sms, smem_limit)
     if (num_samples - 1) * grid >= 2 ** 32:
         raise ValueError(f"{name}: {num_samples} samples overflow the grid "
@@ -110,6 +109,20 @@ def _fps_launch(name: str, sets, num_samples: int) -> torch.Tensor:
             torch.cuda.current_stream(dev).cuda_stream)
     cuda_lib.check(status, name)
     return idx
+
+
+def _fps_batched(name: str, sets, num_samples: int):
+    """Run ``name`` on the (xyz, mask) sets in as few launches as the
+    kernel's problems per launch (sets x batch elements) allow, splitting
+    the batch: ``([(B, S) int32 per set], launches)``."""
+    B = sets[0][0].shape[0]
+    max_problems = _device_limits(sets[0][0].device.index)[2]
+    step = max(1, max_problems // len(sets))
+    chunks = [_fps_launch(name, [(x[b:b + step], m[b:b + step])
+                                 for x, m in sets], num_samples)
+              .view(len(sets), -1, num_samples) for b in range(0, B, step)]
+    idx = chunks[0] if len(chunks) == 1 else torch.cat(chunks, dim=1)
+    return list(idx.unbind(0)), len(chunks)
 
 
 def _check_sets(name: str, sets) -> bool:
@@ -136,8 +149,8 @@ def farthest_point_sample(xyz: torch.Tensor, mask: torch.Tensor,
     """K11: one D-FPS sample, (B, N, 3) with its mask -> (B, S) int32."""
     if _check_sets("farthest_point_sample", [(xyz, mask)]):
         return farthest_point_sample_plain(xyz, mask, num_samples)
-    idx = _fps_launch("u3d_fps", [(xyz, mask)], num_samples)
-    farthest_point_sample.launches += 1
+    (idx,), launches = _fps_batched("u3d_fps", [(xyz, mask)], num_samples)
+    farthest_point_sample.launches += launches
     return idx
 
 
@@ -153,10 +166,10 @@ def farthest_point_sample_pair(xyz_a: torch.Tensor, mask_a: torch.Tensor,
     if _check_sets("farthest_point_sample_pair", sets):
         return (farthest_point_sample_plain(xyz_a, mask_a, num_samples),
                 farthest_point_sample_plain(xyz_b, mask_b, num_samples))
-    idx = _fps_launch("u3d_fps_pair", sets, num_samples)
-    farthest_point_sample_pair.launches += 1
-    B = xyz_a.shape[0]
-    return idx[:B], idx[B:]
+    (idx_a, idx_b), launches = _fps_batched("u3d_fps_pair", sets,
+                                            num_samples)
+    farthest_point_sample_pair.launches += launches
+    return idx_a, idx_b
 
 
 farthest_point_sample_pair.launches = 0
