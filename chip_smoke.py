@@ -19,7 +19,8 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    rows, which the port never calls), and for K4 its step cost (the
    same kernel and steps on one point per block: this design's cost of
    the steps alone); per call shape, summed per scene, and summed per TPU
-   kernel that the JAX package would run;
+   kernel that the JAX package would run; K1's and ``torch.searchsorted``'s
+   device times per scene (``torch.profiler``);
 4. flagship: ``uni3detr_sunrgbd`` as preset (bf16), seeded random
    weights, points -> head -> decode -> per-class NMS on a few scenes:
    valid boxes, ms/scene, peak memory, and the kernel launch counts of
@@ -32,8 +33,9 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    V=16000), K12 (auction) at the flagship's (12, 64, 384) and a
    KITTI-shaped (10, 256, 384) instance set, with median kernel and
    plain times, bounds and (K7, K10) ``gemm_ms`` per call shape and
-   summed per step; K4 equal to its plain version on the train batch's
-   two sets (B=4: eight problems in one launch);
+   summed per step, K7/K10's achieved TFLOP/s per call shape, and bf16
+   K7/K10 bit-equal on a second call; K4 equal to its plain version on
+   the train batch's two sets (B=4: eight problems in one launch);
 7. train: ``uni3detr_sunrgbd`` as preset (bf16, fp32 params), B=4
    synthetic scenes, seeded random weights, AdamW lr 1e-4 with clip 10:
    warm-up steps, then timed steps on one fixed batch; per step the loss,
@@ -132,6 +134,28 @@ def median_ms(torch, fn, reps, warmup=2):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_ms_by_name(torch, fn, name, reps=20):
+    """Device time per call of ``fn`` under ``torch.profiler`` (after a
+    warm-up call): (kernels whose name holds ``name``, all other
+    kernels), in ms."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    mine = other = 0.0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            if name in e.key:
+                mine += e.self_device_time_total
+            else:
+                other += e.self_device_time_total
+    return mine / 1e3 / reps, other / 1e3 / reps
 
 
 def conv_cases(cfg):
@@ -355,6 +379,14 @@ def kernel_phase(torch, model, pts, dev, tag):
               f"plain_ms={pms:.4f} searchsorted_ms={lms:.4f} (positions "
               f"only) bound_ms={bound['bound_ms']:.5f} ({bound['bound_by']})")
         add("match_positions", "K1", 0.0, ms, pms, 1, bound, library_ms=lms)
+    # the same comparison in device time (the event times above of calls
+    # under ~0.15 ms hold host work): kernels only, per scene
+    k1_dev, lib_dev = device_ms_by_name(torch, lambda: [
+        (sc.match_positions(s["ids"], s["qids"], s["n_sites"]),
+         torch.searchsorted(s["ids"], s["qids"].reshape(
+             s["ids"].shape[0], -1))) for s in sets], "u3d_match_positions")
+    print(f"[{tag}] K1 device ms/scene={k1_dev:.4f} torch.searchsorted "
+          f"device ms/scene={lib_dev:.4f} (positions only)")
 
     def conv_check(name, kern, plain, rest, nb, C, Cout, V, calls, route):
         Vout, K = nb.shape[1], nb.shape[2]
@@ -621,7 +653,10 @@ def dw_phase(torch, model, batch, dev, tag, kitti_auction):
     shapes, and K4 at the train batch's (B sets of each kind in one
     launch). Tolerances DW_RTOL of max |dW|: fp32 sums of up to B*V rows
     in another order; bf16 rows and cotangents widen to fp32 exactly,
-    looser only for safety. Auction and FPS: equal."""
+    looser only for safety. bf16 K7/K10 must give a bit-equal dW on a
+    second call (fixed-order chunk sums, no float atomics); each shape
+    prints the products' rate achieved (``pairs`` products of C x Cout).
+    Auction and FPS: equal."""
     from uni3detr_tpu_torch.ops import (fps, matching,
                                         sparse_conv_cuda as sc)
 
@@ -650,9 +685,11 @@ def dw_phase(torch, model, batch, dev, tag, kitti_auction):
             if not err <= DW_RTOL[key] * max(scale, 1e-6):
                 fail(f"{name} C={C}->{Cout} {dtype}: max err {err} > "
                      f"{DW_RTOL[key]} x {scale}")
+            bf16 = dtype == torch.bfloat16
+            if bf16 and not torch.equal(kern(*a), got):
+                fail(f"{name} C={C}->{Cout} bf16: two calls differ")
             ms = median_ms(torch, lambda: kern(*a), 10)
             pms = median_ms(torch, lambda: plain(*a), 10)
-            bf16 = dtype == torch.bfloat16
             bound = dw_roofline(pairs, V, C, Vout, K, Cout, TRAIN_B,
                                 elem=2 if bf16 else 4,
                                 ids=name == "gather_conv_ids_dw")
@@ -662,14 +699,15 @@ def dw_phase(torch, model, batch, dev, tag, kitti_auction):
                 g2 = a[-1].reshape(-1, Cout)
                 gms = median_ms(torch, lambda: rows_t @ g2, 10)
                 add(name, route, err, ms, pms, calls, bound, gemm_ms=gms)
-                extra = f" gemm_ms={gms:.4f}"
+                extra = f" gemm_ms={gms:.4f} repeat bit-equal"
                 del rows_t, g2
             print(f"[{tag}] {name} B={TRAIN_B} V={V} Vout={Vout} "
                   f"C={C}->{Cout} {dtype} max_abs_err={err:.3g} (max |ref| "
                   f"{scale:.3g}, rtol {DW_RTOL[key]}) ms={ms:.4f} "
                   f"plain_ms={pms:.4f}{extra} bound_ms="
                   f"{bound['bound_ms']:.5f} ({bound['bound_by']}, {pairs} "
-                  f"pairs) x{calls}/step tpu={route}")
+                  f"pairs, {bound['ops'] / ms / 1e9:.2f} TFLOP/s achieved) "
+                  f"x{calls}/step tpu={route}")
             del got, ref, a, x, g
 
     subm, strided = conv_cases(cfg)

@@ -536,3 +536,114 @@ def test_gather_conv_bf16_rejects_misaligned_view(dev):
     with pytest.raises(ValueError, match="16-byte"):
         sc.gather_conv_ids(feats, sites, nb, w)
     assert sc.gather_conv(feats.clone(), nb, w).abs().max().item() == 0
+
+
+# -- K7/K10 bf16 on the tensor cores, and their fp32 twins ------------------
+
+def _dw_inputs(rng, kind, B, V, n, grid, C, Cout, dtype):
+    """(kernel, plain, args) of a K7 (submanifold rulebook) or K10
+    (strided query ids) call with an all-miss row and an all-miss offset
+    (11); B * Vout is no multiple of the 64-row stage or of the chunk."""
+    parts = [_sites(rng, grid, n, V) for _ in range(B)]
+    coords = torch.cat([p[0] for p in parts])
+    mask = torch.cat([p[1] for p in parts])
+    ids = linear_ids(coords, mask, grid)
+    if kind == "K7":
+        idx = sc.match_positions_plain(ids, subm_query_ids(coords, mask,
+                                                           grid), V)
+        miss, index = V, (idx,)
+        kern, plain = sc.gather_conv_dw, sc.gather_conv_dw_plain
+    else:
+        oc, om, _ = downsample_sites(coords, mask, grid, (1, 1, 1),
+                                     n // 2 + 3)
+        idx = strided_query_ids(oc, om, grid, (1, 1, 1))
+        miss, index = -1, (ids, idx)
+        kern, plain = sc.gather_conv_ids_dw, sc.gather_conv_ids_dw_plain
+    idx[:, 3] = miss
+    idx[:, :, 11] = miss
+    feats = torch.from_numpy(rng.randn(B, V, C).astype(np.float32))
+    g = torch.from_numpy(rng.randn(B, idx.shape[1], Cout).astype(
+        np.float32))
+    return kern, plain, (feats.to(dtype), *index, g.to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("Cout", [16, 32, 64, 128])
+@pytest.mark.parametrize("C", [4, 5, 16, 32, 64, 128])
+@pytest.mark.parametrize("kind", ["K7", "K10"])
+def test_dw_kernels_widths(dev, kind, C, Cout, B, dtype):
+    """K7/K10 at every width the presets use and beyond, B in {1, 4}:
+    (k, c) tiles spanning several offsets (C < 128) or half of one
+    (C=128), element-staged rows (C=4/5)."""
+    rng = np.random.RandomState(C * 1000 + Cout * 10 + B)
+    V = 1501 if B == 1 else 701
+    kern, plain, args = _dw_inputs(rng, kind, B, V, V - 37, (16, 40, 40),
+                                   C, Cout, dtype)
+    args = [t.to(dev) for t in args]
+    before = kern.launches
+    got = kern(*args)
+    ref = plain(*args)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    _dw_close(got, ref)
+    assert not got[11].any() and ref.abs().max().item() > 1.0
+
+
+@pytest.mark.parametrize("C,Cout", [(8, 136), (136, 24), (5, 70)])
+@pytest.mark.parametrize("kind", ["K7", "K10"])
+def test_dw_bf16_ragged_widths(dev, kind, C, Cout):
+    """Two channel tiles (Cout > 128), a half-empty 16-column staging
+    (C=8), more than 128 input channels, cotangents staged by element
+    (Cout % 8 != 0)."""
+    rng = np.random.RandomState(C + Cout)
+    kern, plain, args = _dw_inputs(rng, kind, 2, 1200, 1100, (16, 40, 40),
+                                   C, Cout, torch.bfloat16)
+    args = [t.to(dev) for t in args]
+    _dw_close(kern(*args), plain(*args))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,Cout", [(5, 16), (32, 32), (64, 128),
+                                    (128, 128)])
+@pytest.mark.parametrize("kind", ["K7", "K10"])
+def test_dw_kernels_big_v_batch4(dev, kind, C, Cout, dtype):
+    """K7/K10 at B=4, V=60000 (the TPU's K6/K9 territory): many row
+    chunks, the last one partial."""
+    rng = np.random.RandomState(C + 7 * Cout)
+    kern, plain, args = _dw_inputs(rng, kind, 4, 60000, 55000, BIG_GRID,
+                                   C, Cout, dtype)
+    args = [t.to(dev) for t in args]
+    _dw_close(kern(*args), plain(*args))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("kind", ["K7", "K10"])
+def test_dw_bf16_repeat_is_bit_equal(dev, kind):
+    """Fixed-order chunk sums and no float atomics: two calls give the
+    same dW bit for bit."""
+    rng = np.random.RandomState(21)
+    kern, _, args = _dw_inputs(rng, kind, 4, 30000, 28000, BIG_GRID, 32,
+                               32, torch.bfloat16)
+    args = [t.to(dev) for t in args]
+    first = kern(*args)
+    assert all(torch.equal(kern(*args), first) for _ in range(3))
+
+
+def test_dw_bf16_rejects_misaligned_view(dev):
+    """A bf16 features or cotangent view that starts 2 bytes into its
+    allocation cannot feed the kernel's 16-byte copies: the wrappers
+    raise."""
+    V, C = 64, 16
+    base = torch.zeros(V * C + 1, dtype=torch.bfloat16, device=dev)
+    bad = base[1:].view(1, V, C)
+    good = torch.zeros(1, V, C, dtype=torch.bfloat16, device=dev)
+    nb = torch.full((1, V, 27), V, dtype=torch.int32, device=dev)
+    sites = torch.arange(V, dtype=torch.int32, device=dev)[None]
+    for f, g in ((bad, good), (good, bad)):
+        with pytest.raises(ValueError, match="16-byte"):
+            sc.gather_conv_dw(f, nb, g)
+        with pytest.raises(ValueError, match="16-byte"):
+            sc.gather_conv_ids_dw(f, sites, nb, g)
+    assert sc.gather_conv_dw(bad.clone(), nb, good).abs().max().item() == 0

@@ -55,18 +55,46 @@
 // K7/K10 design: the TPU kernels only materialise the (B, Vout, K*C)
 // gathered rows, because a TPU has no gather, and leave the product to
 // XLA; here the gather and the contraction are one kernel, so the rows
-// never reach device memory. A block owns one offset k, one TC x TN
-// tile of dW[k] and one chunk of `chunk_rows` rows of the flattened
-// (B*Vout) row axis; per 32-row stage it resolves the neighbour rows,
-// stages the gathered feature rows and the matching cotangent rows in
-// shared memory (widened exactly to fp32, as the JAX backward widens
-// both before its einsum) and accumulates the tile in fp32 registers.
-// Each chunk writes its partial tile to a scratch buffer and a second
-// kernel sums the chunks in a fixed order, so dW is deterministic.
-// Bound: 2*B*Vout*27*C*Cout flops (~7 GFLOP at 16000 x 64 -> 64) on the
-// fp32 CUDA cores, plus one scattered read of every gathered row.
+// never reach device memory (560 MB a call at nuScenes 32->32).
+//
+// bf16 (u3d_gather_conv{,_ids}_dw_bf16, the presets' dtype): dW is one
+// (K*C x Cout) GEMM rows^T @ g contracted over the R = B*Vout rows, on
+// the tensor cores. bf16 x bf16 products are exact in fp32, so mma.sync
+// m16n8k16 bf16 -> fp32 computes the products the JAX backward computes
+// after widening both operands. What bounds it: the index (4 bytes per
+// row and offset) and the features and cotangents once; the 2*pairs*C*
+// Cout products at the bf16 rate are 6-30x below that at every preset
+// shape. In practice the staging traffic binds: every column tile reads
+// the cotangent rows again, and the gathers are scattered 16-byte reads.
+// A block owns TM consecutive columns of the flattened (k, c) axis
+// (several offsets when C < TM, so C=5 wastes only the 135 -> 144
+// padding), TN output channels and one chunk of the row axis: 256 x
+// Cout up to 64 channels, else 128 x 128 (DwTile: each thread holds at
+// most 64 fp32 sums). Each warp owns two 16-column sub-tiles, so every
+// cotangent fragment feeds two products. Per DW_RS = 64-row stage the
+// threads resolve the tile's (row, offset) neighbours (K10 by binary
+// search of the query ids), then cp.async gathers the feature rows (16
+// bytes a copy, src-size 0 zero-fills a miss; element loads for C % 8 !=
+// 0) and the cotangent rows, which are read once per tile and not once
+// per offset. The index entries of a stage are fetched one stage ahead of
+// its gathers, the gathers one stage ahead of its products; each thread's
+// staging addresses are fixed before the loop (runtime divisions per
+// stage cost ~30% at the nuScenes shapes). Index and cotangents are read
+// under an L2 evict-first policy, so the feature rows stay. Both operands
+// are contracted over their row index, so ldmatrix.trans feeds both.
+// Each chunk writes its partial tile; a second kernel sums the chunks in
+// a fixed order, so dW is deterministic (no float atomics). The chunk
+// size comes from the wrapper (ops/sparse_conv_cuda.py::dw_plan): enough
+// blocks to fill the card, partials bounded.
+//
+// fp32 (u3d_gather_conv{,_ids}_dw_f32): exact fp32 products on the CUDA
+// cores (the parity phases need them; TF32 would round). A block owns one
+// offset k, one TC x TN tile of dW[k] and one chunk of rows; per 32-row
+// stage it resolves the rows, stages them and the cotangent rows in
+// shared memory and accumulates in fp32 registers.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <climits>
 #include <stdint.h>
 
 namespace {
@@ -101,14 +129,6 @@ __global__ void u3d_match_positions_kernel(const int* __restrict__ site_ids,
                       n_sites);
 }
 
-template <typename T> __device__ __forceinline__ float to_f32(T x);
-template <> __device__ __forceinline__ float to_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(
-    __nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 // s_row[r * K + k]: the feature row of output row m0 + r at offset k, -1
 // for a miss; the block's index rows are contiguous, so the loads are
 // coalesced, and the odd row stride K keeps later reads of s_row across
@@ -452,15 +472,15 @@ int launch_gather_conv_bf16(const void* feats, const void* index,
 #undef U3D_MMA
 }
 
-constexpr int DW_TR = 32;     // rows per shared-memory stage
+constexpr int DW_TR = 32;     // fp32: rows per shared-memory stage
 
-// One block: offset k, tile (c0, n0) of dW[k], rows [r_begin, r_end) of
-// the flattened (B*Vout) axis. Thread (ty, tx) of 16 x 16 holds outputs
-// c = c0 + ty + 16 i (i < TCI), n = n0 + tx + 16 j (j < TNJ).
-template <typename T, bool IDMATCH, int TCI, int TNJ>
-__global__ void __launch_bounds__(NT) u3d_gather_conv_dw_kernel(
-    const T* __restrict__ feats, const int* __restrict__ index,
-    const int* __restrict__ site_ids, const T* __restrict__ g,
+// fp32 body. One block: offset k, tile (c0, n0) of dW[k], rows [r_begin,
+// r_end) of the flattened (B*Vout) axis. Thread (ty, tx) of 16 x 16 holds
+// outputs c = c0 + ty + 16 i (i < TCI), n = n0 + tx + 16 j (j < TNJ).
+template <bool IDMATCH, int TCI, int TNJ>
+__global__ void __launch_bounds__(NT) u3d_gather_conv_dw_f32_kernel(
+    const float* __restrict__ feats, const int* __restrict__ index,
+    const int* __restrict__ site_ids, const float* __restrict__ g,
     float* __restrict__ partial, int B, int V, int C, int Vout, int K,
     int Cout, int chunk_rows, int tiles_c, int tiles_n) {
   constexpr int TC = 16 * TCI, TN = 16 * TNJ;
@@ -508,14 +528,13 @@ __global__ void __launch_bounds__(NT) u3d_gather_conv_dw_kernel(
       const int r = e / TC, c = e % TC;
       const long long row = s_row[r];
       float v = 0.f;
-      if (row >= 0 && c0 + c < C) v = to_f32(feats[row * C + c0 + c]);
+      if (row >= 0 && c0 + c < C) v = feats[row * C + c0 + c];
       s_a[r][c] = v;
     }
     for (int e = tid; e < DW_TR * TN; e += NT) {
       const int r = e / TN, n = e % TN;
       float v = 0.f;
-      if (r0 + r < r_end && n0 + n < Cout)
-        v = to_f32(g[(r0 + r) * Cout + n0 + n]);
+      if (r0 + r < r_end && n0 + n < Cout) v = g[(r0 + r) * Cout + n0 + n];
       s_b[r][n] = v;
     }
     __syncthreads();
@@ -547,43 +566,376 @@ __global__ void __launch_bounds__(NT) u3d_gather_conv_dw_kernel(
   }
 }
 
-// dW[e] = sum over chunks, in chunk order, of partial[chunk][e]
-__global__ void u3d_sum_chunks_kernel(const float* __restrict__ partial,
-                                  float* __restrict__ dw, int n_chunks,
-                                  long long per_chunk) {
-  const long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (e >= per_chunk) return;
-  float s = 0.f;
-  for (int i = 0; i < n_chunks; ++i) s += partial[i * per_chunk + e];
-  dw[e] = s;
+// ---- K7/K10 bf16 tensor-core body ----------------------------------------
+// (ops/sparse_conv_cuda.py::dw_tile mirrors the tiles, DW_RS the stage)
+
+constexpr int DW_WARPS = 8;
+constexpr int DW_NT = 32 * DW_WARPS;   // threads per block
+constexpr int DW_RS = 64;              // rows a stage: 4 mma k-steps
+constexpr int DW_STAGES = 2;           // ring of gathered stages
+
+// Offsets that TM consecutive columns of the (k, c) axis can touch: the
+// stride of a stage's index rows in shared memory.
+__host__ __device__ __forceinline__ int dw_tile_offsets(int TM, int C,
+                                                        int K) {
+  return min(K, (TM + C - 2) / C + 1);
 }
 
-template <typename T, bool IDMATCH, int TCI, int TNJ>
-void launch_dw_tiles(dim3 grid, const void* feats, const void* index,
-                     const void* site_ids, const void* g, float* partial,
-                     int B, int V, int C, int Vout, int K, int Cout,
-                     int chunk_rows, int tiles_c, int tiles_n,
-                     cudaStream_t stream) {
-  u3d_gather_conv_dw_kernel<T, IDMATCH, TCI, TNJ><<<grid, NT, 0, stream>>>(
-      (const T*)feats, (const int*)index, (const int*)site_ids,
-      (const T*)g, partial, B, V, C, Vout, K, Cout, chunk_rows, tiles_c,
+// An L2 policy for data read once (the index, the cotangent rows): it
+// goes first, so the feature rows that other stages gather again stay
+__device__ __forceinline__ uint64_t evict_first_policy() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(p));
+  return p;
+}
+
+// 4 and 16 bytes global -> shared under an L2 policy, zero-filled when !ok
+__device__ __forceinline__ void cp_async4_hint(void* dst, const void* src,
+                                               bool ok, uint64_t policy) {
+  asm volatile(
+      "cp.async.ca.shared.global.L2::cache_hint [%0], [%1], 4, %2, %3;\n" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(ok ? 4 : 0), "l"(policy));
+}
+
+__device__ __forceinline__ void cp_async16_hint(void* dst, const void* src,
+                                                bool ok, uint64_t policy) {
+  asm volatile(
+      "cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2, %3;\n" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(ok ? 16 : 0), "l"(policy));
+}
+
+// The block tile: DW_WARPS / WN x WN warps, each owning MSUB 16-column
+// sub-tiles of the (k, c) axis and NTW 8-channel tiles, so a thread holds
+// MSUB * NTW * 4 fp32 sums (at most 64) and every cotangent fragment
+// feeds MSUB products.
+template <int WN, int MSUB, int NTW>
+struct DwTile {
+  static constexpr int WM = DW_WARPS / WN;
+  static constexpr int TM = 16 * MSUB * WM;   // (k, c) columns a block
+  static constexpr int TN = 8 * NTW * WN;     // output channels a block
+  static constexpr int A_LD = TM + MM_PAD, G_LD = TN + MM_PAD;
+  static size_t smem(int C, int K) {
+    return (size_t)DW_RS *
+           (DW_STAGES * (A_LD + G_LD) * sizeof(bf16) +
+            2 * dw_tile_offsets(TM, C, K) * sizeof(int));
+  }
+};
+
+// Block (chunk, m-tile, n-tile) = (blockIdx.x, .y, .z): partial[chunk][m]
+// [n] for m in [m0, m0 + TM) of the K*C columns (m = k*C + c) and n in
+// [n0, n0 + TN), summed over rows [r_begin, r_end) of the flattened
+// (B*Vout) axis.
+//
+// Each stage t of DW_RS rows passes three steps, each in its own
+// iteration of the main loop so that their memory latencies overlap:
+// fetch (cp.async of the stage's index entries at the tile's offsets,
+// DW_STAGES iterations before its products), resolve + gather (each
+// entry turned in place into a feature-table row or -1, then cp.async of
+// the gathered rows and cotangent rows into ring slot t % DW_STAGES,
+// DW_STAGES - 1 iterations before) and the products on the tensor cores.
+template <bool IDMATCH, int WN, int MSUB, int NTW>
+__global__ void __launch_bounds__(DW_NT, 2) u3d_gather_conv_dw_mma_kernel(
+    const bf16* __restrict__ feats, const int* __restrict__ index,
+    const int* __restrict__ site_ids, const bf16* __restrict__ g,
+    float* __restrict__ partial, int B, int V, int C, int Vout, int K,
+    int Cout, int chunk_rows) {
+  using T = DwTile<WN, MSUB, NTW>;
+  constexpr int TM = T::TM, TN = T::TN, A_LD = T::A_LD, G_LD = T::G_LD;
+  extern __shared__ __align__(16) unsigned char dw_smem[];
+  const int M = K * C;
+  const int m0 = blockIdx.y * TM, n0 = blockIdx.z * TN;
+  const int R = B * Vout;
+  const int r_begin = blockIdx.x * chunk_rows;
+  const int r_end = min(r_begin + chunk_rows, R);
+  const int n_stages = (r_end - r_begin + DW_RS - 1) / DW_RS;
+  const int k_lo = m0 / C;
+  const int nk = (min(m0 + TM, M) - 1) / C + 1 - k_lo;
+  const int kt = dw_tile_offsets(TM, C, K);
+  const int ma = min(TM, round16(M - m0));   // staged columns
+  const int nw = min(Cout - n0, TN);         // real output channels
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const bool vec_a = (C % 8) == 0, vec_g = (Cout % 8) == 0;
+  bf16* s_a0 = reinterpret_cast<bf16*>(dw_smem);
+  bf16* s_g0 = s_a0 + DW_STAGES * DW_RS * A_LD;
+  int* s_idx0 = reinterpret_cast<int*>(s_g0 + DW_STAGES * DW_RS * G_LD);
+
+  // Every address below is a stage-invariant offset per thread plus the
+  // stage's first row: the divisions happen once, before the loop.
+  //
+  // s_idx[i * kt + kl] of stage t (slot t & 1): the index entry of row
+  // r0 + i at offset k_lo + kl, then, resolved, its feature-table row
+  // (b * V + site) or -1 for a miss or a row past the chunk. Thread tid
+  // owns entries e = tid + DW_NT * u, i = e / nk (exact in fp32 here).
+  const int n_idx = DW_RS * nk;
+  const uint64_t once = evict_first_policy();
+  const float inv_nk = 1.f / nk;
+  auto entry = [&](int e, int& i, int& kl) {
+    i = __float2int_rz((e + 0.5f) * inv_nk);
+    kl = e - i * nk;
+  };
+  auto fetch = [&](int t) {
+    int* si = s_idx0 + (t & 1) * DW_RS * kt;
+    const int r0 = r_begin + t * DW_RS;
+    const int* ib = index + (long long)r0 * K + k_lo;
+    for (int e = tid; e < n_idx; e += DW_NT) {
+      int i, kl;
+      entry(e, i, kl);
+      const bool ok = r0 + i < r_end;
+      cp_async4_hint(si + i * kt + kl, ok ? ib + i * K + kl : index, ok,
+                     once);
+    }
+  };
+  auto resolve = [&](int t) {
+    int* si = s_idx0 + (t & 1) * DW_RS * kt;
+    const int r0 = r_begin + t * DW_RS;
+    const int b0 = r0 / Vout;
+    for (int e = tid; e < n_idx; e += DW_NT) {
+      int i, kl;
+      entry(e, i, kl);
+      const int r = r0 + i;
+      int row = -1;
+      if (r < r_end) {
+        int b = b0;
+        while (r >= (b + 1) * Vout) ++b;
+        const int q = si[i * kt + kl];
+        int hit;
+        if (IDMATCH) {
+          hit = find_row(site_ids + (long long)b * V, V, q, -1);
+        } else {
+          hit = (q >= 0 && q < V) ? q : -1;
+        }
+        if (hit >= 0) row = b * V + hit;
+      }
+      si[i * kt + kl] = row;
+    }
+  };
+
+  // Gathered rows (DW_RS x ma, zero for a miss or a column past K*C).
+  // C % 8 == 0: thread tid stages the 8 columns of chunk tid % A_CH (8
+  // columns never straddle two offsets) in rows tid / A_CH + A_VSTEP u;
+  // else column tid % TM element by element in rows tid / TM + A_ESTEP u.
+  // The column's offset and channel are fixed per thread.
+  constexpr int A_CH = TM / 8, A_VSTEP = DW_NT / A_CH;
+  constexpr int A_ESTEP = DW_NT / TM;
+  static_assert(DW_NT % A_CH == 0 && DW_NT % TM == 0, "staging map");
+  const int acol = vec_a ? 8 * (tid % A_CH) : tid % TM;
+  const int ai0 = vec_a ? tid / A_CH : tid / TM;
+  const bool a_staged = acol < ma, a_real = m0 + acol < M;
+  const int akl = a_real ? (m0 + acol) / C - k_lo : 0;
+  const int ac = a_real ? m0 + acol - (akl + k_lo) * C : 0;
+  // Cotangent rows (DW_RS x TN, zero past the chunk or Cout); Cout % 8
+  // == 0: thread tid copies chunk gj = tid % G_CH of rows tid / G_CH +
+  // G_STEP u
+  constexpr int G_CH = TN / 8, G_STEP = DW_NT / G_CH;
+  const int gj = tid % G_CH, gi0 = tid / G_CH;
+  const bool g_ok = 8 * gj < nw;
+
+  auto load = [&](int t) {
+    const int slot = t % DW_STAGES;
+    const int* sr = s_idx0 + (t & 1) * DW_RS * kt + akl;
+    bf16* sa = s_a0 + slot * DW_RS * A_LD + acol;
+    bf16* sg = s_g0 + slot * DW_RS * G_LD;
+    const int r0 = r_begin + t * DW_RS;
+    if (a_staged) {
+      if (vec_a) {
+        const bf16* fa = feats + ac;
+#pragma unroll
+        for (int i = ai0; i < DW_RS; i += A_VSTEP) {
+          const int row = a_real ? sr[i * kt] : -1;
+          cp_async16(sa + i * A_LD, row >= 0 ? fa + (long long)row * C : feats,
+                     row >= 0);
+        }
+      } else {
+        // 4-5 channels: rows not 16-byte aligned; 8 loads in flight
+        constexpr int U = 8;
+        for (int i0 = ai0; i0 < DW_RS; i0 += U * A_ESTEP) {
+          bf16 v[U];
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            const int i = i0 + u * A_ESTEP;
+            const int row = (a_real && i < DW_RS) ? sr[i * kt] : -1;
+            v[u] = row >= 0 ? feats[(long long)row * C + ac]
+                            : __float2bfloat16_rn(0.f);
+          }
+#pragma unroll
+          for (int u = 0; u < U; ++u)
+            if (i0 + u * A_ESTEP < DW_RS) sa[(i0 + u * A_ESTEP) * A_LD] = v[u];
+        }
+      }
+    }
+    if (vec_g) {
+      const bf16* gb = g + (long long)r0 * Cout + n0 + 8 * gj;
+#pragma unroll
+      for (int i = gi0; i < DW_RS; i += G_STEP) {
+        const bool ok = g_ok && r0 + i < r_end;
+        cp_async16_hint(sg + i * G_LD + 8 * gj,
+                        ok ? gb + (long long)i * Cout : g, ok, once);
+      }
+    } else {
+      for (int e = tid; e < DW_RS * TN; e += DW_NT) {
+        const int i = e / TN, n = e % TN;
+        const int r = r0 + i;
+        sg[i * G_LD + n] = (r < r_end && n < nw)
+                               ? g[(long long)r * Cout + n0 + n]
+                               : __float2bfloat16_rn(0.f);
+      }
+    }
+  };
+
+  // warp (wm, wn): columns [16 MSUB wm, +16 MSUB), channels [8 NTW wn,
+  // +8 NTW) of the block tile; sub-tiles past the staged columns hold
+  // unstaged data and are never written out
+  const int wm = warp % T::WM, wn = warp / T::WM;
+  const int wcol = 16 * MSUB * wm, wch = 8 * NTW * wn;
+  const bool active = wcol < ma && wch < nw;
+  float acc[MSUB][NTW][4];
+#pragma unroll
+  for (int s = 0; s < MSUB; ++s)
+#pragma unroll
+    for (int i = 0; i < NTW; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[s][i][j] = 0.f;
+
+  // cp.async groups in commit order: fetch(0), an empty group, then per
+  // iteration fetch(t + DW_STAGES) and load(t + DW_STAGES - 1), empty
+  // where the stage does not exist, so the waits below count alike
+  fetch(0);
+  cp_async_commit();
+  cp_async_commit();
+  for (int t = 1 - DW_STAGES; t < n_stages; ++t) {
+    const int tf = t + DW_STAGES, tl = tf - 1;
+    // refills the index slot of stage tl - 1, whose gathers every warp
+    // issued before the last barrier
+    if (tf < n_stages) fetch(tf);
+    cp_async_commit();
+    cp_async_wait<2>();   // this thread's fetch(tl) has landed
+    __syncthreads();      // ... and every thread's
+    if (tl < n_stages) resolve(tl);
+    // the resolved rows are visible, and every warp has finished the
+    // products of stage t - 1, whose ring slot load(tl) refills
+    __syncthreads();
+    if (tl < n_stages) load(tl);
+    cp_async_commit();
+    cp_async_wait<2 * (DW_STAGES - 1)>();   // this thread's load(t)
+    __syncthreads();                        // ... and every thread's
+    if (t < 0 || !active) continue;
+    const bf16* sa = s_a0 + (t % DW_STAGES) * DW_RS * A_LD + wcol;
+    const bf16* sg = s_g0 + (t % DW_STAGES) * DW_RS * G_LD + wch;
+#pragma unroll
+    for (int kk = 0; kk < DW_RS; kk += 16) {
+      // A (16 columns x 16 rows) is stored row-major by row r: the
+      // transposed load gives the m16n8k16 A fragment
+      uint32_t a[MSUB][4];
+#pragma unroll
+      for (int s = 0; s < MSUB; ++s)
+        ldmatrix_x4_trans(a[s], sa + (kk + (lane & 7) + ((lane >> 4) << 3)) *
+                                         A_LD +
+                                     16 * s + ((lane >> 3) & 1) * 8);
+#pragma unroll
+      for (int nt = 0; nt < NTW; nt += 2) {
+        uint32_t bb[4];
+        ldmatrix_x4_trans(bb, sg + (kk + (lane & 15)) * G_LD + nt * 8 +
+                                  (lane >> 4) * 8);
+#pragma unroll
+        for (int s = 0; s < MSUB; ++s) {
+          mma_bf16(acc[s][nt], a[s], bb[0], bb[1]);
+          mma_bf16(acc[s][nt + 1], a[s], bb[2], bb[3]);
+        }
+      }
+    }
+  }
+  if (!active) return;
+
+  const int gq = lane >> 2, q = lane & 3;
+  float* out = partial + (long long)blockIdx.x * M * Cout;
+#pragma unroll
+  for (int s = 0; s < MSUB; ++s)
+#pragma unroll
+    for (int nt = 0; nt < NTW; ++nt) {
+      const int n = n0 + wch + nt * 8 + 2 * q;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + wcol + 16 * s + gq + 8 * h;
+        if (m >= M) continue;
+        if (n < Cout) out[(long long)m * Cout + n] = acc[s][nt][2 * h];
+        if (n + 1 < Cout)
+          out[(long long)m * Cout + n + 1] = acc[s][nt][2 * h + 1];
+      }
+    }
+}
+
+constexpr int SUM_WAYS = 8;   // warps of the chunk sum, each a share of chunks
+
+// dW[e] = sum over the chunks of partial[chunk][e]: warp w sums chunks w,
+// w + SUM_WAYS, ... in order for 32 consecutive entries, then the SUM_WAYS
+// sums are added in warp order, so the result does not depend on timing.
+// IDMATCH only names the kernel apart for K7 and K10 in a profile.
+template <bool IDMATCH>
+__global__ void __launch_bounds__(32 * SUM_WAYS) u3d_dw_sum_chunks_kernel(
+    const float* __restrict__ partial, float* __restrict__ dw, int n_chunks,
+    long long per_chunk) {
+  __shared__ float s[SUM_WAYS][32];
+  const int lane = threadIdx.x & 31, way = threadIdx.x >> 5;
+  const long long e = blockIdx.x * 32LL + lane;
+  float acc = 0.f;
+  if (e < per_chunk)
+    for (int i = way; i < n_chunks; i += SUM_WAYS)
+      acc += partial[i * per_chunk + e];
+  s[way][lane] = acc;
+  __syncthreads();
+  if (way == 0 && e < per_chunk) {
+    float total = 0.f;
+#pragma unroll
+    for (int w = 0; w < SUM_WAYS; ++w) total += s[w][lane];
+    dw[e] = total;
+  }
+}
+
+template <bool IDMATCH>
+int launch_dw_sum(const float* partial, void* dw, int n_chunks,
+                  long long per_chunk, cudaStream_t stream) {
+  u3d_dw_sum_chunks_kernel<IDMATCH>
+      <<<(unsigned)((per_chunk + 31) / 32), 32 * SUM_WAYS, 0, stream>>>(
+          partial, (float*)dw, n_chunks, per_chunk);
+  return (int)cudaGetLastError();
+}
+
+template <bool IDMATCH, int TCI, int TNJ>
+void launch_dw_f32_tiles(dim3 grid, const void* feats, const void* index,
+                         const void* site_ids, const void* g, float* partial,
+                         int B, int V, int C, int Vout, int K, int Cout,
+                         int chunk_rows, int tiles_c, int tiles_n,
+                         cudaStream_t stream) {
+  u3d_gather_conv_dw_f32_kernel<IDMATCH, TCI, TNJ><<<grid, NT, 0, stream>>>(
+      (const float*)feats, (const int*)index, (const int*)site_ids,
+      (const float*)g, partial, B, V, C, Vout, K, Cout, chunk_rows, tiles_c,
       tiles_n);
 }
 
-// partial: scratch of n_chunks*K*C*Cout fp32, n_chunks =
-// ceil(B*Vout / chunk_rows); dw: (K, C, Cout) fp32
-template <typename T, bool IDMATCH>
-int launch_gather_conv_dw(const void* feats, const void* index,
-                          const void* site_ids, const void* g, void* partial,
-                          void* dw, int B, int V, int C, int Vout, int K,
-                          int Cout, int chunk_rows, void* stream_ptr) {
-  if (chunk_rows <= 0 || chunk_rows % DW_TR != 0)
-    return (int)cudaErrorInvalidValue;
+// n_chunks = ceil(B*Vout / chunk_rows), or -1 for arguments the kernels
+// do not take (row indices must fit an int)
+int dw_chunks(int B, int V, int Vout, int K, int chunk_rows, int multiple) {
+  if (K > MAX_K || chunk_rows <= 0 || chunk_rows % multiple != 0) return -1;
+  const long long R = (long long)B * Vout;
+  if (R + chunk_rows >= INT_MAX || (long long)B * V >= INT_MAX) return -1;
+  return (int)((R + chunk_rows - 1) / chunk_rows);
+}
+
+// partial: scratch of n_chunks*K*C*Cout fp32; dw: (K, C, Cout) fp32
+template <bool IDMATCH>
+int launch_gather_conv_dw_f32(const void* feats, const void* index,
+                              const void* site_ids, const void* g,
+                              void* partial, void* dw, int B, int V, int C,
+                              int Vout, int K, int Cout, int chunk_rows,
+                              void* stream_ptr) {
+  const int n_chunks = dw_chunks(B, V, Vout, K, chunk_rows, DW_TR);
+  if (n_chunks < 0 || C <= 0) return (int)cudaErrorInvalidValue;
   const long long per_chunk = (long long)K * C * Cout;
   if (per_chunk == 0) return (int)cudaSuccess;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  const long long R = (long long)B * Vout;
-  const int n_chunks = (int)((R + chunk_rows - 1) / chunk_rows);
   if (n_chunks == 0) {
     cudaMemsetAsync(dw, 0, per_chunk * sizeof(float), stream);
     return (int)cudaGetLastError();
@@ -593,10 +945,10 @@ int launch_gather_conv_dw(const void* feats, const void* index,
   const int tiles_n = (Cout + (wide_n ? 64 : 16) - 1) / (wide_n ? 64 : 16);
   dim3 grid(n_chunks, K * tiles_c * tiles_n);
   float* p = (float*)partial;
-#define U3D_DW(TCI, TNJ)                                                   \
-  launch_dw_tiles<T, IDMATCH, TCI, TNJ>(grid, feats, index, site_ids, g, p, \
-                                        B, V, C, Vout, K, Cout, chunk_rows, \
-                                        tiles_c, tiles_n, stream)
+#define U3D_DW(TCI, TNJ)                                                      \
+  launch_dw_f32_tiles<IDMATCH, TCI, TNJ>(grid, feats, index, site_ids, g, p, \
+                                         B, V, C, Vout, K, Cout, chunk_rows, \
+                                         tiles_c, tiles_n, stream)
   if (wide_c && wide_n) U3D_DW(4, 4);
   else if (wide_c) U3D_DW(4, 1);
   else if (wide_n) U3D_DW(1, 4);
@@ -604,11 +956,59 @@ int launch_gather_conv_dw(const void* feats, const void* index,
 #undef U3D_DW
   const int status = (int)cudaGetLastError();
   if (status != 0) return status;
-  const int threads = 256;
-  u3d_sum_chunks_kernel<<<(unsigned)((per_chunk + threads - 1) / threads),
-                      threads, 0, stream>>>(p, (float*)dw, n_chunks,
-                                            per_chunk);
+  return launch_dw_sum<IDMATCH>(p, dw, n_chunks, per_chunk, stream);
+}
+
+template <bool IDMATCH, int WN, int MSUB, int NTW>
+int launch_dw_mma(int n_chunks, const void* feats, const void* index,
+                  const void* site_ids, const void* g, float* partial, int B,
+                  int V, int C, int Vout, int K, int Cout, int chunk_rows,
+                  cudaStream_t stream) {
+  using T = DwTile<WN, MSUB, NTW>;
+  const size_t smem = T::smem(C, K);
+  auto kern = u3d_gather_conv_dw_mma_kernel<IDMATCH, WN, MSUB, NTW>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(n_chunks, (K * C + T::TM - 1) / T::TM,
+            (Cout + T::TN - 1) / T::TN);
+  kern<<<grid, DW_NT, smem, stream>>>(
+      (const bf16*)feats, (const int*)index, (const int*)site_ids,
+      (const bf16*)g, partial, B, V, C, Vout, K, Cout, chunk_rows);
   return (int)cudaGetLastError();
+}
+
+// As launch_gather_conv_dw_f32, on the tensor cores; chunk_rows a
+// multiple of DW_RS, feats and g 16-byte aligned (the wrapper checks)
+template <bool IDMATCH>
+int launch_gather_conv_dw_bf16(const void* feats, const void* index,
+                               const void* site_ids, const void* g,
+                               void* partial, void* dw, int B, int V, int C,
+                               int Vout, int K, int Cout, int chunk_rows,
+                               void* stream_ptr) {
+  const int n_chunks = dw_chunks(B, V, Vout, K, chunk_rows, DW_RS);
+  if (n_chunks < 0 || C <= 0) return (int)cudaErrorInvalidValue;
+  const long long per_chunk = (long long)K * C * Cout;
+  if (per_chunk == 0) return (int)cudaSuccess;
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  if (n_chunks == 0) {
+    cudaMemsetAsync(dw, 0, per_chunk * sizeof(float), stream);
+    return (int)cudaGetLastError();
+  }
+  float* p = (float*)partial;
+  int status;
+  // tiles (TM x TN): 256 x 16/32/64 up to 64 channels, else 128 x 128
+#define U3D_DW(WN, MSUB, NTW)                                            \
+  status = launch_dw_mma<IDMATCH, WN, MSUB, NTW>(                        \
+      n_chunks, feats, index, site_ids, g, p, B, V, C, Vout, K, Cout, \
+      chunk_rows, stream)
+  if (Cout <= 16) U3D_DW(1, 2, 2);
+  else if (Cout <= 32) U3D_DW(1, 2, 4);
+  else if (Cout <= 64) U3D_DW(1, 2, 8);
+  else U3D_DW(2, 2, 8);
+#undef U3D_DW
+  if (status != 0) return status;
+  return launch_dw_sum<IDMATCH>(p, dw, n_chunks, per_chunk, stream);
 }
 
 }  // namespace
@@ -667,27 +1067,27 @@ int u3d_gather_conv_dw_f32(const void* feats, const void* nb, const void* g,
                            void* partial, void* dw, int B, int V, int C,
                            int Vout, int K, int Cout, int chunk_rows,
                            void* stream) {
-  return launch_gather_conv_dw<float, false>(feats, nb, nullptr, g, partial,
-                                             dw, B, V, C, Vout, K, Cout,
-                                             chunk_rows, stream);
+  return launch_gather_conv_dw_f32<false>(feats, nb, nullptr, g, partial, dw,
+                                         B, V, C, Vout, K, Cout, chunk_rows,
+                                         stream);
 }
 
 int u3d_gather_conv_dw_bf16(const void* feats, const void* nb, const void* g,
                             void* partial, void* dw, int B, int V, int C,
                             int Vout, int K, int Cout, int chunk_rows,
                             void* stream) {
-  return launch_gather_conv_dw<__nv_bfloat16, false>(
-      feats, nb, nullptr, g, partial, dw, B, V, C, Vout, K, Cout, chunk_rows,
-      stream);
+  return launch_gather_conv_dw_bf16<false>(feats, nb, nullptr, g, partial, dw,
+                                          B, V, C, Vout, K, Cout, chunk_rows,
+                                          stream);
 }
 
 int u3d_gather_conv_ids_dw_f32(const void* feats, const void* site_ids,
                                const void* qids, const void* g, void* partial,
                                void* dw, int B, int V, int C, int Vout, int K,
                                int Cout, int chunk_rows, void* stream) {
-  return launch_gather_conv_dw<float, true>(feats, qids, site_ids, g, partial,
-                                            dw, B, V, C, Vout, K, Cout,
-                                            chunk_rows, stream);
+  return launch_gather_conv_dw_f32<true>(feats, qids, site_ids, g, partial,
+                                        dw, B, V, C, Vout, K, Cout,
+                                        chunk_rows, stream);
 }
 
 int u3d_gather_conv_ids_dw_bf16(const void* feats, const void* site_ids,
@@ -695,9 +1095,9 @@ int u3d_gather_conv_ids_dw_bf16(const void* feats, const void* site_ids,
                                 void* partial, void* dw, int B, int V, int C,
                                 int Vout, int K, int Cout, int chunk_rows,
                                 void* stream) {
-  return launch_gather_conv_dw<__nv_bfloat16, true>(
-      feats, qids, site_ids, g, partial, dw, B, V, C, Vout, K, Cout,
-      chunk_rows, stream);
+  return launch_gather_conv_dw_bf16<true>(feats, qids, site_ids, g, partial,
+                                         dw, B, V, C, Vout, K, Cout,
+                                         chunk_rows, stream);
 }
 
 }  // extern "C"

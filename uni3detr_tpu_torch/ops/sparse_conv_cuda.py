@@ -19,11 +19,13 @@ wrapper's ``launches`` attribute counts kernel launches.
   its packed twin): the same for a K3 conv.
 
 Outputs keep the input dtype (bf16 or fp32); products accumulate in
-fp32. The bf16 convs run on the tensor cores and need 16-byte aligned
-features and weights; the fp32 convs run exact fp32 products on the CUDA
-cores. :class:`GatherConvFn` and :class:`GatherConvIdsFn` give the convs
-the backward rules of ``sparse_conv_pallas.py`` (``_bwd``, ``_ids_bwd``),
-built from the same kernels; the model calls the convs through them.
+fp32. The bf16 kernels run on the tensor cores and need 16-byte aligned
+features, weights and cotangents; the fp32 kernels run exact fp32
+products on the CUDA cores. The bf16 weight gradients take their row
+chunking from :func:`dw_plan`. :class:`GatherConvFn` and
+:class:`GatherConvIdsFn` give the convs the backward rules of
+``sparse_conv_pallas.py`` (``_bwd``, ``_ids_bwd``), built from the same
+kernels; the model calls the convs through them.
 """
 from __future__ import annotations
 
@@ -133,11 +135,12 @@ def _conv_suffix(dtype):
     return "f32" if dtype == torch.float32 else "bf16"
 
 
-def _check_conv_alignment(name, features, w):
-    """The bf16 kernel stages rows and weights with 16-byte cp.async
-    copies: a view that starts inside an allocation can break that."""
+def _check_conv_alignment(name, features, *others):
+    """The bf16 kernels stage rows, weights and cotangents with 16-byte
+    cp.async copies: a view that starts inside an allocation can break
+    that."""
     if features.dtype == torch.bfloat16:
-        for t in (features, w):
+        for t in (features, *others):
             _require(t.data_ptr() % 16 == 0,
                      f"{name}: bf16 tensors must start on a 16-byte "
                      "boundary (got a view with a storage offset)")
@@ -224,9 +227,58 @@ gather_conv_ids.launches = 0
 # K7 / K10: weight gradients
 # --------------------------------------------------------------------------
 
-# rows of the flattened (B*Vout) axis per block of the dW kernels; each
-# block writes one partial dW tile, summed in a second pass
-DW_CHUNK_ROWS = 1024
+# The bf16 dW kernel's blocking (csrc/sparse_conv.cu): a block owns TM
+# columns of the flattened (k, c) axis, TN output channels (dw_tile) and a
+# chunk of the flattened (B*Vout) row axis, which it walks in stages of
+# DW_RS rows.
+DW_RS = 64
+# dw_plan's targets: blocks per SM (a few waves of the two resident a
+# SM), at least DW_MIN_STAGES stages a block, and partials that stay well
+# inside the H100's 50 MB L2 (the chunk sum reads them straight back)
+DW_BLOCKS_PER_SM = 8
+DW_MIN_STAGES = 4
+DW_PARTIAL_BYTES = 16 * 2 ** 20
+# the fp32 dW kernel takes its rows in stages of 32 and fixed chunks
+DW_F32_CHUNK_ROWS = 1024
+
+
+def dw_tile(Cout: int) -> tuple:
+    """(TM, TN) block tile of the bf16 dW kernel for ``Cout`` output
+    channels: 256 columns by the channels up to 64 (every cotangent row
+    read by fewer column tiles), else 128 x 128 (the 64 fp32 sums a
+    thread can hold)."""
+    for tn in (16, 32, 64):
+        if Cout <= tn:
+            return 256, tn
+    return 128, 128
+
+
+def dw_plan(B: int, Vout: int, K: int, C: int, Cout: int, sms: int) -> dict:
+    """Row chunking of the bf16 dW kernel (K7/K10) for one call.
+
+    Blocks are (row chunk, column tile, channel tile) with the tiles of
+    :func:`dw_tile`. The plan takes the fewest chunks that give
+    ``DW_BLOCKS_PER_SM * sms`` blocks, but no more chunks than keep
+    ``DW_MIN_STAGES`` stages of ``DW_RS`` rows in each, nor than keep the
+    fp32 partials (one (K, C, Cout) tile a chunk) within
+    ``DW_PARTIAL_BYTES``; at least one chunk. ``chunk_rows`` is a
+    multiple of ``DW_RS``. Returns ``chunk_rows``, ``n_chunks`` (0 when
+    there are no rows), ``blocks`` and ``partial_bytes``."""
+    def cdiv(a, b):
+        return -(-a // b)
+
+    R = B * Vout
+    tm, tn = dw_tile(Cout)
+    tiles = cdiv(K * C, tm) * cdiv(Cout, tn)
+    per_chunk = 4 * K * C * Cout
+    want = cdiv(DW_BLOCKS_PER_SM * sms, tiles)
+    by_rows = cdiv(R, DW_MIN_STAGES * DW_RS)
+    by_bytes = DW_PARTIAL_BYTES // max(per_chunk, 1)
+    n = max(1, min(want, by_rows, by_bytes))
+    chunk_rows = max(1, cdiv(cdiv(R, n), DW_RS)) * DW_RS
+    n_chunks = cdiv(R, chunk_rows)
+    return dict(chunk_rows=chunk_rows, n_chunks=n_chunks,
+                blocks=n_chunks * tiles, partial_bytes=n_chunks * per_chunk)
 
 
 def gather_conv_dw_plain(features: torch.Tensor, neighbor_idx: torch.Tensor,
@@ -260,7 +312,13 @@ def gather_conv_ids_dw_plain(features: torch.Tensor, site_ids: torch.Tensor,
 def _dw_launch(name, features, index_args, g, K):
     B, V, C = features.shape
     Vout, Cout = g.shape[1], g.shape[2]
-    n_chunks = -(-(B * Vout) // DW_CHUNK_ROWS)
+    if features.dtype == torch.bfloat16:
+        sms = torch.cuda.get_device_properties(
+            features.device).multi_processor_count
+        chunk_rows = dw_plan(B, Vout, K, C, Cout, sms)["chunk_rows"]
+    else:
+        chunk_rows = DW_F32_CHUNK_ROWS
+    n_chunks = -(-(B * Vout) // chunk_rows)
     partial = torch.empty((max(n_chunks, 1), K, C, Cout),
                           dtype=torch.float32, device=features.device)
     dw = torch.empty((K, C, Cout), dtype=torch.float32,
@@ -270,7 +328,7 @@ def _dw_launch(name, features, index_args, g, K):
         status = getattr(cuda_lib.library(), name)(
             features.data_ptr(), *[t.data_ptr() for t in index_args],
             g.data_ptr(), partial.data_ptr(), dw.data_ptr(), B, V, C, Vout,
-            K, Cout, DW_CHUNK_ROWS, _stream(features))
+            K, Cout, chunk_rows, _stream(features))
     cuda_lib.check(status, name)
     return dw
 
@@ -295,6 +353,7 @@ def gather_conv_dw(features: torch.Tensor, neighbor_idx: torch.Tensor,
     if all(t.device.type == "cpu" for t in (features, neighbor_idx, g)):
         return gather_conv_dw_plain(features, neighbor_idx, g)
     _check_cuda_args("gather_conv_dw", (features, neighbor_idx, g))
+    _check_conv_alignment("gather_conv_dw", features, g)
     dw = _dw_launch("u3d_gather_conv_dw", features, (neighbor_idx,), g,
                     neighbor_idx.shape[2])
     gather_conv_dw.launches += 1
@@ -315,6 +374,7 @@ def gather_conv_ids_dw(features: torch.Tensor, site_ids: torch.Tensor,
     if all(t.device.type == "cpu" for t in (features, site_ids, qids, g)):
         return gather_conv_ids_dw_plain(features, site_ids, qids, g)
     _check_cuda_args("gather_conv_ids_dw", (features, site_ids, qids, g))
+    _check_conv_alignment("gather_conv_ids_dw", features, g)
     dw = _dw_launch("u3d_gather_conv_ids_dw", features, (site_ids, qids), g,
                     qids.shape[2])
     gather_conv_ids_dw.launches += 1
