@@ -30,18 +30,24 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    head outputs close;
 6. train kernels: K7 and K10 (sparse-conv weight gradients) against
    their plain versions at the shapes of the SUN RGB-D train step (B=4,
-   V=16000), K12 (auction) at the flagship's (12, 64, 384) and a
-   KITTI-shaped (10, 256, 384) instance set, with median kernel and
-   plain times, bounds and (K7, K10) ``gemm_ms`` per call shape and
-   summed per step, K7/K10's achieved TFLOP/s per call shape, and bf16
-   K7/K10 bit-equal on a second call; K4 equal to its plain version on
-   the train batch's two sets (B=4: eight problems in one launch);
+   V=16000), with median kernel and plain times, bounds and
+   ``gemm_ms`` per call shape and summed per step, the achieved TFLOP/s
+   per call shape, and bf16 K7/K10 bit-equal on a second call; K4 equal
+   to its plain version on the train batch's two sets (B=4: eight
+   problems in one launch); K12 (auction) on the train step's own costs
+   (all decoder layers of the seed-0 model on the train batch, the
+   instances of the loss's one matching call: 36 x 64 x 384), on
+   synthetic DETR-like costs of the same shape and on a KITTI-shaped (10,
+   256, 384) set, in every variant that fits (one block, a cluster of
+   two, global memory): assignment, rounds and bids bit-equal to the
+   plain version, no bidder unassigned, event and device ms, rounds per
+   instance and the round-counting bound (``auction_check``);
 7. train: ``uni3detr_sunrgbd`` as preset (bf16, fp32 params), B=4
    synthetic scenes, seeded random weights, AdamW lr 1e-4 with clip 10:
    warm-up steps, then timed steps on one fixed batch; per step the loss,
    gradient norm, ms and peak memory. Losses and gradients must be
    finite, the loss must fall, and each step must launch K1 4, K2 33, K3
-   6, K4 1, K7 17, K10 3 and K12 3 times;
+   6, K4 1, K7 17, K10 3 and K12 once;
 8. fp32 train parity: one step in fp32, dropout 0, scipy matching, TF32
    off, on the card (kernels) and on the CPU (plain versions): losses and
    gradients close.
@@ -50,9 +56,10 @@ Then ``uni3detr_nuscenes`` (300k points, V=120000 eval / 90000 train
 voxels, 900 queries, a 10-dim box code with velocity):
 
 9. kernels at its eval shapes (K1-K4, K11) and train shapes (K4, K7,
-   K10, K12), as phases 3 and 6, each shape marked with the kernel the TPU
-   package would run there (the lane-packed K5/K6/K8/K9 where a stage's
-   feature table does not fit VMEM);
+   K10, K12: its own costs are 36 x 96 x 1024), as phases 3 and 6, each
+   shape marked with the kernel the TPU package would run there (the
+   lane-packed K5/K6/K8/K9 where a stage's feature table does not fit
+   VMEM);
 10. inference, bf16, as phase 4: K1 4, K2 17, K3 3, K4 1 per scene and
     at most ``num_thr`` (500) valid boxes; ms/scene and peak memory;
 11. fp32 card vs CPU on one scene, as phase 5, with the first decoder
@@ -266,12 +273,15 @@ def fps_roofline(valid, sizes, S):
                     13 * sum(sizes) + 4 * S * len(sizes), "fp32")
 
 
-def auction_roofline(G, M, N):
-    """K12, a lower bound of its data-dependent bidding: every bidder
-    weighs every item at least once (a subtraction and a compare per
-    benefit entry); reads the (G, M, N) fp32 benefit and the spreads,
-    writes (G, M) int32."""
-    return roofline(2 * G * M * N, 4 * (G * M * N + G + G * M), "fp32")
+def auction_roofline(G, M, N, bids):
+    """K12, a lower bound of its data-dependent bidding: each of the
+    ``bids`` placed in the rounds that ran weighs all N items of its row
+    (a subtraction and a compare each); reads the (G, M, N) fp32 benefit
+    and the spreads once, writes (G, M) int32 items and (G, 2) int32
+    counts. It counts neither the rounds' dependence nor the bids'
+    second pass over a row's maximum."""
+    return roofline(2 * N * bids, 4 * (G * M * N + G + G * M + 2 * G),
+                    "fp32")
 
 
 def _report_add(report, name, err, ms, plain_ms, calls, bound,
@@ -637,15 +647,15 @@ def fp32_phase(torch, base_cfg, sd, scene, dev, tag, every_layer=True):
 def train_per_step(cfg):
     """Kernel launches of one train step: the forward's K1-K4, K2/K3
     again for the feature gradients (not of conv_input, whose input needs
-    none), K7/K10 for every weight gradient, K12 once per decoder
-    layer."""
+    none), K7/K10 for every weight gradient, K12 once for the instances
+    of all decoder layers."""
     subm, strided = conv_cases(cfg)
     n_subm = sum(c[-1] for c in subm)
     return {"match_positions": len(cfg.encoder_channels),
             "gather_conv": 2 * n_subm - 1,
             "gather_conv_ids": 2 * len(strided), "fps_pair": 1,
             "gather_conv_dw": n_subm, "gather_conv_ids_dw": len(strided),
-            "auction_lap": cfg.num_decoder_layers}
+            "auction_lap": 1}
 
 
 def dw_phase(torch, model, batch, dev, tag, kitti_auction):
@@ -657,8 +667,9 @@ def dw_phase(torch, model, batch, dev, tag, kitti_auction):
     second call (fixed-order chunk sums, no float atomics); each shape
     prints the products' rate achieved (``pairs`` products of C x Cout).
     Auction and FPS: equal."""
-    from uni3detr_tpu_torch.ops import (fps, matching,
-                                        sparse_conv_cuda as sc)
+    from uni3detr_tpu_torch.geom.boxes import gravity_center_boxes
+    from uni3detr_tpu_torch.ops import fps, matching, sparse_conv_cuda as sc
+    from uni3detr_tpu_torch.train import losses
 
     cfg = model.cfg
     feats, coords, vmask = model.voxelize(batch["points"], batch["pts_mask"])
@@ -740,41 +751,37 @@ def dw_phase(torch, model, batch, dev, tag, kitti_auction):
           f"S={S} exact ms={ms:.4f} grid={grid} slices in "
           f"{'shared' if in_smem else 'global'} memory x1/step")
 
-    # K12: DETR-like costs (focal +-4, L1, IoU terms) padded as
-    # match_queries_to_gt pads them; KITTI: gt_repeat=5 duplicated columns
+    # K12 on the train step's own costs: every decoder layer's cost of
+    # the model at seed 0 on this batch, as the loss's one matching call
+    # builds them; then DETR-like synthetic costs (focal +-4, L1, IoU
+    # terms) and a KITTI-shaped set (gt_repeat=5 duplicated columns)
+    torch.manual_seed(0)          # dropout
+    outs = model(batch["points"], batch["pts_mask"])
+    costs = losses.all_layer_costs(outs, gravity_center_boxes(
+        batch["gt_boxes"]), batch["gt_labels"], cfg)
+    L, B = costs.shape[:2]
+    model_case = matching.auction_problem(
+        costs.reshape(L * B, *costs.shape[2:]), batch["gt_mask"].repeat(L, 1),
+        cfg.num_query, cfg.gt_repeattimes, cfg.matcher_phases)
+    del outs, costs
     rng = torch.Generator(device=dev).manual_seed(3)
 
-    def costs(G, nq, n_gt, rep):
+    def synthetic(G, nq, n_gt, rep):
         c = (2 * torch.randn((G, nq, n_gt), generator=rng, device=dev)
              + 2 * torch.rand((G, nq, n_gt), generator=rng, device=dev)
              + 1.2 * torch.rand((G, nq, n_gt), generator=rng, device=dev))
-        return c.repeat(1, 1, rep)
+        return matching._auction_instances(c.repeat(1, 1, rep))
 
-    cases = [("train-step",
-              costs(TRAIN_B * 3, cfg.num_query, cfg.max_gt, 1), 2048.0,
-              cfg.num_decoder_layers)]
+    cases = [("model-costs", *model_case, 1),
+             ("synthetic", *synthetic(TRAIN_B * 3, cfg.num_query,
+                                      cfg.max_gt, 1), 2048.0, 0)]
     if kitti_auction:
         # KITTI: 300 queries, 50 GT columns tiled 5 times, eps spread / 8**3
-        cases.append(("kitti-shaped", costs(10, 300, 50, 5), 8.0 ** 3, 0))
-    for label, grouped, eps_div, calls in cases:
-        benefit, spread = matching._auction_instances(grouped)
-        got = matching.auction_lap(benefit, spread, eps_div)
-        ref = matching.auction_lap_plain(benefit, spread, eps_div)
-        if not torch.equal(got, ref) or bool((got < 0).any()):
-            fail(f"K12 auction_lap differs from the plain version ({label})")
-        ms = median_ms(torch, lambda: matching.auction_lap(
-            benefit, spread, eps_div), 10)
-        pms = median_ms(torch, lambda: matching.auction_lap_plain(
-            benefit, spread, eps_div), 3, 1)
-        in_smem = matching.auction_lap.benefit_in_smem
-        bound = auction_roofline(*benefit.shape)
-        print(f"[{tag}] K12 auction_lap {label} "
-              f"{tuple(benefit.shape)} exact, benefit in "
-              f"{'shared' if in_smem else 'global'} memory ms={ms:.4f} "
-              f"plain_ms={pms:.4f} bound_ms={bound['bound_ms']:.6f} "
-              f"({bound['bound_by']}) x{calls}/step")
-        if calls:
-            add("auction_lap", "K12", 0.0, ms, pms, calls, bound)
+        cases.append(("kitti-shaped", *synthetic(10, 300, 50, 5), 8.0 ** 3,
+                      0))
+    for label, benefit, spread, eps_div, calls in cases:
+        auction_check(torch, tag, label, benefit, spread, eps_div, calls,
+                      add)
     print(f"[{tag}] voxels={int(vmask.sum())} of {vmask.numel()} "
           f"sites per stage={[int(s['mask'].sum()) for s in sets]} "
           f"budgets={[s['n_sites'] for s in sets]}")
@@ -782,11 +789,66 @@ def dw_phase(torch, model, batch, dev, tag, kitti_auction):
     return report
 
 
+def auction_check(torch, tag, label, benefit, spread, eps_div, calls, add):
+    """K12 on one instance set: every variant whose shared memory fits
+    (and the default, which the model path takes) bit-equal to the plain
+    version, rounds and bids equal too, no bidder left unassigned; event
+    and device ms of each, the plain version's ms, the rounds per instance
+    (min / median / max), device ms per round of the longest instance, and
+    the round-counting bound. The default's numbers go to the report
+    (``calls`` per train step)."""
+    from uni3detr_tpu_torch.ops import matching
+
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    ref, ref_counts = matching.auction_lap_plain(benefit, spread, eps_div,
+                                                 return_counts=True)
+    b.record()
+    b.synchronize()
+    pms = a.elapsed_time(b)
+    rounds = ref_counts[:, 0].tolist()
+    bids = int(ref_counts[:, 1].sum())
+    bound = auction_roofline(*benefit.shape, bids)
+    print(f"[{tag}] K12 auction_lap {label} {tuple(benefit.shape)} eps "
+          f"spread/{eps_div:g}: rounds per instance min={min(rounds)} "
+          f"median={statistics.median(rounds)} max={max(rounds)}, bids="
+          f"{bids}, plain_ms={pms:.4f} bound_ms={bound['bound_ms']:.6f} "
+          f"({bound['bound_by']}, a lower bound)")
+    for variant in (None,) + matching.AUCTION_VARIANTS:
+        try:
+            got, counts = matching.auction_lap(benefit, spread, eps_div,
+                                               return_counts=True,
+                                               variant=variant)
+        except ValueError as e:      # a forced variant that does not fit
+            print(f"[{tag}] K12 {label} variant={variant}: {e}")
+            continue
+        ran = matching.auction_lap.variant
+        if not (torch.equal(got, ref) and torch.equal(counts, ref_counts)) \
+                or bool((got < 0).any()):
+            fail(f"K12 auction_lap ({label}, {ran}) differs from the plain "
+                 f"version or left a bidder unassigned")
+
+        def call():
+            matching.auction_lap(benefit, spread, eps_div, variant=variant)
+
+        ms = median_ms(torch, call, 10)
+        dev_ms, _ = device_ms_by_name(torch, call, "u3d_auction", 10)
+        print(f"[{tag}] K12 {label} variant={variant or 'default'} "
+              f"(ran {ran}): exact, rounds and bids equal; ms={ms:.4f} "
+              f"device_ms={dev_ms:.4f} device ms per round of the longest "
+              f"instance={dev_ms / max(max(rounds), 1) * 1e3:.3f} us "
+              f"x{calls}/step")
+        if variant is None and calls:
+            add("auction_lap", "K12", 0.0, ms, pms, calls, bound)
+
+
 def train_phase(torch, cfg, sd, batch, dev, tag, warmup, steps,
                 lr_schedule, momentum_schedule=None):
     """Train steps on one fixed batch; returns (launches of the timed
     steps, model, optimizer)."""
     from uni3detr_tpu_torch.models.detector import Uni3DETR
+    from uni3detr_tpu_torch.ops import matching
     from uni3detr_tpu_torch.train.step import make_optimizer, train_step
 
     model = Uni3DETR(cfg)
@@ -828,6 +890,11 @@ def train_phase(torch, cfg, sd, batch, dev, tag, warmup, steps,
     print(f"[{tag}] launches={launches} expected={want}")
     if launches != want:
         fail(f"train kernel launch counts {launches} != {want}")
+    rounds = matching.auction_lap.counts[:, 0].tolist()
+    print(f"[{tag}] the last step's matching (one K12 launch, "
+          f"{matching.auction_lap.variant}): {len(rounds)} instances, rounds "
+          f"min={min(rounds)} median={statistics.median(rounds)} "
+          f"max={max(rounds)}")
     first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
     print(f"[{tag}] loss mean of the first 5 steps {first:.5f}, of the "
           f"last 5 {last:.5f}")

@@ -647,3 +647,92 @@ def test_dw_bf16_rejects_misaligned_view(dev):
         with pytest.raises(ValueError, match="16-byte"):
             sc.gather_conv_ids_dw(f, sites, nb, g)
     assert sc.gather_conv_dw(bad.clone(), nb, good).abs().max().item() == 0
+
+
+# -- K12 redesign: every variant, rounds and bids, ties, max_iters ----------
+
+# (M, N) of the presets' instances and the variants whose shared memory
+# fits each on an H100 (227 KB a block)
+AUCTION_SHAPES = {"sunrgbd": ((64, 384), ("cta", "cluster", "global")),
+                  "nuscenes": ((96, 1024), ("cluster", "global")),
+                  "kitti": ((256, 384), ("cluster", "global"))}
+
+
+def _tied_benefit(rng, G, M, N, n_dummy=28):
+    """Values on a 1/4 grid (exact ties in values and bids), every third
+    bidder a copy of the one before, -1e6 dummy items last."""
+    b = np.round(rng.randn(G, M, N) * 2) / 4
+    b[:, 1::3] = b[:, 0:-1:3][:, :b[:, 1::3].shape[1]]
+    b[:, :, N - n_dummy:] = -1e6
+    b = torch.from_numpy(b.astype(np.float32))
+    flat = b[:, :, :N - n_dummy].reshape(G, -1)
+    return b, (flat.amax(1) - flat.amin(1)).clamp(min=1e-6)
+
+
+@pytest.mark.parametrize("G", [12, 36])
+@pytest.mark.parametrize("shape,variant", [
+    (s, v) for s, (_, vs) in AUCTION_SHAPES.items() for v in vs])
+def test_auction_variants_equal_plain(dev, shape, variant, G):
+    (M, N), _ = AUCTION_SHAPES[shape]
+    b, spread = _tied_benefit(np.random.RandomState(G + M), G, M, N)
+    b, spread = b.to(dev), spread.to(dev)
+    ref, ref_counts = matching.auction_lap_plain(b, spread, 512.0,
+                                                 return_counts=True)
+    got, counts = matching.auction_lap(b, spread, 512.0, return_counts=True,
+                                       variant=variant)
+    torch.cuda.synchronize()
+    assert matching.auction_lap.variant == variant
+    assert torch.equal(got, ref) and torch.equal(counts, ref_counts)
+    assert (ref >= 0).all() and int(ref_counts[:, 0].max()) > 1
+
+
+@pytest.mark.parametrize("shape,variant", [
+    (s, v) for s, (_, vs) in AUCTION_SHAPES.items() for v in vs])
+def test_auction_variants_small_max_iters(dev, shape, variant):
+    """Stopped after 3 rounds: the same -1 entries, rounds and bids."""
+    (M, N), _ = AUCTION_SHAPES[shape]
+    b, spread = _duplicated_benefit(np.random.RandomState(M), 12, M, N, 300)
+    b, spread = b.to(dev), spread.to(dev)
+    ref, ref_counts = matching.auction_lap_plain(b, spread, 2048.0, 3,
+                                                 return_counts=True)
+    got, counts = matching.auction_lap(b, spread, 2048.0, 3,
+                                       return_counts=True, variant=variant)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref) and torch.equal(counts, ref_counts)
+    assert (ref < 0).any() and (ref_counts[:, 0] == 3).all()
+
+
+def test_auction_default_variant_and_refusal(dev):
+    for shape, ((M, N), fits) in AUCTION_SHAPES.items():
+        b, spread = _tied_benefit(np.random.RandomState(1), 2, M, N)
+        matching.auction_lap(b.to(dev), spread.to(dev))
+        assert matching.auction_lap.variant == fits[0], shape
+    b, spread = _tied_benefit(np.random.RandomState(1), 2, 96, 1024)
+    with pytest.raises(ValueError, match="does not fit"):
+        matching.auction_lap(b.to(dev), spread.to(dev), variant="cta")
+
+
+# -- K1 redesign: sizes around the kernel's tile, batches ---------------------
+
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("V", [1, 31, 32, 33, 40000, 120000])
+def test_match_positions_kernel_sizes(dev, V, B):
+    """Submanifold rulebooks (with INT_MAX pads and -1 queries) and, on a
+    tenth of the rows, random queries in random order."""
+    grid = (41, 200, 200)
+    rng = np.random.RandomState(V + B)
+    n = max(1, V - V // 10)
+    sites = [_sites(rng, grid, n, V) for _ in range(B)]
+    coords = torch.cat([c for c, _ in sites])
+    mask = torch.cat([m for _, m in sites])
+    ids = linear_ids(coords, mask, grid)
+    q = subm_query_ids(coords, mask, grid)
+    rows = torch.from_numpy(rng.rand(B, V) < 0.1)
+    q[rows] = torch.from_numpy(rng.randint(
+        -1, 41 * 200 * 200 + 5, (int(rows.sum()), q.shape[2]))).int()
+    ref = sc.match_positions_plain(ids, q, V)
+    got = sc.match_positions(ids.to(dev), q.to(dev), V)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), ref)
+    if V > 1000:
+        assert (ref == V).any() and (ref < V).any()

@@ -2,11 +2,26 @@
 //
 // K1 u3d_match_positions replaces the Pallas kernel
 //    uni3detr_tpu/ops/sparse_conv_pallas.py::_match_kernel_count
-//    (entry match_positions). One thread per (site, offset) query does a
-//    binary search over the sorted site ids. Bound: ~log2(V) dependent
-//    loads per query, all inside the site-id list (160 KB at V=40k, so it
-//    stays in L1/L2); the TPU's window walk existed only because the TPU
-//    has no general gather.
+//    (entry match_positions): the row of each query id in the sorted site
+//    ids (lower bound, a miss -> n_sites). Bound: the query ids read and
+//    the rows written once (64 MB a nuScenes scene: ~19 us); the TPU's
+//    window walk existed only because the TPU has no general gather. The
+//    first design gave each thread one (row, offset) query: a warp's 32
+//    lanes then searched ~27 targets in 9 far-apart bands of the id list,
+//    ~17 dependent loads each, most of them to different cache lines. A
+//    block now stages a tile of MT_ROWS = 32 rows x K query ids in shared
+//    memory (coalesced in and out) and gives each thread a run of MT_RUN
+//    consecutive offsets of one row, one warp a run: a warp's lanes take
+//    32 consecutive rows, so their targets are neighbours in the id list
+//    and their searches touch the same lines. A run's first search is
+//    bracketed by the row's own site id (site ids are unique: a query d
+//    ids away lies at most d rows away), which leaves one step for the
+//    (0, 0) run and ~11 for the (0, +-1) runs of a 1440-wide grid. A run's
+//    queries of a submanifold rulebook are consecutive ids (the dx = -1,
+//    0, +1 of one (dz, dy)), so the next query of the run is a short
+//    forward scan from the last position (at most MT_SCAN steps, then a
+//    binary search of the rest); any query order stays exact, since the
+//    lower bound is monotone in the query.
 // K2 u3d_gather_conv_* replaces _kernel_unpacked (entry
 //    gather_conv_pallas): out[v] = sum_k feats[nb[v,k]] @ W[k], with
 //    nb == V (the dummy row) contributing zero.
@@ -118,15 +133,72 @@ __device__ __forceinline__ int find_row(const int* __restrict__ ids, int n,
   return (lo < n && ids[lo] == q) ? lo : miss;
 }
 
-__global__ void u3d_match_positions_kernel(const int* __restrict__ site_ids,
-                                       const int* __restrict__ qids,
-                                       int* __restrict__ out, int V,
-                                       long long per_batch, int n_sites) {
-  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= per_batch) return;
-  const long long off = (long long)blockIdx.y * per_batch + i;
-  out[off] = find_row(site_ids + (long long)blockIdx.y * V, V, qids[off],
-                      n_sites);
+constexpr int MT_ROWS = 32;       // K1: rulebook rows of a block
+constexpr int MT_RUN = 3;         // offsets a thread resolves in one row
+constexpr int MT_SCAN = 2;        // forward steps before a binary search
+
+__device__ __forceinline__ int lower_bound_ids(const int* __restrict__ ids,
+                                               int lo, int hi, int q) {
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (ids[mid] < q) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// blockDim.x = 32 x (runs of a row), one run a thread
+__global__ void u3d_match_positions_kernel(
+    const int* __restrict__ site_ids, const int* __restrict__ qids,
+    int* __restrict__ out, int V, int Vout, int K, int n_sites) {
+  extern __shared__ int s_q[];    // MT_ROWS x K query ids, then rows
+  const int b = blockIdx.y;
+  const int v0 = blockIdx.x * MT_ROWS;
+  const int rows = min(MT_ROWS, Vout - v0);
+  const long long base = ((long long)b * Vout + v0) * K;
+  const int n = rows * K;
+  for (int e = threadIdx.x; e < n; e += blockDim.x) s_q[e] = qids[base + e];
+  __syncthreads();
+  const int* ids = site_ids + (long long)b * V;
+  const int runs = (K + MT_RUN - 1) / MT_RUN;
+  for (int t = threadIdx.x; t < runs * MT_ROWS; t += blockDim.x) {
+    const int r = t % MT_ROWS, k0 = t / MT_ROWS * MT_RUN;
+    if (r >= rows) continue;
+    // the row's own site id s = ids[v] brackets any query's lower bound:
+    // ids are unique ints, ascending, so lb(q) lies in [v - (s - q), v]
+    // for q <= s and in [v + 1, v + (q - s)] for q > s
+    const int v = v0 + r;
+    const int s = v < V ? ids[v] : INT_MAX;
+    int* q = s_q + r * K;         // stride K = 27 (odd): no bank conflicts
+    int p = 0, q_last = -1;       // lower bound of the run's last query
+    for (int k = k0; k < min(K, k0 + MT_RUN); ++k) {
+      const int qk = q[k];
+      if (qk < 0) {               // site ids are >= 0, pads are INT_MAX
+        q[k] = n_sites;
+        continue;
+      }
+      if (q_last < 0) {
+        int lo = 0, hi = V;
+        if (s != INT_MAX) {
+          const long long d = (long long)qk - s;
+          lo = d <= 0 ? (int)max(0LL, v + d) : v + 1;
+          hi = d <= 0 ? v : (int)min((long long)V, v + d);
+        }
+        p = lower_bound_ids(ids, lo, hi, qk);
+      } else if (qk < q_last) {
+        p = lower_bound_ids(ids, 0, p, qk);
+      } else {
+        for (int step = 0; p < V && ids[p] < qk; ++p)
+          if (++step > MT_SCAN) {
+            p = lower_bound_ids(ids, p, V, qk);
+            break;
+          }
+      }
+      q_last = qk;
+      q[k] = (p < V && ids[p] == qk) ? p : n_sites;
+    }
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < n; e += blockDim.x) out[base + e] = s_q[e];
 }
 
 // s_row[r * K + k]: the feature row of output row m0 + r at offset k, -1
@@ -1022,13 +1094,14 @@ const char* u3d_error_string(int status) {
 int u3d_match_positions(const void* site_ids, const void* qids, void* out,
                         int B, int V, int Vout, int K, int n_sites,
                         void* stream) {
-  const long long per_batch = (long long)Vout * K;
-  if (B == 0 || per_batch == 0) return (int)cudaSuccess;
-  const int threads = 256;
-  dim3 grid((unsigned)((per_batch + threads - 1) / threads), B);
-  u3d_match_positions_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      (const int*)site_ids, (const int*)qids, (int*)out, V, per_batch,
-      n_sites);
+  if (B == 0 || Vout == 0 || K == 0) return (int)cudaSuccess;
+  const size_t smem = (size_t)MT_ROWS * K * sizeof(int);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  const int threads = 32 * min((K + MT_RUN - 1) / MT_RUN, 32);
+  dim3 grid((unsigned)((Vout + MT_ROWS - 1) / MT_ROWS), B);
+  u3d_match_positions_kernel<<<grid, threads, smem,
+                               (cudaStream_t)stream>>>(
+      (const int*)site_ids, (const int*)qids, (int*)out, V, Vout, K, n_sites);
   return (int)cudaGetLastError();
 }
 

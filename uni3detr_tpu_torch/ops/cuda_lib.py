@@ -41,7 +41,8 @@ _SIGNATURES = {
     "u3d_fps_pair": [_P] * 7 + [_I] * 6 + [_P],
     "u3d_fps": [_P] * 7 + [_I] * 5 + [_P],
     "u3d_fps_limits": [_P],
-    "u3d_auction_lap": [_P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _P, _P],
+    "u3d_auction_lap": [_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _I,
+                        _P, _P],
 }
 _ERROR_STRING = "u3d_error_string"
 KERNEL_PREFIX = "u3d_"

@@ -3,7 +3,7 @@
 Per decoder layer and sample, the queries are matched to the ground
 truth by a Hungarian assignment on a detached cost (focal or soft-focal
 class cost, L1 on the first 8 code dims, 1 - nearest-BEV IoU or the
-rotated 3D IoU), then:
+rotated 3D IoU; the costs of all layers are matched in one call), then:
 
 - soft focal classification loss against the IoU-aware quality
   (nearest-BEV IoU + z-IoU) / 2;
@@ -91,12 +91,11 @@ def iou_match_cost(decoded, gt_boxes, cfg: Uni3DETRConfig):
     raise ValueError(f"unknown iou_cost_type {t!r}")
 
 
-@torch.no_grad()
-def hungarian_assign(cls_scores, bbox_preds, gt_boxes, gt_labels, gt_mask,
-                     cfg: Uni3DETRConfig):
-    """Grouped assignment of a batch: cls (B, Q, ncls), bbox (B, Q, code),
-    gravity-centred gt (B, Gt, 7|9) -> (B, Q) int64, -1 for background.
-    The cost carries no gradient (the reference detaches it)."""
+def match_cost(cls_scores, bbox_preds, gt_boxes, gt_labels,
+               cfg: Uni3DETRConfig):
+    """The matching cost of a batch: cls (B, Q, ncls), bbox (B, Q, code),
+    gravity-centred gt (B, Gt, 7|9) -> (B, Q, Gt), non-finite entries
+    replaced by 1e4."""
     norm_gt = encode_boxes(gt_boxes)
     decoded = decode_boxes(bbox_preds)
     if cfg.cls_cost_type == "soft_focal":
@@ -109,18 +108,44 @@ def hungarian_assign(cls_scores, bbox_preds, gt_boxes, gt_labels, gt_mask,
         dim=-1)
     cost = (cls_cost * cfg.cls_cost_weight + reg_cost * cfg.reg_cost_weight
             + iou_match_cost(decoded, gt_boxes, cfg) * cfg.iou_cost_weight)
-    cost = torch.where(torch.isfinite(cost), cost, torch.full_like(cost, 1e4))
-    return match_queries_to_gt(cost, gt_mask, cfg.num_query,
-                               cfg.gt_repeattimes, method=cfg.matcher,
-                               phases=cfg.matcher_phases)
+    return torch.where(torch.isfinite(cost), cost, torch.full_like(cost, 1e4))
+
+
+@torch.no_grad()
+def all_layer_costs(outs, gt_boxes, gt_labels, cfg: Uni3DETRConfig):
+    """The detached matching cost of every decoder layer, (L, B, Q, Gt)."""
+    return torch.stack([match_cost(c, b, gt_boxes, gt_labels, cfg)
+                        for c, b in zip(outs["all_cls_scores"],
+                                        outs["all_bbox_preds"])])
+
+
+@torch.no_grad()
+def assign_layers(costs, gt_mask, cfg: Uni3DETRConfig):
+    """costs (L, B, Q, Gt) -> (L, B, Q) int64, -1 for background: every
+    layer's instances in one matching call (one auction launch)."""
+    L, B, Q, Gt = costs.shape
+    assigned = match_queries_to_gt(costs.reshape(L * B, Q, Gt),
+                                   gt_mask.repeat(L, 1), cfg.num_query,
+                                   cfg.gt_repeattimes, method=cfg.matcher,
+                                   phases=cfg.matcher_phases)
+    return assigned.reshape(L, B, Q)
+
+
+@torch.no_grad()
+def hungarian_assign(cls_scores, bbox_preds, gt_boxes, gt_labels, gt_mask,
+                     cfg: Uni3DETRConfig):
+    """Grouped assignment of a batch: cls (B, Q, ncls), bbox (B, Q, code),
+    gravity-centred gt (B, Gt, 7|9) -> (B, Q) int64, -1 for background.
+    The cost carries no gradient (the reference detaches it)."""
+    cost = match_cost(cls_scores, bbox_preds, gt_boxes, gt_labels, cfg)
+    return assign_layers(cost[None], gt_mask, cfg)[0]
 
 
 def _layer_loss(cls_scores, bbox_preds, iou_preds, gt_boxes, gt_labels,
-                gt_mask, cfg: Uni3DETRConfig) -> Dict[str, torch.Tensor]:
-    """Loss of one decoder layer over the batch; shapes (B, Q, .)."""
+                assigned, cfg: Uni3DETRConfig) -> Dict[str, torch.Tensor]:
+    """Loss of one decoder layer over the batch given its assignment
+    (B, Q); shapes (B, Q, .)."""
     B, Q, ncls = cls_scores.shape
-    assigned = hungarian_assign(cls_scores, bbox_preds, gt_boxes, gt_labels,
-                                gt_mask, cfg)
     pos = assigned >= 0
     safe = assigned.clamp(min=0)
     labels = torch.where(pos, torch.gather(gt_labels.long(), 1, safe),
@@ -179,13 +204,17 @@ def uni3detr_loss(outs, gt_boxes, gt_labels, gt_mask, cfg: Uni3DETRConfig
     """Total loss over the decoder layers: outs the head's stacks,
     gt_boxes (B, Gt, 7|9) gravity-centred, gt_labels (B, Gt), gt_mask
     (B, Gt). Returns (total, per-layer terms; the last layer's unprefixed,
-    the others as ``d{i}.loss_*``)."""
+    the others as ``d{i}.loss_*``). The costs of all layers are built
+    first and matched in one call; each layer's loss then takes its own
+    assignment."""
     L = outs["all_cls_scores"].shape[0]
+    assigned = assign_layers(all_layer_costs(outs, gt_boxes, gt_labels, cfg),
+                             gt_mask, cfg)
     logs, total = {}, 0.0
     for l in range(L):
         d = _layer_loss(outs["all_cls_scores"][l], outs["all_bbox_preds"][l],
                         outs["all_iou_preds"][l], gt_boxes, gt_labels,
-                        gt_mask, cfg)
+                        assigned[l], cfg)
         prefix = "" if l == L - 1 else f"d{l}."
         for k, v in d.items():
             logs[prefix + k] = v
