@@ -76,13 +76,41 @@ voxels, 900 queries, a 10-dim box code with velocity):
 K11 (single-set FPS), a public op that no model path calls, is driven
 once more on its own, as its callers call it, for its launch count.
 
-Then one JSON line of the kernels (launch counts of the nuScenes runs;
-times, errors, ``bound_ms`` with ``bound_by``, ``library_ms`` (null where
-no single PyTorch call computes the kernel's function) and, for the
-convs, ``gemm_ms``, at the nuScenes shapes, summed per scene for K1-K4,
-per train step for K7/K10/K12, per call for K11), the card line, and the
-result line ``{"ok": true, "device": {...}}``. There is no CPU
-fallback: without a CUDA device the script fails before any phase.
+Every inference phase (4, 10, 15, 20) also runs the per-class NMS of
+its scenes on the card, N1 (``u3d_iou3d_rotated``, writing the overlap
+bitmask) and N2 (``u3d_nms_greedy``) once a scene each, asserted, with
+decoding and post-processing under
+``torch.cuda.set_sync_debug_mode("error")``, and
+``nms_phase`` then holds N1 to the plain IoU and N2's keep set to the
+serial greedy pass on N1's own matrix, on every scene of every preset.
+Then ``uni3detr_scannet`` (18 classes, a 128x640x640 grid,
+``max_num`` 5000) and ``uni3detr_scannet_large`` (dynamic voxelization,
+V=120000 eval / 60000 train, sparse widths 32..256, ``conv_out`` to
+512), each:
+
+14/19. kernels at its eval shapes (K1-K4, K11), as phase 3;
+15/20. inference, bf16, B=1, a warm-up and three timed scenes: ms/scene
+    (host and event), peak memory, launch counts;
+16/21. NMS (``nms_phase``): N1 against the plain IoU in row blocks, N2
+    against the serial pass per class, the keep set against the plain
+    path, with times and bounds of N1 and N2 at 5000 boxes;
+17/22. train kernels (K4, K7, K10, K12 on the step's own costs), as
+    phase 6;
+18/23. train at B=4, two warm-up and eight timed steps, checked as
+    phase 7.
+
+Then one JSON line of the kernels (launches summed over every path's
+run: the inference and train runs of all four presets and K11's own
+call, each read right after its run; times, errors, ``bound_ms`` with
+``bound_by``, ``library_ms`` (null where no single PyTorch call
+computes the kernel's function) and, for the convs, ``gemm_ms``, at the
+nuScenes shapes for K1-K12, summed per scene for K1-K4, per train step
+for K7/K10/K12, per call for K11; N1 and N2 at ``uni3detr_scannet``'s
+5000 boxes, per scene, N1's bitmask launch with its matrix launch's
+``matrix_ms`` and ``matrix_bound_ms`` beside it), the card line, and the
+result line ``{"ok": true, "device": {...}}``. The smoke's wall time is
+printed before them. There is no CPU fallback: without a CUDA device the
+script fails before any phase.
 """
 import dataclasses
 import json
@@ -92,6 +120,8 @@ import shutil
 import statistics
 import subprocess
 import time
+
+T_START = time.perf_counter()
 
 N_SCENES = 5          # the first is the warm-up
 FP32_ATOL = 5e-3      # phases 5 and 11, see fp32_phase
@@ -112,6 +142,12 @@ NUS_WARMUP, NUS_STEPS = 3, 20
 NUS_LR, NUS_LR_RATIO, NUS_MOMENTUM_RATIO, NUS_UP = \
     2e-5, (10, 1e-4), (0.85 / 0.95, 1.0), 0.4
 CKPT_LOSS_RTOL = 1e-3
+# N1 vs the plain IoU (see nms_phase); the keep sets of the kernels' path
+# and of the plain path may differ only through pairs this close to
+# nms_thr
+NMS_IOU_ATOL = 1e-4
+SCANNET_SCENES = 4    # the first is the warm-up
+SCANNET_WARMUP, SCANNET_STEPS = 2, 8
 CKPT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "build", "chip_smoke_checkpoint")
 
@@ -282,6 +318,30 @@ def auction_roofline(G, M, N, bids):
     second pass over a row's maximum."""
     return roofline(2 * N * bids, 4 * (G * M * N + G + G * M + 2 * G),
                     "fp32")
+
+
+# N1: fp32 operations of one clipped pair, counted from csrc/nms.cu for a
+# polygon of 4 vertices at every clip with 2 crossings each (the z test,
+# eps, 4 clips of 2 + 4 x 5 + 4 x 6 + 2 x 6, the shoelace sum and the
+# ratio); a pair without z overlap stops after the z test.
+IOU_OPS_PER_PAIR = 270
+IOU_OPS_Z_TEST = 5
+
+
+def iou_roofline(clipped, tested, nbytes):
+    """N1: ``clipped`` pairs at IOU_OPS_PER_PAIR, the other ``tested``
+    pairs at IOU_OPS_Z_TEST (fp32); ``nbytes`` the boxes (and labels)
+    read and the matrix or bitmask written."""
+    return roofline(IOU_OPS_PER_PAIR * clipped
+                    + IOU_OPS_Z_TEST * (tested - clipped), nbytes, "fp32")
+
+
+def nms_scan_roofline(B, N):
+    """N2: the bitmask (B, ceil(N/64), N) int64 read once, the ranked
+    labels (int32) and order (int64) read, the keep mask (bool)
+    written."""
+    W = -(-N // 64)
+    return roofline(0, 8 * B * N * W + 12 * B * N + B * N, "fp32")
 
 
 def _report_add(report, name, err, ms, plain_ms, calls, bound,
@@ -497,26 +557,39 @@ def kernel_phase(torch, model, pts, dev, tag):
 
 def kernel_wrappers():
     """Every model-path kernel's wrapper by the name the JSON line
-    reports; the first four run in inference, all seven in training."""
-    from uni3detr_tpu_torch.ops import fps, matching, sparse_conv_cuda as sc
+    reports: K1-K4 and N1/N2 run in inference, K1-K4 and K7/K10/K12 in
+    training. N1 on the main path is ``ops.nms.overlap_mask`` (the IoU
+    kernel writing NMS's bitmask); ``geom.iou.iou3d_rotated_pairwise``
+    launches the same kernel writing the matrix, for the checks."""
+    from uni3detr_tpu_torch.ops import (fps, matching, nms,
+                                        sparse_conv_cuda as sc)
     return {"match_positions": sc.match_positions,
             "gather_conv": sc.gather_conv,
             "gather_conv_ids": sc.gather_conv_ids,
             "fps_pair": fps.farthest_point_sample_pair,
+            "iou3d_rotated": nms.overlap_mask,
+            "nms_greedy": nms.greedy_scan,
             "gather_conv_dw": sc.gather_conv_dw,
             "gather_conv_ids_dw": sc.gather_conv_ids_dw,
             "auction_lap": matching.auction_lap}
 
 
 def infer_phase(torch, model, scenes, dev, tag):
+    """Scenes to boxes (bf16, B=1): ms/scene (host and CUDA events) and
+    peak memory; each kernel's launches over the run asserted (N1 and N2
+    once a scene), and decoding and post-processing run under
+    ``torch.cuda.set_sync_debug_mode("error")``: any host
+    synchronisation inside them raises. Returns the launches."""
     from uni3detr_tpu_torch.train.coder import decode_predictions, post_process
 
     cfg = model.cfg
-    wrappers = dict(list(kernel_wrappers().items())[:4])
     subm, strided = conv_cases(cfg)
     per_scene = {"match_positions": len(cfg.encoder_channels),
                  "gather_conv": sum(c[-1] for c in subm),
-                 "gather_conv_ids": len(strided), "fps_pair": 1}
+                 "gather_conv_ids": len(strided), "fps_pair": 1,
+                 "iou3d_rotated": 1, "nms_greedy": 1}
+    wrappers = {k: v for k, v in kernel_wrappers().items()
+                if k in per_scene}
     data = [(torch.from_numpy(p).to(dev), torch.from_numpy(r).to(dev))
             for p, r in scenes]
     mask = torch.ones(data[0][0].shape[:2], dtype=torch.bool, device=dev)
@@ -531,8 +604,12 @@ def infer_phase(torch, model, scenes, dev, tag):
         t0 = time.perf_counter()
         e0.record()
         outs = model(pts, mask, rnd)
-        boxes, scores, labels, valid = post_process(
-            *decode_predictions(outs, cfg), cfg)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            boxes, scores, labels, valid = post_process(
+                *decode_predictions(outs, cfg), cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
         e1.record()
         n_valid = int(valid.sum())           # synchronizes
         times.append((time.perf_counter() - t0) * 1e3)
@@ -564,6 +641,151 @@ def infer_phase(torch, model, scenes, dev, tag):
     if launches != want:
         fail(f"kernel launch counts {launches} != {want}")
     return launches
+
+
+def _ms_or_none(ms):
+    """A device time, or "not measured" where the profiler caught no
+    kernel of the name (``None``)."""
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def plain_iou_rows(torch, boxes, rows=500):
+    """The plain pairwise IoU (bottom z) of (B, N, 7) boxes on their
+    device, in blocks of ``rows`` rows so that the plain version's
+    (pairs, 16, 2) buffers stay bounded."""
+    from uni3detr_tpu_torch.geom.iou import iou3d_rotated
+
+    return torch.cat([iou3d_rotated(boxes[:, r:r + rows], boxes, "bottom")
+                      for r in range(0, boxes.shape[1], rows)], dim=1)
+
+
+def serial_per_class(torch, iou, scores, labels, valid, thr):
+    """``_greedy_suppress_serial`` on each class of one scene (CPU)."""
+    from uni3detr_tpu_torch.ops.nms import _greedy_suppress_serial
+
+    keep = torch.zeros(valid.shape, dtype=torch.bool)
+    for c in labels[valid].unique().tolist():
+        keep |= _greedy_suppress_serial(iou, scores, valid & (labels == c),
+                                        thr)
+    return keep
+
+
+def nms_phase(torch, model, scenes, dev, tag, report):
+    """N1 and N2 on each scene's own decoded boxes (bf16 model, the
+    preset's ``max_num``), after the inference phase:
+
+    - N1 (matrix) against the plain IoU, computed in row blocks: max abs
+      difference, held to NMS_IOU_ATOL (fp32 rounding: sin, cos and the
+      shoelace sum's order, at areas down to ~1/100 of the products they
+      cancel at scene-scale coordinates);
+    - N2: the keep set of the main path's NMS (``ops.nms.nms_keep``: N1
+      writing the bitmask, then N2) equal to ``_greedy_suppress_serial``
+      per class on N1's own matrix, on the CPU copy;
+    - end to end: that keep set against the plain path (the plain IoU,
+      then the per-class wavefront ``_greedy_suppress``), which may
+      differ only if some same-class pair's plain IoU lies within
+      NMS_IOU_ATOL of ``nms_thr``; those pairs are counted.
+
+    Every scene of the phase, the warm-up included. On the first scene:
+    kernel, plain and (N1) matrix times, and the bounds from this scene's
+    pairs; added to ``report``."""
+    from uni3detr_tpu_torch.geom.boxes import bottom_center_boxes
+    from uni3detr_tpu_torch.geom.iou import iou3d_rotated_pairwise
+    from uni3detr_tpu_torch.ops import nms
+    from uni3detr_tpu_torch.train.coder import decode_predictions
+
+    cfg = model.cfg
+    thr = cfg.nms_thr
+    for i, (p, r) in enumerate(scenes):
+        pts = torch.from_numpy(p).to(dev)
+        mask = torch.ones(pts.shape[:2], dtype=torch.bool, device=dev)
+        boxes, scores, labels, valid = decode_predictions(
+            model(pts, mask, torch.from_numpy(r).to(dev)), cfg)
+        bx = bottom_center_boxes(boxes)[..., :7].contiguous()
+        B, N = scores.shape
+        t0 = time.perf_counter()
+        iou_k = iou3d_rotated_pairwise(bx)
+        iou_p = plain_iou_rows(torch, bx)
+        err = (iou_k - iou_p).abs().max().item()
+        keep = nms.nms_keep(bx, scores, labels, valid, thr, cfg.num_classes)
+        want = serial_per_class(torch, iou_k[0].cpu(), scores[0].cpu(),
+                                labels[0].cpu(), valid[0].cpu(), thr)
+        plain = nms.nms_keep_plain(bx, scores, labels, valid, thr,
+                                   cfg.num_classes, iou=iou_p)
+        same = ((labels[0][:, None] == labels[0][None, :])
+                & valid[0][:, None] & valid[0][None, :])
+        near = int((same & ((iou_p[0] - thr).abs() <= NMS_IOU_ATOL)).sum())
+        n_diff = int((keep != plain).sum())
+        print(f"[{tag}] NMS scene {i}: N={N} valid={int(valid.sum())} "
+              f"kept={int(keep.sum())}; N1 vs plain IoU max_abs_err="
+              f"{err:.3g} (atol {NMS_IOU_ATOL}); N2 keep set equal to the "
+              f"serial pass on N1's matrix: {torch.equal(keep[0].cpu(), want)}"
+              f"; vs the plain path: {n_diff} boxes differ, {near} "
+              f"same-class pairs within {NMS_IOU_ATOL} of nms_thr {thr} "
+              f"({time.perf_counter() - t0:.2f}s)")
+        if not err <= NMS_IOU_ATOL:
+            fail(f"N1 iou3d_rotated differs from the plain IoU by {err}")
+        if not torch.equal(keep[0].cpu(), want):
+            fail("N2 keep set differs from _greedy_suppress_serial on N1's "
+                 "matrix")
+        if n_diff and not near:
+            fail(f"NMS: {n_diff} boxes differ from the plain path with no "
+                 f"pair near the threshold")
+        if i:
+            continue
+        # times and bounds on this scene
+        order, lab = nms.nms_order(scores, labels, valid)
+        sbx = torch.gather(bx, 1, order[..., None].expand(-1, -1, 7))
+        bits = nms.overlap_mask(sbx, lab, thr)
+        W = bits.shape[1]
+        lo, hi = sbx[0, :, 2], sbx[0, :, 2] + sbx[0, :, 5]
+        zpos = (torch.minimum(hi[:, None], hi[None, :])
+                - torch.maximum(lo[:, None], lo[None, :])) > 0
+        cand = torch.ones((N, N), dtype=torch.bool, device=dev).triu(1) & \
+            (lab[0][:, None] == lab[0][None, :]) & (lab[0][:, None] >= 0)
+        n_cand, n_clip = int(cand.sum()), int((cand & zpos).sum())
+        pad = W * 64 - N
+        n_tiles = int(torch.nn.functional.pad(cand, (0, pad, 0, pad))
+                      .reshape(W, 64, W, 64).any(dim=3).any(dim=1).sum())
+        b_mask = iou_roofline(n_clip, n_cand, 32 * N + 8 * N * W)
+        b_mat = iou_roofline(int(zpos.sum()), N * N, 28 * N + 4 * N * N)
+        ms = median_ms(torch, lambda: nms.overlap_mask(sbx, lab, thr), 20)
+        mat_ms = median_ms(torch, lambda: iou3d_rotated_pairwise(bx), 10)
+        pms = median_ms(torch, lambda: plain_iou_rows(torch, bx), 3, 1)
+        dev_ms = device_ms_by_name(
+            torch, lambda: nms.overlap_mask(sbx, lab, thr),
+            "u3d_iou3d_rotated_mask", 10)[0] or None
+        print(f"[{tag}] N1 iou3d_rotated N={N} bitmask: ms={ms:.4f} device_ms"
+              f"={_ms_or_none(dev_ms)} bound_ms={b_mask['bound_ms']:.5f} "
+              f"({b_mask['bound_by']}; {n_cand} same-class pairs above the "
+              f"diagonal, {n_clip} with z overlap; {n_tiles} of {W * W} "
+              f"tiles hold one); matrix: ms={mat_ms:.4f} "
+              f"bound_ms={b_mat['bound_ms']:.5f} ({b_mat['bound_by']}; "
+              f"{N * N} pairs, {int(zpos.sum())} with z overlap); plain IoU "
+              f"(row blocks) ms={pms:.4f}")
+        _report_add(report, "iou3d_rotated", err, ms, pms, 1, b_mask)
+        report["iou3d_rotated"].update(matrix_ms=mat_ms,
+                                       matrix_bound_ms=b_mat["bound_ms"],
+                                       device_ms=dev_ms)
+        ms = median_ms(torch, lambda: nms.greedy_scan(bits, lab, order), 20)
+        dev_ms = device_ms_by_name(
+            torch, lambda: nms.greedy_scan(bits, lab, order),
+            "u3d_nms_greedy", 10)[0] or None
+        pms = median_ms(torch, lambda: nms.greedy_scan_plain(bits, lab,
+                                                             order), 3, 1)
+        old_ms = median_ms(torch, lambda: nms.nms_keep_plain(
+            bx, scores, labels, valid, thr, cfg.num_classes, iou=iou_p),
+            3, 1)
+        b_scan = nms_scan_roofline(B, N)
+        print(f"[{tag}] N2 nms_greedy N={N} words={W}: ms={ms:.4f} "
+              f"device_ms={_ms_or_none(dev_ms)} bound_ms={b_scan['bound_ms']:.5f} "
+              f"({b_scan['bound_by']}) plain scan ms={pms:.4f}; the "
+              f"per-class wavefront on the plain IoU ms={old_ms:.4f}")
+        _report_add(report, "nms_greedy", 0.0, ms, pms, 1, b_scan)
+        report["nms_greedy"].update(device_ms=dev_ms, wavefront_ms=old_ms)
+        del bits, zpos, cand
+        del iou_k, iou_p
+    torch.cuda.empty_cache()
 
 
 def fp32_phase(torch, base_cfg, sd, scene, dev, tag, every_layer=True):
@@ -654,6 +876,7 @@ def train_per_step(cfg):
     return {"match_positions": len(cfg.encoder_channels),
             "gather_conv": 2 * n_subm - 1,
             "gather_conv_ids": 2 * len(strided), "fps_pair": 1,
+            "iou3d_rotated": 0, "nms_greedy": 0,
             "gather_conv_dw": n_subm, "gather_conv_ids_dw": len(strided),
             "auction_lap": 1}
 
@@ -1045,7 +1268,8 @@ def _state_dict(torch, model):
 
 
 def flagship(torch, dev):
-    """Phases 3-8 on ``uni3detr_sunrgbd``."""
+    """Phases 3-8 on ``uni3detr_sunrgbd``; returns the launches of its
+    inference and train runs."""
     from uni3detr_tpu_torch.models.detector import Uni3DETR
     from uni3detr_tpu_torch.presets import SUNRGBD
     from uni3detr_tpu_torch.synthetic import (clustered_scene,
@@ -1060,7 +1284,8 @@ def flagship(torch, dev):
     with torch.inference_mode():
         kernel_phase(torch, model, torch.from_numpy(scenes[0][0]).to(dev),
                      dev, "kernels")
-        infer_phase(torch, model, scenes, dev, "flagship")
+        launches = [infer_phase(torch, model, scenes, dev, "flagship")]
+        nms_phase(torch, model, scenes, dev, "flagship", {})
         fp32_phase(torch, cfg, sd, scenes[0], dev, "fp32")
     torch.backends.cudnn.allow_tf32 = True     # the defaults again
     batch = {k: torch.from_numpy(v).to(dev) for k, v in
@@ -1068,11 +1293,12 @@ def flagship(torch, dev):
     with torch.no_grad():
         dw_phase(torch, model.train(), batch, dev, "train-kernels", True)
     del model
-    train_phase(torch, cfg, sd, batch, dev, "train", TRAIN_WARMUP,
-                TRAIN_STEPS, TRAIN_LR)
+    launches.append(train_phase(torch, cfg, sd, batch, dev, "train",
+                                TRAIN_WARMUP, TRAIN_STEPS, TRAIN_LR)[0])
     train_parity_phase(torch, sd, clustered_train_batch(1, cfg, PARITY_B),
                        dev)
     torch.cuda.empty_cache()
+    return launches
 
 
 def nuscenes(torch, dev):
@@ -1096,7 +1322,8 @@ def nuscenes(torch, dev):
     with torch.inference_mode():
         report = kernel_phase(torch, model, torch.from_numpy(
             scenes[0][0]).to(dev), dev, "nuscenes-kernels")
-        launches = infer_phase(torch, model, scenes, dev, "nuscenes")
+        launches = [infer_phase(torch, model, scenes, dev, "nuscenes")]
+        nms_phase(torch, model, scenes, dev, "nuscenes", {})
         torch.cuda.empty_cache()
         fp32_phase(torch, cfg, sd, scenes[0], dev, "nuscenes-fp32",
                    every_layer=False)
@@ -1120,9 +1347,45 @@ def nuscenes(torch, dev):
     checkpoint_phase(torch, model, opt, batch, dev, schedules)
     del model, opt
     torch.cuda.empty_cache()
-    launches.update({k: v for k, v in train_launches.items()
-                     if k not in launches})
-    launches["fps"] = fps_path(torch, scenes[0], dev, cfg.num_query)
+    launches.append(train_launches)
+    launches.append({"fps": fps_path(torch, scenes[0], dev, cfg.num_query)})
+    return report, launches
+
+
+def scannet(torch, dev, preset):
+    """Phases 14-18 (``uni3detr_scannet``) or 19-23
+    (``uni3detr_scannet_large``); returns (kernel report, launches of the
+    inference and train runs)."""
+    from uni3detr_tpu_torch.models.detector import Uni3DETR
+    from uni3detr_tpu_torch.presets import PRESETS
+    from uni3detr_tpu_torch.synthetic import (clustered_scene,
+                                              clustered_train_batch)
+
+    cfg = PRESETS[preset]
+    tag = preset.replace("uni3detr_", "")
+    model = Uni3DETR(cfg).eval()
+    sd = _state_dict(torch, model)
+    model.load_state_dict(sd, strict=True)
+    model.to(dev)
+    scenes = [clustered_scene(seed, cfg) for seed in range(SCANNET_SCENES)]
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with torch.inference_mode():
+        report = kernel_phase(torch, model, torch.from_numpy(
+            scenes[0][0]).to(dev), dev, f"{tag}-kernels")
+        launches = [infer_phase(torch, model, scenes, dev, tag)]
+        nms_phase(torch, model, scenes, dev, tag, report)
+    torch.cuda.empty_cache()
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             clustered_train_batch(0, cfg, TRAIN_B).items()}
+    with torch.no_grad():
+        report.update(dw_phase(torch, model.train(), batch, dev,
+                               f"{tag}-train-kernels", False))
+    del model
+    torch.cuda.empty_cache()
+    launches.append(train_phase(torch, cfg, sd, batch, dev, f"{tag}-train",
+                                SCANNET_WARMUP, SCANNET_STEPS, TRAIN_LR)[0])
+    torch.cuda.empty_cache()
     return report, launches
 
 
@@ -1143,12 +1406,29 @@ def main():
     print(f"[build] kernels built and loaded in "
           f"{time.perf_counter() - t0:.2f}s from {cuda_lib.CSRC}")
 
-    t0 = time.perf_counter()
-    flagship(torch, dev)
-    t1 = time.perf_counter()
-    report, launches = nuscenes(torch, dev)
-    print(f"[time] flagship phases {t1 - t0:.1f}s, nuscenes phases "
-          f"{time.perf_counter() - t1:.1f}s")
+    t = [time.perf_counter()]
+    runs = flagship(torch, dev)
+    t.append(time.perf_counter())
+    report, more = nuscenes(torch, dev)
+    runs += more
+    t.append(time.perf_counter())
+    scan_reports = []
+    for preset in ("uni3detr_scannet", "uni3detr_scannet_large"):
+        scan_report, more = scannet(torch, dev, preset)
+        scan_reports.append(scan_report)
+        runs += more
+        t.append(time.perf_counter())
+    # the NMS kernels' numbers at uni3detr_scannet's 5000 boxes
+    for name in ("iou3d_rotated", "nms_greedy"):
+        report[name] = scan_reports[0][name]
+    launches = {}
+    for run in runs:
+        for k, v in run.items():
+            launches[k] = launches.get(k, 0) + v
+    print(f"[time] flagship phases {t[1] - t[0]:.1f}s, nuscenes "
+          f"{t[2] - t[1]:.1f}s, scannet {t[3] - t[2]:.1f}s, scannet_large "
+          f"{t[4] - t[3]:.1f}s; the whole smoke "
+          f"{time.perf_counter() - T_START:.1f}s")
 
     sp = "uni3detr_tpu/ops/sparse_conv_pallas.py"
     meta = {
@@ -1161,6 +1441,8 @@ def main():
         "auction_lap": ("matching.cu",
                         "uni3detr_tpu/ops/matching_pallas.py:46"),
         "fps": ("fps.cu", "uni3detr_tpu/ops/fps.py:104"),
+        "iou3d_rotated": ("nms.cu", "uni3detr_tpu/geom/iou.py:60"),
+        "nms_greedy": ("nms.cu", "uni3detr_tpu/ops/nms.py:45"),
     }
     kernels = [dict(name=name, route="cuda",
                     source=f"uni3detr_tpu_torch/csrc/{src}", replaces=rep,

@@ -736,3 +736,181 @@ def test_match_positions_kernel_sizes(dev, V, B):
     assert torch.equal(got.cpu(), ref)
     if V > 1000:
         assert (ref == V).any() and (ref < V).any()
+
+
+# -- N1 (rotated IoU) and N2 (greedy NMS scan), the ScanNet widths ----------
+
+IOU_ATOL = 1e-4   # N1 vs the plain IoU: fp32 rounding (sin/cos, the
+                  # shoelace sum's order) of an area up to ~100x smaller
+                  # than the products it cancels at scene-scale coordinates
+
+
+def _nms_scenes(B, N, seed=0):
+    """B clustered box sets of N boxes (ScanNet's 18 labels), as tensors."""
+    from nms_cases import clustered_boxes
+
+    parts = [clustered_boxes(seed * 10 + b, n=N) for b in range(B)]
+    return [torch.from_numpy(np.stack(a)) for a in zip(*parts)]
+
+
+def _plain_iou_rows(boxes, z_origin="bottom", rows=500):
+    """The plain pairwise IoU of (B, N, 7) on its device, in row blocks
+    so its (pairs, 16, 2) buffers stay bounded."""
+    from uni3detr_tpu_torch.geom.iou import iou3d_rotated
+
+    return torch.cat([iou3d_rotated(boxes[:, r:r + rows], boxes, z_origin)
+                      for r in range(0, boxes.shape[1], rows)], dim=1)
+
+
+@pytest.mark.parametrize("z_origin", ["bottom", "center"])
+def test_iou3d_kernel_degenerate_pairs(dev, z_origin):
+    from nms_cases import degenerate_pairs
+    from uni3detr_tpu_torch.geom.iou import iou3d_rotated_pairwise
+
+    boxes = torch.from_numpy(np.concatenate(
+        [np.stack(p) for p in degenerate_pairs()]))[None]
+    ref = _plain_iou_rows(boxes.to(dev), z_origin)
+    before = iou3d_rotated_pairwise.launches
+    got = iou3d_rotated_pairwise(boxes.to(dev), z_origin)
+    torch.cuda.synchronize()
+    assert iou3d_rotated_pairwise.launches == before + 1
+    assert (got - ref).abs().max().item() <= IOU_ATOL
+    np.testing.assert_allclose(got.diagonal(dim1=1, dim2=2).cpu().numpy()[
+        :, [0, 1]], 1.0, atol=IOU_ATOL)
+
+
+@pytest.mark.parametrize("N", [1, 63, 64, 65, 1000, 5000])
+def test_iou3d_kernel_random_sets(dev, N):
+    from uni3detr_tpu_torch.geom.iou import iou3d_rotated_pairwise
+
+    boxes, _, _, _ = _nms_scenes(2, N, seed=N)
+    boxes = boxes.to(dev)
+    got = iou3d_rotated_pairwise(boxes)
+    ref = _plain_iou_rows(boxes)
+    torch.cuda.synchronize()
+    assert got.shape == (2, N, N)
+    assert (got - ref).abs().max().item() <= IOU_ATOL
+    if N > 64:
+        assert (ref > 0.3).sum() > N
+
+
+def _serial_per_class(iou, scores, labels, valid, thr):
+    """``_greedy_suppress_serial`` on each class of each scene (CPU)."""
+    from uni3detr_tpu_torch.ops.nms import _greedy_suppress_serial
+
+    out = torch.zeros(valid.shape, dtype=torch.bool)
+    for b in range(valid.shape[0]):
+        for c in labels[b][valid[b]].unique().tolist():
+            out[b] |= _greedy_suppress_serial(
+                iou[b], scores[b], valid[b] & (labels[b] == c), thr)
+    return out
+
+
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("N", [1, 63, 64, 65, 1000, 5000])
+def test_nms_kernels_equal_serial(dev, N, B):
+    """N1 (bitmask) + N2 on the card keep what the serial greedy pass
+    keeps per class on N1's own IoU matrix; one launch of each."""
+    from uni3detr_tpu_torch.geom.iou import iou3d_rotated_pairwise
+    from uni3detr_tpu_torch.ops import nms
+
+    boxes, scores, labels, valid = _nms_scenes(B, N, seed=N + B)
+    args = [t.to(dev) for t in (boxes, scores, labels, valid)]
+    n1, n2 = nms.overlap_mask.launches, nms.greedy_scan.launches
+    keep = nms.nms_keep(*args, 0.5, 18)
+    torch.cuda.synchronize()
+    assert (nms.overlap_mask.launches, nms.greedy_scan.launches) == \
+        (n1 + 1, n2 + 1)
+    iou = iou3d_rotated_pairwise(args[0]).cpu()
+    want = _serial_per_class(iou, scores, labels, valid, 0.5)
+    assert torch.equal(keep.cpu(), want)
+    if N >= 1000:
+        assert 0 < int(want.sum()) < int(valid.sum())
+
+
+@pytest.mark.parametrize("case", ["all invalid", "one class"])
+def test_nms_kernels_edge_cases(dev, case):
+    from uni3detr_tpu_torch.geom.iou import iou3d_rotated_pairwise
+    from uni3detr_tpu_torch.ops import nms
+
+    boxes, scores, labels, valid = _nms_scenes(2, 1000, seed=3)
+    if case == "all invalid":
+        valid = torch.zeros_like(valid)
+    else:
+        labels = torch.zeros_like(labels)
+    args = [t.to(dev) for t in (boxes, scores, labels, valid)]
+    keep = nms.nms_keep(*args, 0.5, 18).cpu()
+    iou = iou3d_rotated_pairwise(args[0]).cpu()
+    assert torch.equal(keep, _serial_per_class(iou, scores, labels, valid,
+                                               0.5))
+    assert (keep.sum() == 0) == (case == "all invalid")
+
+
+def test_nms_scan_kernel_equals_plain_on_one_bitmask(dev):
+    """N2 alone: the plain model's bitmask (CPU) scanned on the card and
+    on the host; and N1's bitmask equals the plain one except on pairs
+    whose IoU lies within IOU_ATOL of the threshold."""
+    from uni3detr_tpu_torch.ops import nms
+
+    boxes, scores, labels, valid = _nms_scenes(3, 700, seed=5)
+    order, lab = nms.nms_order(scores, labels, valid)
+    bx = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 7))
+    mask = nms.overlap_mask_plain(bx, lab, 0.5)
+    want = nms.greedy_scan_plain(mask, lab, order)
+    got = nms.greedy_scan(mask.to(dev), lab.to(dev), order.to(dev))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    bits = nms.overlap_mask(bx.to(dev), lab.to(dev), 0.5).cpu()
+    differ = nms._unpack_bits((bits ^ mask).transpose(1, 2), 700)
+    if differ.any():
+        from uni3detr_tpu_torch.geom.iou import iou3d_rotated
+        iou = iou3d_rotated(bx, bx, "bottom")
+        assert ((iou[differ] - 0.5).abs() <= IOU_ATOL).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,Cout", [(256, 256), (128, 256)])
+def test_conv_kernels_scannet_large_widths(dev, dtype, C, Cout):
+    """K2 (submanifold), K3 (strided), K7 and K10 at the 256-channel
+    stage of uni3detr_scannet_large and at its 128 -> 256 downsample."""
+    rng = np.random.RandomState(C + Cout)
+    grid = (16, 40, 40)
+    V = 3000
+    coords, mask = _sites(rng, grid, 2600, V)
+    ids = linear_ids(coords, mask, grid)
+    nb = sc.match_positions_plain(ids, subm_query_ids(coords, mask, grid), V)
+    oc, om, _ = downsample_sites(coords, mask, grid, (1, 1, 1), 1200)
+    sq = strided_query_ids(oc, om, grid, (1, 1, 1))
+    feats = torch.from_numpy(rng.randn(1, V, C).astype(np.float32)).to(dtype)
+    w = torch.from_numpy(rng.randn(27, C, Cout).astype(np.float32) * 0.05)
+    a = [t.to(dev) for t in (feats, nb, w)]
+    _conv_close(sc.gather_conv(*a), sc.gather_conv_plain(*a), dtype)
+    a = [t.to(dev) for t in (feats, ids, sq, w)]
+    _conv_close(sc.gather_conv_ids(*a), sc.gather_conv_ids_plain(*a), dtype)
+    for kind in ("K7", "K10"):
+        kern, plain, args = _dw_inputs(rng, kind, 2, 2000, 1800, grid, C,
+                                       Cout, dtype)
+        args = [t.to(dev) for t in args]
+        _dw_close(kern(*args), plain(*args))
+    torch.cuda.synchronize()
+
+
+def test_dynamic_voxelize_on_card_matches_cpu(dev):
+    """uni3detr_scannet_large's dynamic voxelization of a clustered
+    100k-point scene: coords and mask equal, means within 1e-5 (fp64
+    sums, one fp32 rounding)."""
+    from uni3detr_tpu_torch.ops.voxelize import dynamic_voxelize
+    from uni3detr_tpu_torch.presets import SCANNET_LARGE as cfg
+    from uni3detr_tpu_torch.synthetic import clustered_scene
+
+    pts = torch.from_numpy(clustered_scene(0, cfg)[0])
+    mask = torch.ones(pts.shape[:2], dtype=torch.bool)
+    kw = dict(pc_range=cfg.pc_range, voxel_size=cfg.voxel_size,
+              grid_size=cfg.grid_size, max_voxels=cfg.max_voxels_test)
+    ref = dynamic_voxelize(pts, mask, **kw)
+    got = dynamic_voxelize(pts.to(dev), mask.to(dev), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1].cpu(), ref[1]) and torch.equal(got[2].cpu(),
+                                                              ref[2])
+    assert (got[0].cpu() - ref[0]).abs().max().item() <= 1e-5
+    assert int(ref[2].sum()) > 1000

@@ -1,12 +1,19 @@
 """PyTorch / CUDA port of uni3detr_tpu for NVIDIA Hopper GPUs.
 
-Runs the ``uni3detr_sunrgbd`` and ``uni3detr_nuscenes`` presets:
-inference (``models.detector.Uni3DETR`` from points to head outputs,
-``train.coder`` to decode and run NMS), training (``train.step``: losses,
-matching, the sparse-conv backward, clip + AdamW and the step or cyclic
-schedules) and checkpoints (``train.checkpoint``). The kernels of those
-paths (rulebook match, gather conv and id-matching gather conv with
-their weight gradients, paired and single-set FPS, the auction matcher)
-are hand-written CUDA in ``csrc/``, built on first use; CPU tensors take
-their plain PyTorch versions.
+Runs the ``uni3detr_sunrgbd``, ``uni3detr_nuscenes``,
+``uni3detr_scannet`` and ``uni3detr_scannet_large`` presets: inference
+(``models.detector.Uni3DETR`` from points to head outputs, hard or
+dynamic voxelization, ``train.coder`` to decode and run the per-class
+NMS), training (``train.step``: losses, matching, the sparse-conv
+backward, clip + AdamW and the step or cyclic schedules) and checkpoints
+(``train.checkpoint``). The kernels of those paths (rulebook match,
+gather conv and id-matching gather conv with their weight gradients,
+paired and single-set FPS, the auction matcher, the rotated IoU and the
+greedy NMS scan) are hand-written CUDA in ``csrc/``, built on first use;
+CPU tensors take their plain PyTorch versions.
+
+Tests: ``python -m pytest tests/test_torch_port_*.py`` on the CPU (the
+port against the JAX package), and on a machine with an NVIDIA GPU
+``python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py``
+(the kernels against their plain versions) and ``python3 chip_smoke.py``.
 """

@@ -5,6 +5,11 @@ clip of one rectangle by the four edges of the other, run for every box
 pair at once over fixed 8-vertex buffers (a convex quad clipped by four
 half-planes keeps at most 8 vertices). Box layout:
 ``(cx, cy, cz, dx, dy, dz, yaw, ...)``.
+
+:func:`iou3d_rotated_pairwise` (N1) is the pairwise IoU of a batch of box
+sets with themselves: the CUDA kernel ``u3d_iou3d_rotated``
+(``csrc/nms.cu``) for CUDA tensors, :func:`iou3d_rotated` for CPU
+tensors; its ``launches`` attribute counts kernel launches.
 """
 from __future__ import annotations
 
@@ -12,6 +17,7 @@ import math
 
 import torch
 
+from ..ops import cuda_lib
 from .boxes import corners_bev
 
 _NV = 8  # max vertices of a rect-rect intersection
@@ -127,6 +133,34 @@ def iou3d_rotated(boxes1, boxes2, z_origin: str = "center",
     """
     return iou3d_rotated_aligned(boxes1[..., :, None, :],
                                  boxes2[..., None, :, :], z_origin, eps)
+
+
+def iou3d_rotated_pairwise(boxes: torch.Tensor,
+                           z_origin: str = "bottom") -> torch.Tensor:
+    """N1: (B, N, >=7) boxes -> (B, N, N) fp32, ``out[b, i, j]`` the IoU
+    of box i clipped by box j, as :func:`iou3d_rotated` computes it.
+
+    The kernel reads fp32 boxes and differs from the plain version by
+    fp32 rounding (the shoelace sum's order, sin and cos)."""
+    if boxes.dim() != 3 or boxes.shape[-1] < 7:
+        raise ValueError("iou3d_rotated_pairwise: boxes (B, N, >=7)")
+    if z_origin not in ("bottom", "center"):
+        raise ValueError(f"iou3d_rotated_pairwise: z_origin {z_origin!r}")
+    if boxes.device.type == "cpu":
+        return iou3d_rotated(boxes, boxes, z_origin)
+    bx = boxes[..., :7].float().contiguous()
+    B, N = bx.shape[:2]
+    out = torch.empty((B, N, N), dtype=torch.float32, device=bx.device)
+    with torch.cuda.device(bx.device):
+        status = cuda_lib.library().u3d_iou3d_rotated(
+            bx.data_ptr(), out.data_ptr(), B, N, int(z_origin == "bottom"),
+            torch.cuda.current_stream(bx.device).cuda_stream)
+    cuda_lib.check(status, "u3d_iou3d_rotated")
+    iou3d_rotated_pairwise.launches += 1
+    return out
+
+
+iou3d_rotated_pairwise.launches = 0
 
 
 def _limit_period(val, offset: float = 0.5, period: float = math.pi):

@@ -1,11 +1,12 @@
 """Uni3DETR detector (port of ``uni3detr_tpu/models/detector.py``).
 
-points -> hard voxelize + mean VFE -> SparseEncoderHD -> SECOND3D ->
-SECOND3DFPN -> paired D-FPS query seeds -> Uni3DETRHead. Submodule names
-are the reference's (``pts_middle_encoder``, ``pts_backbone``,
-``pts_neck``, ``pts_bbox_head``), so ``state_dict()`` is a reference
-checkpoint. ``model.train()`` is the JAX package's ``train=True``: the
-train voxel budget, batch statistics, dropout and three query groups.
+points -> hard (or dynamic) voxelize + mean VFE -> SparseEncoderHD ->
+SECOND3D -> SECOND3DFPN -> paired D-FPS query seeds -> Uni3DETRHead.
+Submodule names are the reference's (``pts_middle_encoder``,
+``pts_backbone``, ``pts_neck``, ``pts_bbox_head``), so ``state_dict()``
+is a reference checkpoint. ``model.train()`` is the JAX package's
+``train=True``: the train voxel budget, batch statistics, dropout and
+three query groups.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ from torch import nn
 
 from ..config import Uni3DETRConfig
 from ..ops.fps import farthest_point_sample_pair
-from ..ops.voxelize import hard_voxelize
+from ..ops.voxelize import dynamic_voxelize, hard_voxelize
 from .head import Uni3DETRHead
 from .second3d import SECOND3D, SECOND3DFPN
 from .sparse_encoder import SparseEncoderHD
@@ -31,9 +32,9 @@ class Uni3DETR(nn.Module):
 
     def __init__(self, cfg: Uni3DETRConfig):
         super().__init__()
-        if cfg.dynamic_voxelization or cfg.encoder_impl != "gather":
-            raise NotImplementedError("the port runs hard voxelization and "
-                                      "the gather encoder only")
+        if cfg.encoder_impl != "gather":
+            raise NotImplementedError("the port runs the gather encoder "
+                                      "only")
         self.cfg = cfg
         dtype = cfg.torch_dtype
         self.pts_middle_encoder = SparseEncoderHD(
@@ -60,13 +61,15 @@ class Uni3DETR(nn.Module):
     @torch.no_grad()
     def voxelize(self, points, pts_mask):
         cfg = self.cfg
-        return hard_voxelize(
-            points, pts_mask, pc_range=tuple(cfg.pc_range),
-            voxel_size=tuple(cfg.voxel_size),
-            grid_size=tuple(cfg.grid_size),
-            max_points=cfg.max_points_per_voxel,
-            max_voxels=cfg.max_voxels if self.training
-            else cfg.max_voxels_test)
+        kw = dict(pc_range=tuple(cfg.pc_range),
+                  voxel_size=tuple(cfg.voxel_size),
+                  grid_size=tuple(cfg.grid_size),
+                  max_voxels=cfg.max_voxels if self.training
+                  else cfg.max_voxels_test)
+        if cfg.dynamic_voxelization:
+            return dynamic_voxelize(points, pts_mask, **kw)
+        return hard_voxelize(points, pts_mask,
+                             max_points=cfg.max_points_per_voxel, **kw)
 
     def forward(self, points, pts_mask, random_points=None,
                 return_intermediates: bool = False):

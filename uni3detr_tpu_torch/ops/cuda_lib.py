@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-All sources under ``uni3detr_tpu_torch/csrc/`` compile with ``nvcc`` into
-one shared library with a plain C interface, loaded with ``ctypes``. The
+Every source under ``uni3detr_tpu_torch/csrc/`` compiles with its own
+``nvcc`` process, all started together, and the objects link into one
+shared library with a plain C interface, loaded with ``ctypes``. The
 library lands in ``build/uni3detr_tpu_torch/`` at the repository root,
 named after a hash of the sources, so an edit rebuilds and an unchanged
 tree reuses the library. Nothing builds at import: the first kernel
@@ -22,8 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "uni3detr_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-lineinfo", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+              "-O3", "-lineinfo", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,6 +43,9 @@ _SIGNATURES = {
     "u3d_fps_limits": [_P],
     "u3d_auction_lap": [_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _I,
                         _P, _P],
+    "u3d_iou3d_rotated": [_P, _P, _I, _I, _I, _P],
+    "u3d_iou3d_rotated_mask": [_P, _P, _P, _I, _I, ctypes.c_float, _I, _P],
+    "u3d_nms_greedy": [_P, _P, _P, _P, _I, _I, _P],
 }
 _ERROR_STRING = "u3d_error_string"
 KERNEL_PREFIX = "u3d_"
@@ -64,6 +67,43 @@ def _nvcc() -> str:
     return found
 
 
+def _build(srcs, so: Path) -> None:
+    """Compile each ``.cu`` source to an object in its own ``nvcc``
+    process (all at once), link them into ``so``; the compiler's output
+    goes to ``build.log``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"tmp{os.getpid()}"
+    nvcc = _nvcc()
+    jobs = []
+    for p in srcs:
+        if p.suffix != ".cu":
+            continue
+        obj = BUILD_DIR / f"{p.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(p)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        out, err = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out + err)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} ({proc.returncode}):\n{err}")
+    tmp = so.with_suffix(f".{tag}")
+    if not failed:
+        cmd = [nvcc, "-shared", *NVCC_FLAGS[:2], "-o", str(tmp),
+               *[str(obj) for _, obj, _ in jobs]]
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + r.stdout + r.stderr)
+        if r.returncode != 0:
+            failed.append(f"link ({r.returncode}):\n{r.stderr}")
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    (BUILD_DIR / "build.log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    os.replace(tmp, so)
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The kernel library, built on first use."""
@@ -75,16 +115,7 @@ def library() -> ctypes.CDLL:
     digest.update(" ".join(NVCC_FLAGS).encode())
     so = BUILD_DIR / f"libu3d_kernels_{digest.hexdigest()[:16]}.so"
     if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".tmp{os.getpid()}")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *[str(p) for p in srcs if p.suffix == ".cu"]]
-        r = subprocess.run(cmd, capture_output=True, text=True)
-        (BUILD_DIR / "build.log").write_text(
-            " ".join(cmd) + "\n" + r.stdout + r.stderr)
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
-        os.replace(tmp, so)
+        _build(srcs, so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

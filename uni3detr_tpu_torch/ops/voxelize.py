@@ -1,4 +1,4 @@
-"""Hard voxelization with the mean VFE (port of
+"""Hard and dynamic voxelization with the mean VFE (port of
 ``uni3detr_tpu/ops/voxelize.py``).
 
 One stable sort over linear voxel ids, then per-voxel sums from
@@ -126,6 +126,17 @@ def hard_voxelize(points: torch.Tensor, mask: torch.Tensor, *,
     coords = torch.where(vmask[..., None], coords,
                          torch.full_like(coords, -1)).to(torch.int32)
     return feats, coords, vmask
+
+
+def dynamic_voxelize(points: torch.Tensor, mask: torch.Tensor, *,
+                     pc_range: Sequence[float], voxel_size: Sequence[float],
+                     grid_size: Sequence[int], max_voxels: int):
+    """Dynamic voxelization with the mean VFE: :func:`hard_voxelize`
+    without a per-voxel point cap (``max_points=0``), every point of a
+    voxel in its mean (the JAX package's ``dynamic_voxelize``)."""
+    return hard_voxelize(points, mask, pc_range=pc_range,
+                         voxel_size=voxel_size, grid_size=grid_size,
+                         max_points=0, max_voxels=max_voxels)
 
 
 def scatter_to_dense(feats, coords, vmask, grid_size):

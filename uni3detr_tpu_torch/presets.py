@@ -6,6 +6,8 @@ of the same name.
 """
 from __future__ import annotations
 
+import dataclasses
+
 from .config import Uni3DETRConfig
 
 # uni3detr_sunrgbd.py:10-12,26-140,230-242
@@ -41,6 +43,28 @@ NUSCENES = Uni3DETRConfig(
     compute_dtype="bfloat16",
 )
 
+# uni3detr_scannet.py:9-12,60-113
+SCANNET = dataclasses.replace(
+    SUNRGBD,
+    num_classes=18,
+    pc_range=(-6.4, -6.4, -0.1, 6.4, 6.4, 2.46),
+    grid_size=(128, 640, 640),
+    max_num=5000,
+    post_center_range=(-6.4, -6.4, -0.1, 6.4, 6.4, 2.46),
+    encoder_budget_shrink=(0.85, 0.4, 0.16),
+)
+
+# uni3detr_scannet_large.py diff: dynamic voxelization, base 32 / out 512
+SCANNET_LARGE = dataclasses.replace(
+    SCANNET,
+    dynamic_voxelization=True,
+    max_voxels=60000, max_voxels_test=120000,  # static budget for dynamic
+    encoder_base_channels=32, encoder_out_channels=512,
+    encoder_channels=((32, 32, 64), (64, 64, 128), (128, 128, 256),
+                      (256, 256)),
+    in_point_features=4,
+)
+
 # tiny model for tests (not a reference config)
 TINY_SYNTHETIC = Uni3DETRConfig(
     num_classes=3, code_size=8,
@@ -61,5 +85,7 @@ TINY_SYNTHETIC = Uni3DETRConfig(
 PRESETS = {
     "uni3detr_sunrgbd": SUNRGBD,
     "uni3detr_nuscenes": NUSCENES,
+    "uni3detr_scannet": SCANNET,
+    "uni3detr_scannet_large": SCANNET_LARGE,
     "uni3detr_tiny_synthetic": TINY_SYNTHETIC,
 }

@@ -5,8 +5,9 @@ Decode averages decoder layers 1..L-1, takes the ``max_num`` best flat
 class scores, denormalizes the boxes, masks them by
 ``post_center_range`` and blends ``score = cls^alpha * iou^(1-alpha)``.
 Post-processing shifts z to the bottom face, runs rotated 3D-IoU NMS
-per class and applies ``score_thr`` and ``num_thr``. Outputs stay
-fixed-size with validity masks.
+per class for all scenes at once (``ops.nms.nms_keep``: two kernel
+launches on the card) and applies ``score_thr`` and ``num_thr``. Outputs
+stay fixed-size with validity masks; nothing here waits on the device.
 """
 from __future__ import annotations
 
@@ -14,8 +15,7 @@ import torch
 
 from ..config import Uni3DETRConfig
 from ..geom.boxes import bottom_center_boxes, decode_boxes
-from ..geom.iou import iou3d_rotated
-from ..ops.nms import _greedy_suppress, _rank_order
+from ..ops.nms import _rank_order, nms_keep
 
 
 def decode_predictions(outs, cfg: Uni3DETRConfig):
@@ -35,10 +35,12 @@ def decode_predictions(outs, cfg: Uni3DETRConfig):
     boxes = decode_boxes(torch.gather(
         box, 1, bidx[..., None].expand(-1, -1, box.shape[-1])))
     ious = torch.gather(torch.sigmoid(iou), 1, bidx)
-    pcr = torch.tensor(cfg.post_center_range, dtype=boxes.dtype,
-                       device=boxes.device)
-    ok = ((boxes[..., :3] >= pcr[:3]).all(dim=-1)
-          & (boxes[..., :3] <= pcr[3:6]).all(dim=-1))
+    # compared with Python floats: a tensor of the range would be a
+    # host-to-device copy, which waits for the device
+    pcr = cfg.post_center_range
+    ok = torch.ones_like(top, dtype=torch.bool)
+    for a in range(3):
+        ok = ok & (boxes[..., a] >= pcr[a]) & (boxes[..., a] <= pcr[3 + a])
     final = top ** cfg.coder_alpha * ious ** (1 - cfg.coder_alpha)
     return boxes, final, labels, ok
 
@@ -56,19 +58,14 @@ def post_process(boxes, scores, labels, valid, cfg: Uni3DETRConfig):
     if cfg.post_processing != "nms":
         raise NotImplementedError("only post_processing='nms' is ported")
     boxes = bottom_center_boxes(boxes)
-    cls_ids = torch.arange(cfg.num_classes, device=labels.device)
-    out_valid = []
-    for bx, s, lab, v in zip(boxes, scores, labels, valid):
-        iou = iou3d_rotated(bx[:, :7], bx[:, :7], z_origin="bottom")
-        per_cls = v[None, :] & (lab[None, :] == cls_ids[:, None])
-        out_valid.append(
-            _greedy_suppress(iou, s, per_cls, cfg.nms_thr).any(dim=0))
-    valid = torch.stack(out_valid)
+    valid = nms_keep(boxes, scores, labels, valid, cfg.nms_thr,
+                     cfg.num_classes, z_origin="bottom")
     if cfg.score_thr is not None:
-        thr = torch.tensor(cfg.score_thr, dtype=scores.dtype,
-                           device=scores.device)
-        if thr.dim():
-            thr = thr[labels.long()]
+        thr = cfg.score_thr
+        if isinstance(thr, (tuple, list)):
+            # an asynchronous copy: a blocking one would wait for the device
+            thr = torch.tensor(thr, dtype=scores.dtype).to(
+                scores.device, non_blocking=True)[labels.long()]
         valid = valid & (scores > thr)
     if cfg.num_thr is not None:
         order = _rank_order(scores, valid)
