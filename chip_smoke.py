@@ -22,9 +22,14 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    kernel that the JAX package would run; K1's and ``torch.searchsorted``'s
    device times per scene (``torch.profiler``);
 4. flagship: ``uni3detr_sunrgbd`` as preset (bf16), seeded random
-   weights, points -> head -> decode -> per-class NMS on a few scenes:
-   valid boxes, ms/scene, peak memory, and the kernel launch counts of
-   that run, which must be K1 4, K2 17, K3 3 and K4 1 per scene;
+   weights, points -> head -> decode -> per-class NMS on a few scenes,
+   then ``eval.indoor_eval`` of the detections against the scenes'
+   synthetic GT (``synthetic.clustered_scene_gt``): valid boxes,
+   ms/scene, peak memory, and the kernel launch counts of that run,
+   which must be K1 4, K2 17, K3 3 and K4 1 per scene and N1's two-set
+   form once a scene in the metric; ``eval_phase`` then holds that
+   form's overlaps to the plain IoU and the metric to the one from the
+   plain overlaps;
 5. fp32: one scene through the port on the card (kernels) and on the
    CPU (plain versions), TF32 off: voxels and FPS indices must be equal,
    head outputs close;
@@ -77,12 +82,12 @@ K11 (single-set FPS), a public op that no model path calls, is driven
 once more on its own, as its callers call it, for its launch count.
 
 Every inference phase (4, 10, 15, 20) also runs the per-class NMS of
-its scenes on the card, N1 (``u3d_iou3d_rotated``, writing the overlap
-bitmask) and N2 (``u3d_nms_greedy``) once a scene each, asserted, with
-decoding and post-processing under
-``torch.cuda.set_sync_debug_mode("error")``, and
-``nms_phase`` then holds N1 to the plain IoU and N2's keep set to the
-serial greedy pass on N1's own matrix, on every scene of every preset.
+its scenes on the card, N1 (``u3d_iou3d_rotated_mask``, writing the
+overlap bitmask) and N2 (``u3d_nms_greedy``) once a scene each, asserted,
+with decoding and post-processing under
+``torch.cuda.set_sync_debug_mode("error")``, and ``nms_phase`` then
+holds N1 to the plain IoU and N2's keep set to the serial greedy pass on
+N1's own matrix, on every scene of every preset.
 Then ``uni3detr_scannet`` (18 classes, a 128x640x640 grid,
 ``max_num`` 5000) and ``uni3detr_scannet_large`` (dynamic voxelization,
 V=120000 eval / 60000 train, sparse widths 32..256, ``conv_out`` to
@@ -99,15 +104,43 @@ V=120000 eval / 60000 train, sparse widths 32..256, ``conv_out`` to
 18/23. train at B=4, two warm-up and eight timed steps, checked as
     phase 7.
 
+Then ``uni3detr_kitti_car`` (9 decoder layers, 18000 points on a
+41x1600x1408 grid, one-to-many matching with 5 copies of each GT and
+eps = spread / 8**3, box merging, budget caps) on clustered and on
+uniform scenes (near-isolated voxels: every strided site set reaches its
+cap), and ``uni3detr_kitti_3classes`` (per-class score thresholds, class
+0's at 0.0, so the shipped path merges) on uniform scenes:
+
+24/28/34. kernels at the eval shapes (K1-K4, K11), as phase 3 (car);
+25/29/35. inference, bf16, B=1, a warm-up and four timed scenes ending
+    with the merged boxes on the host (``eval.postprocess``: N1's matrix
+    form once a scene), then ``eval.kitti_eval`` against the scenes'
+    synthetic GT (N1's 3D and BEV two-set forms once a scene each):
+    launch counts K1 4, K2 17, K3 3, K4 1, N1 (NMS bitmask) and N2 0;
+26/30/36. box merging on every decoded box in range (``merge_phase``:
+    the card's merge equal to the CPU's) and the metric's overlaps
+    (``eval_phase``), as in phase 4, with times and bounds;
+27/31. fp32 card vs CPU on one scene, as phase 11 (car), the first
+    decoder layer held, the share of all layers' outputs within the
+    tolerance printed beside its floor (see ``fp32_phase``);
+32. train kernels (K4, K7, K10, K12 on the step's own costs: 108
+    instances of 256 x 384), as phase 6, on a uniform B=4 batch;
+33. train at B=4, two warm-up and ten timed steps under KITTI's step
+    schedule (its 40 epochs spread over the run, so that both
+    milestones fall inside it), checked as phase 7, then a checkpoint
+    round trip as phase 13.
+
 Then one JSON line of the kernels (launches summed over every path's
-run: the inference and train runs of all four presets and K11's own
+run: the inference and train runs of all six presets and K11's own
 call, each read right after its run; times, errors, ``bound_ms`` with
 ``bound_by``, ``library_ms`` (null where no single PyTorch call
 computes the kernel's function) and, for the convs, ``gemm_ms``, at the
 nuScenes shapes for K1-K12, summed per scene for K1-K4, per train step
 for K7/K10/K12, per call for K11; N1 and N2 at ``uni3detr_scannet``'s
 5000 boxes, per scene, N1's bitmask launch with its matrix launch's
-``matrix_ms`` and ``matrix_bound_ms`` beside it), the card line, and the
+``matrix_ms`` and ``matrix_bound_ms`` beside it; N1's matrix form at the
+KITTI merge's 150 boxes and its two-set forms at the largest KITTI eval
+scene, per call), the card line, and the
 result line ``{"ok": true, "device": {...}}``. The smoke's wall time is
 printed before them. There is no CPU fallback: without a CUDA device the
 script fails before any phase.
@@ -148,6 +181,17 @@ CKPT_LOSS_RTOL = 1e-3
 NMS_IOU_ATOL = 1e-4
 SCANNET_SCENES = 4    # the first is the warm-up
 SCANNET_WARMUP, SCANNET_STEPS = 2, 8
+KITTI_SCENES = 5      # the first is the warm-up
+KITTI_NAMES = ("Car", "Pedestrian", "Cyclist")
+KITTI_WARMUP, KITTI_STEPS = 2, 10
+# uni3detr_kitti_car.py optimizer / lr_config: AdamW, the mmcv step policy
+# with milestones at epochs 32 and 38 of 40 (the smoke's steps stand for
+# the 40 epochs, so both milestones fall inside the run)
+KITTI_LR, KITTI_MILESTONES, KITTI_EPOCHS = 2e-5 * 3 / 8 * 18 / 2, (32, 38), 40
+# box merging card vs CPU: the same medians of the same fp32 boxes
+MERGE_BOX_ATOL = 1e-6
+# the metrics' N1 overlaps vs the plain IoU: fp32 rounding, as NMS_IOU_ATOL
+EVAL_IOU_ATOL = 1e-4
 CKPT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "build", "chip_smoke_checkpoint")
 
@@ -558,9 +602,11 @@ def kernel_phase(torch, model, pts, dev, tag):
 def kernel_wrappers():
     """Every model-path kernel's wrapper by the name the JSON line
     reports: K1-K4 and N1/N2 run in inference, K1-K4 and K7/K10/K12 in
-    training. N1 on the main path is ``ops.nms.overlap_mask`` (the IoU
-    kernel writing NMS's bitmask); ``geom.iou.iou3d_rotated_pairwise``
-    launches the same kernel writing the matrix, for the checks."""
+    training. N1 on the NMS path is ``ops.nms.overlap_mask`` (the IoU
+    kernel writing NMS's bitmask); on the box-merging path its matrix
+    form ``geom.iou.iou3d_rotated_pairwise``, and in the metrics its
+    two-set 3D and BEV forms."""
+    from uni3detr_tpu_torch.geom import iou
     from uni3detr_tpu_torch.ops import (fps, matching, nms,
                                         sparse_conv_cuda as sc)
     return {"match_positions": sc.match_positions,
@@ -569,25 +615,43 @@ def kernel_wrappers():
             "fps_pair": fps.farthest_point_sample_pair,
             "iou3d_rotated": nms.overlap_mask,
             "nms_greedy": nms.greedy_scan,
+            "iou3d_rotated_matrix": iou.iou3d_rotated_pairwise,
+            "iou3d_rotated_sets": iou.iou3d_rotated_sets,
+            "iou_bev_rotated_sets": iou.iou_bev_rotated_sets,
             "gather_conv_dw": sc.gather_conv_dw,
             "gather_conv_ids_dw": sc.gather_conv_ids_dw,
             "auction_lap": matching.auction_lap}
 
 
-def infer_phase(torch, model, scenes, dev, tag):
+def infer_phase(torch, model, scenes, dev, tag, gts=None):
     """Scenes to boxes (bf16, B=1): ms/scene (host and CUDA events) and
     peak memory; each kernel's launches over the run asserted (N1 and N2
-    once a scene), and decoding and post-processing run under
+    once a scene, or for box merging N1's matrix form once a scene), and
+    decoding and post-processing run under
     ``torch.cuda.set_sync_debug_mode("error")``: any host
-    synchronisation inside them raises. Returns the launches."""
+    synchronisation inside them raises. A box-merging preset's time ends
+    with its merged boxes on the host (``eval.postprocess``). With
+    ``gts`` (a GT dict a scene) the run ends with the preset's metric on
+    its detections (``kitti_eval`` for box merging, else
+    ``indoor_eval``), its N1 two-set launches counted with the rest.
+    Returns (launches, detections: a dict of numpy arrays a scene, the
+    metric or None)."""
+    import numpy as np
+    from uni3detr_tpu_torch.eval import indoor_eval, kitti_eval
+    from uni3detr_tpu_torch.eval.postprocess import (postprocess_batch,
+                                                     split_batch)
     from uni3detr_tpu_torch.train.coder import decode_predictions, post_process
 
     cfg = model.cfg
+    merging = cfg.post_processing == "box_merging"
     subm, strided = conv_cases(cfg)
     per_scene = {"match_positions": len(cfg.encoder_channels),
                  "gather_conv": sum(c[-1] for c in subm),
                  "gather_conv_ids": len(strided), "fps_pair": 1,
-                 "iou3d_rotated": 1, "nms_greedy": 1}
+                 "iou3d_rotated": int(not merging),
+                 "nms_greedy": int(not merging),
+                 "iou3d_rotated_matrix": int(merging),
+                 "iou3d_rotated_sets": 0, "iou_bev_rotated_sets": 0}
     wrappers = {k: v for k, v in kernel_wrappers().items()
                 if k in per_scene}
     data = [(torch.from_numpy(p).to(dev), torch.from_numpy(r).to(dev))
@@ -595,7 +659,7 @@ def infer_phase(torch, model, scenes, dev, tag):
     mask = torch.ones(data[0][0].shape[:2], dtype=torch.bool, device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    times, stream = [], []
+    times, stream, dets = [], [], []
     for fn in wrappers.values():
         fn.launches = 0
     for i, (pts, rnd) in enumerate(data):
@@ -606,14 +670,22 @@ def infer_phase(torch, model, scenes, dev, tag):
         outs = model(pts, mask, rnd)
         torch.cuda.set_sync_debug_mode("error")
         try:
-            boxes, scores, labels, valid = post_process(
-                *decode_predictions(outs, cfg), cfg)
+            dec = decode_predictions(outs, cfg)
+            boxes, scores, labels, valid = post_process(*dec, cfg)
         finally:
             torch.cuda.set_sync_debug_mode("default")
-        e1.record()
-        n_valid = int(valid.sum())           # synchronizes
+        if merging:
+            dets.append(postprocess_batch(boxes, scores, labels, valid,
+                                          cfg)[0])
+            e1.record()
+            n_valid = len(dets[-1]["scores"])
+        else:
+            e1.record()
+            n_valid = int(valid.sum())           # synchronizes
         times.append((time.perf_counter() - t0) * 1e3)
         stream.append(e0.elapsed_time(e1))
+        if not merging and gts is not None:
+            dets.append(split_batch(boxes, scores, labels, valid)[0])
         L, nq = cfg.num_decoder_layers, 4 * cfg.num_query
         shapes = {"all_cls_scores": (L, 1, nq, cfg.num_classes),
                   "all_bbox_preds": (L, 1, nq, cfg.code_size),
@@ -623,16 +695,44 @@ def infer_phase(torch, model, scenes, dev, tag):
                     torch.isfinite(outs[k]).all()):
                 fail(f"scene {i}: {k} has shape {tuple(outs[k].shape)} "
                      f"(want {shp}) or non-finite values")
-        if not (n_valid > 0 and bool(torch.isfinite(boxes[valid]).all())):
+        extra = ""
+        if merging:
+            # random weights rarely pass score_thr: the decoded boxes
+            # (in post_center_range) must exist, the merged ones be finite
+            n_dec, n_thr = int(dec[3].sum()), int(valid.sum())
+            if not (n_dec > 0 and n_valid <= n_thr and np.isfinite(
+                    dets[-1]["boxes"]).all()):
+                fail(f"scene {i}: {n_dec} decoded boxes, {n_thr} above "
+                     f"score_thr, {n_valid} merged, or non-finite boxes")
+            extra = (f" (decoded in range {n_dec}, above score_thr "
+                     f"{n_thr}, after merging {n_valid})")
+        elif not (n_valid > 0 and bool(torch.isfinite(boxes[valid]).all())):
             fail(f"scene {i}: {n_valid} valid boxes, or non-finite boxes")
         if cfg.num_thr is not None and n_valid > cfg.num_thr:
             fail(f"scene {i}: {n_valid} valid boxes > num_thr {cfg.num_thr}")
         print(f"[{tag}] scene {i}: valid boxes={n_valid} "
-              f"(of {valid.shape[1]}) ms={times[-1]:.3f} stream_ms="
+              f"(of {valid.shape[1]}){extra} ms={times[-1]:.3f} stream_ms="
               f"{stream[-1]:.3f}{' (warm-up)' if i == 0 else ''}")
+    want = {k: v * len(data) for k, v in per_scene.items()}
+    metric = None
+    if gts is not None:
+        t0 = time.perf_counter()
+        if merging:
+            metric = kitti_eval.kitti_eval(
+                gts, dets, KITTI_NAMES[:cfg.num_classes], device=dev)
+        else:
+            metric = indoor_eval.indoor_eval(
+                gts, dets, [f"class{c}" for c in range(cfg.num_classes)],
+                device=dev)
+        n_eval = sum(bool(len(g["boxes"]) and len(d["boxes"]))
+                     for g, d in zip(gts, dets))
+        want["iou3d_rotated_sets"] = n_eval
+        want["iou_bev_rotated_sets"] = n_eval if merging else 0
+        print(f"[{tag}] {'kitti' if merging else 'indoor'}_eval of the "
+              f"{len(dets)} scenes against their synthetic GT "
+              f"({time.perf_counter() - t0:.3f}s): {_metric_summary(metric)}")
     launches = {k: fn.launches for k, fn in wrappers.items()}
     peak = torch.cuda.max_memory_allocated(dev)
-    want = {k: v * len(data) for k, v in per_scene.items()}
     print(f"[{tag}] ms/scene median of {len(times) - 1} after warm-up="
           f"{statistics.median(times[1:]):.3f} stream_ms/scene="
           f"{statistics.median(stream[1:]):.3f} all="
@@ -640,7 +740,14 @@ def infer_phase(torch, model, scenes, dev, tag):
     print(f"[{tag}] launches={launches} expected={want}")
     if launches != want:
         fail(f"kernel launch counts {launches} != {want}")
-    return launches
+    return launches, dets, metric
+
+
+def _metric_summary(metric):
+    """The headline numbers of a metric dict: the moderate APs of KITTI,
+    the mAPs of indoor."""
+    keys = [k for k in metric if "moderate" in k or k.startswith("mAP")]
+    return {k: round(metric[k], 4) for k in keys}
 
 
 def _ms_or_none(ms):
@@ -788,7 +895,172 @@ def nms_phase(torch, model, scenes, dev, tag, report):
     torch.cuda.empty_cache()
 
 
-def fp32_phase(torch, base_cfg, sd, scene, dev, tag, every_layer=True):
+def merge_phase(torch, model, scenes, dev, tag, report=None):
+    """Box merging on real input: random weights with ``coder_alpha`` 0.2
+    rarely pass ``score_thr``, so the shipped path may merge nothing. Here
+    every decoded box in ``post_center_range`` (all ``max_num`` rows that
+    pass it) enters ``merge_boxes_3d``, with N1's matrix (one launch, the
+    boxes of ``eval.postprocess.split_batch``) and with the plain IoU on
+    the CPU copy: the same kept indices and labels, boxes within
+    MERGE_BOX_ATOL, N1's matrix within EVAL_IOU_ATOL of the plain one.
+    Fails if no box entered. On the first scene: N1's
+    matrix time (event and device), the plain IoU's, the host's merge loop
+    and the bound from this scene's pairs; added to ``report``."""
+    import numpy as np
+    from uni3detr_tpu_torch.eval.box_merging import merge_boxes_3d
+    from uni3detr_tpu_torch.eval.postprocess import split_batch
+    from uni3detr_tpu_torch.geom.iou import (iou3d_rotated,
+                                             iou3d_rotated_pairwise)
+    from uni3detr_tpu_torch.train.coder import decode_predictions, post_process
+
+    cfg = model.cfg
+    raw = dataclasses.replace(cfg, score_thr=None)
+    iou_err = 0.0
+    for i, (p, r) in enumerate(scenes):
+        pts = torch.from_numpy(p).to(dev)
+        mask = torch.ones(pts.shape[:2], dtype=torch.bool, device=dev)
+        out = post_process(*decode_predictions(
+            model(pts, mask, torch.from_numpy(r).to(dev)), cfg), raw)
+        d = split_batch(*out, with_iou=True)[0]
+        c = split_batch(*(t.cpu() for t in out))[0]
+        args = (d["labels"], d["boxes"], d["scores"])
+        got = merge_boxes_3d(*args, iou=d["iou"])
+        want = merge_boxes_3d(c["labels"], c["boxes"], c["scores"],
+                              device="cpu")
+        n_in, n_out = len(d["scores"]), len(got[2])
+        err = float(np.abs(got[1] - want[1]).max()) if n_out else 0.0
+        cb = torch.from_numpy(c["boxes"][:, :7].copy())
+        ref = iou3d_rotated(cb, cb, "bottom").numpy()
+        iou_err = max(iou_err, float(np.abs(d["iou"] - ref).max())
+                      if n_in else 0.0)
+        same = (np.array_equal(got[3], want[3])
+                and np.array_equal(got[0], want[0]))
+        print(f"[{tag}] merge scene {i}: {n_in} boxes entered, {n_out} "
+              f"survived; card (N1) vs CPU (plain IoU): kept indices and "
+              f"labels equal: {same}, boxes max_abs_err={err:.3g} (atol "
+              f"{MERGE_BOX_ATOL}), IoU max_abs_err so far={iou_err:.3g} "
+              f"(atol {EVAL_IOU_ATOL})")
+        if n_in == 0:
+            fail("box merging: no decoded box entered")
+        if not same or err > MERGE_BOX_ATOL or iou_err > EVAL_IOU_ATOL:
+            fail("box merging: the card's result differs from the CPU's")
+        if i or report is None:
+            continue
+        bx = out[0][..., :7].contiguous()
+        K = bx.shape[1]
+        lo, hi = bx[0, :, 2], bx[0, :, 2] + bx[0, :, 5]
+        zpos = int(((torch.minimum(hi[:, None], hi[None, :])
+                     - torch.maximum(lo[:, None], lo[None, :])) > 0).sum())
+        bound = iou_roofline(zpos, K * K, 28 * K + 4 * K * K)
+        ms = median_ms(torch, lambda: iou3d_rotated_pairwise(bx), 20)
+        dev_ms = device_ms_by_name(torch, lambda: iou3d_rotated_pairwise(bx),
+                                   "u3d_iou3d_rotated_kernel<false>",
+                                   10)[0] or None
+        pms = median_ms(torch, lambda: iou3d_rotated(bx, bx, "bottom"), 10)
+        t0 = time.perf_counter()
+        merge_boxes_3d(*args, iou=d["iou"])
+        host_ms = (time.perf_counter() - t0) * 1e3
+        print(f"[{tag}] N1 matrix (merge) K={K}: ms={ms:.4f} device_ms="
+              f"{_ms_or_none(dev_ms)} plain_ms={pms:.4f} bound_ms="
+              f"{bound['bound_ms']:.6f} ({bound['bound_by']}; {K * K} "
+              f"pairs, {zpos} with z overlap); the host's merge loop over "
+              f"{n_in} boxes ms={host_ms:.3f}")
+        _report_add(report, "iou3d_rotated_matrix", 0.0, ms, pms, 1, bound)
+        report["iou3d_rotated_matrix"]["device_ms"] = dev_ms
+    if report is not None:
+        r = report["iou3d_rotated_matrix"]
+        r["max_abs_err"] = max(r["max_abs_err"], iou_err)
+
+
+def eval_phase(torch, cfg, dets, gts, dev, tag, metric, report=None):
+    """The metric's overlaps: N1's two-set forms (3D, and BEV for KITTI)
+    on each scene's detections x GT, and on its detections x themselves
+    in reverse order (random weights put few detections on a GT), against
+    the plain two-set IoU on the CPU, within EVAL_IOU_ATOL; ``metric``
+    (from the card's overlaps, in ``infer_phase``) equal to the metric
+    from the plain overlaps. On the
+    scene with the most pairs: kernel (event and device) and plain times
+    and the bounds from its pairs; added to ``report``."""
+    import numpy as np
+    from uni3detr_tpu_torch.eval import indoor_eval, kitti_eval
+    from uni3detr_tpu_torch.geom import iou as tiou
+
+    kitti = cfg.post_processing == "box_merging"
+    forms = {"iou3d_rotated_sets": (
+        lambda a, b: tiou.iou3d_rotated_sets(a, b, "bottom"),
+        lambda a, b: tiou.iou3d_rotated(a, b, "bottom"),
+        "u3d_iou3d_rotated_kernel<false>")}
+    if kitti:
+        forms["iou_bev_rotated_sets"] = (tiou.iou_bev_rotated_sets,
+                                         tiou.iou_bev_rotated,
+                                         "u3d_iou3d_rotated_kernel<true>")
+    errs = {name: 0.0 for name in forms}
+    hits = {name: 0 for name in forms}
+    sets = []
+    for d, g in zip(dets, gts):
+        if not (len(d["boxes"]) and len(g["boxes"])):
+            continue
+        a = torch.from_numpy(d["boxes"][:, :7].copy())[None]
+        b = torch.from_numpy(g["boxes"][:, :7].copy())[None]
+        sets.append((a, b))
+        # detections x GT (at random weights mostly apart), and the
+        # detections x themselves, which overlap
+        for x, y in ((a, b), (a, a.flip(1))):
+            for name, (kern, plain, _) in forms.items():
+                ref = plain(x, y)
+                e = (kern(x.to(dev), y.to(dev)).cpu() - ref).abs().max()
+                errs[name] = max(errs[name], e.item())
+                hits[name] += int((ref > 0).sum())
+    if kitti:
+        want = kitti_eval.kitti_eval(gts, dets, KITTI_NAMES[:cfg.num_classes],
+                                     device="cpu")
+    else:
+        want = indoor_eval.indoor_eval(
+            gts, dets, [f"class{c}" for c in range(cfg.num_classes)],
+            device="cpu")
+
+    def same(x, y):
+        if isinstance(x, dict):
+            return sorted(x) == sorted(y) and all(same(x[k], y[k])
+                                                  for k in x)
+        return x == y or (np.isnan(x) and np.isnan(y))
+
+    equal = same(metric, want)
+    shown = ", ".join(f"{k} {v:.3g} ({hits[k]} pairs overlap)"
+                      for k, v in errs.items())
+    print(f"[{tag}] eval: N1 two-set forms vs the plain IoU on {len(sets)} "
+          f"scenes (detections x GT and x the detections reversed), "
+          f"max_abs_err: {shown} (atol {EVAL_IOU_ATOL}); the metric from "
+          f"the card's overlaps equals the plain overlaps': {equal}")
+    if max(errs.values(), default=0.0) > EVAL_IOU_ATOL or not equal:
+        fail(f"eval: N1 overlaps differ from the plain IoU by {errs} or "
+             f"the metric differs")
+    if report is None or not sets:
+        return
+    a, b = (t.to(dev) for t in max(sets, key=lambda s: s[0].shape[1]
+                                   * s[1].shape[1]))
+    M, N = a.shape[1], b.shape[1]
+    zo = (torch.minimum(a[0, :, None, 2] + a[0, :, None, 5],
+                        b[0, None, :, 2] + b[0, None, :, 5])
+          - torch.maximum(a[0, :, None, 2], b[0, None, :, 2])) > 0
+    nbytes = 28 * (M + N) + 4 * M * N
+    for name, (kern, plain, kname) in forms.items():
+        clipped = int(zo.sum()) if name == "iou3d_rotated_sets" else M * N
+        bound = iou_roofline(clipped, M * N, nbytes)
+        ms = median_ms(torch, lambda: kern(a, b), 20)
+        dev_ms = device_ms_by_name(torch, lambda: kern(a, b), kname,
+                                   10)[0] or None
+        pms = median_ms(torch, lambda: plain(a, b), 10)
+        print(f"[{tag}] N1 {name} {M}x{N}: ms={ms:.4f} device_ms="
+              f"{_ms_or_none(dev_ms)} plain_ms={pms:.4f} bound_ms="
+              f"{bound['bound_ms']:.6f} ({bound['bound_by']}; {clipped} "
+              f"pairs clipped) x1/scene")
+        _report_add(report, name, errs[name], ms, pms, 1, bound)
+        report[name]["device_ms"] = dev_ms
+
+
+def fp32_phase(torch, base_cfg, sd, scene, dev, tag, every_layer=True,
+               min_share=FP32_SHARE):
     """Card (kernels) vs CPU (plain versions), fp32, TF32 off.
 
     Tolerance FP32_ATOL: the two runs sum in different orders through
@@ -801,9 +1073,11 @@ def fp32_phase(torch, base_cfg, sd, scene, dev, tag, every_layer=True):
     random-weight features jump by ~100 between cells, so a 1e-6
     relative change of the volume moves the last layer's boxes by
     centimetres. There the first decoder layer is held to FP32_ATOL, all
-    layers with at least FP32_SHARE of their entries within it, and a
+    layers with at least ``min_share`` of their entries within it, and a
     third run, on the card with the fused volume times (1 + 1e-6 N(0,
-    1)), prints that floor.
+    1)), prints that floor. ``min_share=None`` (KITTI's 9 layers) holds
+    the first layer alone: there the floor itself leaves ~7% of the
+    outputs of all layers outside FP32_ATOL.
     """
     from uni3detr_tpu_torch.models.detector import Uni3DETR
 
@@ -861,7 +1135,8 @@ def fp32_phase(torch, base_cfg, sd, scene, dev, tag, every_layer=True):
     print(f"[{tag}] floor: card vs card with the volume perturbed by 1e-6 "
           f"relative, max_abs_err per decoder layer={per_layer(og, op)}; "
           f"share within atol {share(og, op):.6f}")
-    if max(v[0] for v in errs.values()) > FP32_ATOL or within < FP32_SHARE:
+    if max(v[0] for v in errs.values()) > FP32_ATOL or (
+            min_share is not None and within < min_share):
         fail(f"fp32: first-layer head outputs differ by {errs} or only "
              f"{within} of the outputs within {FP32_ATOL}")
 
@@ -876,7 +1151,8 @@ def train_per_step(cfg):
     return {"match_positions": len(cfg.encoder_channels),
             "gather_conv": 2 * n_subm - 1,
             "gather_conv_ids": 2 * len(strided), "fps_pair": 1,
-            "iou3d_rotated": 0, "nms_greedy": 0,
+            "iou3d_rotated": 0, "nms_greedy": 0, "iou3d_rotated_matrix": 0,
+            "iou3d_rotated_sets": 0, "iou_bev_rotated_sets": 0,
             "gather_conv_dw": n_subm, "gather_conv_ids_dw": len(strided),
             "auction_lap": 1}
 
@@ -1273,6 +1549,7 @@ def flagship(torch, dev):
     from uni3detr_tpu_torch.models.detector import Uni3DETR
     from uni3detr_tpu_torch.presets import SUNRGBD
     from uni3detr_tpu_torch.synthetic import (clustered_scene,
+                                              clustered_scene_gt,
                                               clustered_train_batch)
 
     cfg = SUNRGBD
@@ -1281,10 +1558,14 @@ def flagship(torch, dev):
     model.load_state_dict(sd, strict=True)
     model.to(dev)
     scenes = [clustered_scene(seed, cfg) for seed in range(N_SCENES)]
+    gts = [clustered_scene_gt(seed, cfg) for seed in range(N_SCENES)]
     with torch.inference_mode():
         kernel_phase(torch, model, torch.from_numpy(scenes[0][0]).to(dev),
                      dev, "kernels")
-        launches = [infer_phase(torch, model, scenes, dev, "flagship")]
+        run, dets, metric = infer_phase(torch, model, scenes, dev,
+                                        "flagship", gts=gts)
+        launches = [run]
+        eval_phase(torch, cfg, dets, gts, dev, "flagship", metric)
         nms_phase(torch, model, scenes, dev, "flagship", {})
         fp32_phase(torch, cfg, sd, scenes[0], dev, "fp32")
     torch.backends.cudnn.allow_tf32 = True     # the defaults again
@@ -1322,7 +1603,7 @@ def nuscenes(torch, dev):
     with torch.inference_mode():
         report = kernel_phase(torch, model, torch.from_numpy(
             scenes[0][0]).to(dev), dev, "nuscenes-kernels")
-        launches = [infer_phase(torch, model, scenes, dev, "nuscenes")]
+        launches = [infer_phase(torch, model, scenes, dev, "nuscenes")[0]]
         nms_phase(torch, model, scenes, dev, "nuscenes", {})
         torch.cuda.empty_cache()
         fp32_phase(torch, cfg, sd, scenes[0], dev, "nuscenes-fp32",
@@ -1373,7 +1654,7 @@ def scannet(torch, dev, preset):
     with torch.inference_mode():
         report = kernel_phase(torch, model, torch.from_numpy(
             scenes[0][0]).to(dev), dev, f"{tag}-kernels")
-        launches = [infer_phase(torch, model, scenes, dev, tag)]
+        launches = [infer_phase(torch, model, scenes, dev, tag)[0]]
         nms_phase(torch, model, scenes, dev, tag, report)
     torch.cuda.empty_cache()
     batch = {k: torch.from_numpy(v).to(dev) for k, v in
@@ -1385,6 +1666,71 @@ def scannet(torch, dev, preset):
     torch.cuda.empty_cache()
     launches.append(train_phase(torch, cfg, sd, batch, dev, f"{tag}-train",
                                 SCANNET_WARMUP, SCANNET_STEPS, TRAIN_LR)[0])
+    torch.cuda.empty_cache()
+    return report, launches
+
+
+def kitti(torch, dev, preset):
+    """Phases 24-33 (``uni3detr_kitti_car``) or 34-36
+    (``uni3detr_kitti_3classes``); returns (kernel report, launches of
+    the inference and train runs)."""
+    from uni3detr_tpu_torch.models.detector import Uni3DETR
+    from uni3detr_tpu_torch.presets import PRESETS
+    from uni3detr_tpu_torch.synthetic import (clustered_scene,
+                                              clustered_scene_gt,
+                                              clustered_train_batch)
+    from uni3detr_tpu_torch.train.step import step_lr_schedule
+
+    cfg = PRESETS[preset]
+    tag = preset.replace("uni3detr_", "")
+    car = preset == "uni3detr_kitti_car"
+    model = Uni3DETR(cfg).eval()
+    sd = _state_dict(torch, model)
+    model.load_state_dict(sd, strict=True)
+    model.to(dev)
+    report, launches = {}, []
+    for dist in ("clustered", "uniform") if car else ("uniform",):
+        dtag = f"{tag}-{dist}"
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = False
+        scenes = [clustered_scene(seed, cfg, dist)
+                  for seed in range(KITTI_SCENES)]
+        gts = [clustered_scene_gt(seed, cfg, dist)
+               for seed in range(KITTI_SCENES)]
+        # the realistic shapes (near-isolated voxels) go to the JSON line
+        rep = report if dist == "uniform" else None
+        with torch.inference_mode():
+            if car:
+                kernel_phase(torch, model, torch.from_numpy(
+                    scenes[0][0]).to(dev), dev, f"{dtag}-kernels")
+            run, dets, metric = infer_phase(torch, model, scenes, dev, dtag,
+                                            gts=gts)
+            launches.append(run)
+            merge_phase(torch, model, scenes, dev, dtag, rep)
+            eval_phase(torch, cfg, dets, gts, dev, dtag, metric, rep)
+            torch.cuda.empty_cache()
+            if car:
+                fp32_phase(torch, cfg, sd, scenes[0], dev, f"{dtag}-fp32",
+                           every_layer=False, min_share=None)
+    torch.backends.cudnn.allow_tf32 = True
+    if car:
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in
+                 clustered_train_batch(0, cfg, TRAIN_B, "uniform").items()}
+        with torch.no_grad():
+            dw_phase(torch, model.train(), batch, dev, f"{tag}-train-kernels",
+                     False)
+        del model
+        torch.cuda.empty_cache()
+        total = KITTI_WARMUP + KITTI_STEPS
+        schedules = (step_lr_schedule(KITTI_LR, total / KITTI_EPOCHS,
+                                      KITTI_MILESTONES), None)
+        train_launches, model, opt = train_phase(
+            torch, cfg, sd, batch, dev, f"{tag}-train", KITTI_WARMUP,
+            KITTI_STEPS, *schedules)
+        launches.append(train_launches)
+        checkpoint_phase(torch, model, opt, batch, dev, schedules)
+        del opt
+    del model
     torch.cuda.empty_cache()
     return report, launches
 
@@ -1418,6 +1764,13 @@ def main():
         scan_reports.append(scan_report)
         runs += more
         t.append(time.perf_counter())
+    for preset in ("uni3detr_kitti_car", "uni3detr_kitti_3classes"):
+        kitti_report, more = kitti(torch, dev, preset)
+        runs += more
+        t.append(time.perf_counter())
+        if preset == "uni3detr_kitti_car":
+            # N1's matrix and two-set forms at KITTI's merge and eval shapes
+            report.update(kitti_report)
     # the NMS kernels' numbers at uni3detr_scannet's 5000 boxes
     for name in ("iou3d_rotated", "nms_greedy"):
         report[name] = scan_reports[0][name]
@@ -1425,10 +1778,11 @@ def main():
     for run in runs:
         for k, v in run.items():
             launches[k] = launches.get(k, 0) + v
-    print(f"[time] flagship phases {t[1] - t[0]:.1f}s, nuscenes "
-          f"{t[2] - t[1]:.1f}s, scannet {t[3] - t[2]:.1f}s, scannet_large "
-          f"{t[4] - t[3]:.1f}s; the whole smoke "
-          f"{time.perf_counter() - T_START:.1f}s")
+    names = ("flagship", "nuscenes", "scannet", "scannet_large", "kitti_car",
+             "kitti_3classes")
+    print("[time] " + ", ".join(f"{n} {t[i + 1] - t[i]:.1f}s"
+                                for i, n in enumerate(names))
+          + f"; the whole smoke {time.perf_counter() - T_START:.1f}s")
 
     sp = "uni3detr_tpu/ops/sparse_conv_pallas.py"
     meta = {
@@ -1443,6 +1797,9 @@ def main():
         "fps": ("fps.cu", "uni3detr_tpu/ops/fps.py:104"),
         "iou3d_rotated": ("nms.cu", "uni3detr_tpu/geom/iou.py:60"),
         "nms_greedy": ("nms.cu", "uni3detr_tpu/ops/nms.py:45"),
+        "iou3d_rotated_matrix": ("nms.cu", "uni3detr_tpu/geom/iou.py:120"),
+        "iou3d_rotated_sets": ("nms.cu", "uni3detr_tpu/geom/iou.py:120"),
+        "iou_bev_rotated_sets": ("nms.cu", "uni3detr_tpu/geom/iou.py:107"),
     }
     kernels = [dict(name=name, route="cuda",
                     source=f"uni3detr_tpu_torch/csrc/{src}", replaces=rep,

@@ -1,6 +1,9 @@
-"""Box sets for the NMS and rotated-IoU tests of the port (numpy only, so
-the card tests, which import no JAX, share them with the CPU tests)."""
+"""Box sets for the NMS, rotated-IoU and metric tests of the port (numpy
+only, so the card tests, which import no JAX, share them with the CPU
+tests)."""
 import numpy as np
+
+KITTI_CLASSES = ("Car", "Pedestrian", "Cyclist")
 
 
 def clustered_boxes(seed, n=512, ncls=18, thr=0.5):
@@ -64,3 +67,77 @@ def degenerate_pairs():
     pairs.append((base, tiny))
     return [(np.asarray(a, np.float32), np.asarray(b, np.float32))
             for a, b in pairs]
+
+
+def random_kitti_scenes(seed, n=5):
+    """Scenes with names (the three classes, Van, Person_sitting and
+    DontCare), 2D boxes, occlusion, truncation and alpha; detections are
+    jittered copies of most GT rows plus a few strays."""
+    rng = np.random.RandomState(seed)
+    names_all = np.array(list(KITTI_CLASSES)
+                         + ["Van", "Person_sitting", "DontCare"],
+                         dtype=object)
+    gts, dets = [], []
+    for _ in range(n):
+        G = rng.randint(2, 9)
+        names = names_all[rng.randint(0, len(names_all), G)]
+        size = np.array([3.9, 1.6, 1.5]) * rng.uniform(0.5, 1.2, (G, 3))
+        boxes = np.concatenate([rng.uniform([2, -15, -2], [50, 15, -1],
+                                            (G, 3)), size,
+                                rng.uniform(-np.pi, np.pi, (G, 1))], 1)
+        xy = rng.uniform(0, 900, (G, 2))
+        bbox = np.concatenate([xy, xy + rng.uniform(15, 90, (G, 2))], 1)
+        gts.append({
+            "boxes": boxes.astype(np.float32), "names": names,
+            "labels": np.array([KITTI_CLASSES.index(m)
+                                if m in KITTI_CLASSES else -1
+                                for m in names]),
+            "bbox": bbox.astype(np.float32),
+            "occluded": rng.randint(0, 3, G),
+            "truncated": (rng.rand(G) * 0.6).astype(np.float32),
+            "alpha": rng.uniform(-np.pi, np.pi, G).astype(np.float32)})
+        hit = (rng.rand(G) < 0.8) & (names != "DontCare")
+        k = int(hit.sum()) + rng.randint(1, 4)
+        db = np.concatenate([boxes[hit], rng.uniform(
+            [2, -15, -2, 1, 0.5, 1, -3], [50, 15, -1, 4, 2, 2, 3],
+            (k - hit.sum(), 7))])
+        db[:hit.sum(), :3] += rng.randn(hit.sum(), 3) * 0.15
+        db[:hit.sum(), 6] += rng.randn(hit.sum()) * 0.1
+        dl = np.concatenate([np.where(gts[-1]["labels"][hit] >= 0,
+                                      gts[-1]["labels"][hit],
+                                      rng.randint(0, 3, hit.sum())),
+                             rng.randint(0, 3, k - hit.sum())])
+        dbox = np.concatenate([bbox[hit], rng.uniform(0, 900, (k - hit.sum(),
+                                                               2)).repeat(
+            2, 1) + [0, 0, 40, 40]])
+        dets.append({
+            "boxes": db.astype(np.float32), "labels": dl,
+            "scores": rng.rand(k).astype(np.float32),
+            "bbox": (dbox + rng.randn(k, 4) * 3).astype(np.float32),
+            "alpha": np.concatenate([gts[-1]["alpha"][hit],
+                                     rng.uniform(-3, 3, k - hit.sum())]
+                                    ).astype(np.float32)})
+    return gts, dets
+
+
+def indoor_scenes(seed, ncls=10, n=6):
+    rng = np.random.RandomState(seed)
+    gts, dets = [], []
+    for _ in range(n):
+        G = rng.randint(0, 9)
+        gb = np.concatenate([rng.uniform([-3, 0, -1], [3, 6, 0], (G, 3)),
+                             rng.uniform(0.3, 1.5, (G, 3)),
+                             rng.uniform(-3, 3, (G, 1))], 1)
+        gl = rng.randint(0, ncls, G)
+        keep = rng.rand(G) < 0.7
+        D = int(keep.sum()) + rng.randint(0, 4)
+        db = np.concatenate([gb[keep], rng.uniform(
+            [-3, 0, -1, 0.3, 0.3, 0.3, -3], [3, 6, 0, 1.5, 1.5, 1.5, 3],
+            (D - keep.sum(), 7))])
+        db[:keep.sum(), :3] += rng.randn(keep.sum(), 3) * 0.1
+        gts.append({"boxes": gb.astype(np.float32), "labels": gl})
+        dets.append({"boxes": db.astype(np.float32),
+                     "labels": np.concatenate([gl[keep], rng.randint(
+                         0, ncls, D - keep.sum())]),
+                     "scores": rng.rand(D).astype(np.float32)})
+    return gts, dets

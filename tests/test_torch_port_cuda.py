@@ -914,3 +914,158 @@ def test_dynamic_voxelize_on_card_matches_cpu(dev):
                                                               ref[2])
     assert (got[0].cpu() - ref[0]).abs().max().item() <= 1e-5
     assert int(ref[2].sum()) > 1000
+
+
+# -- N1's two-set and BEV forms, box merging and the metrics (KITTI) --------
+
+def _two_sets(M, N, B=2, seed=0):
+    """(B, M, 7) and (B, N, 7) clustered boxes of three labels (the second
+    set shares a few boxes with the first)."""
+    from nms_cases import clustered_boxes
+
+    out = []
+    for n, s in ((M, seed), (N, seed + 1)):
+        sets = [clustered_boxes(s * 10 + b, n=max(n, 1), ncls=3)[0][:n]
+                for b in range(B)]
+        out.append(torch.from_numpy(np.stack(sets)))
+    k = min(M, N, 5)
+    out[1][:, :k] = out[0][:, :k]
+    return out
+
+
+def _set_form(form):
+    """The N1 two-set wrapper of ``form`` and a call of it."""
+    from uni3detr_tpu_torch.geom import iou as tiou
+
+    if form == "bev":
+        return tiou.iou_bev_rotated_sets, tiou.iou_bev_rotated_sets
+    z = form.split("-")[1]
+    return tiou.iou3d_rotated_sets, \
+        lambda a, b: tiou.iou3d_rotated_sets(a, b, z)
+
+
+@pytest.mark.parametrize("form", ["3d-bottom", "3d-center", "bev"])
+@pytest.mark.parametrize("M,N", [(0, 5), (5, 0), (1, 1), (1, 70), (70, 1),
+                                 (150, 50), (300, 37)])
+def test_iou_two_set_kernels(dev, form, M, N):
+    """N1's two-set forms against their plain versions (CPU) within
+    IOU_ATOL; one launch, none for an empty set."""
+    wrapper, fn = _set_form(form)
+    a, b = _two_sets(M, N, seed=M + N)
+    before = wrapper.launches
+    got = fn(a.to(dev), b.to(dev))
+    torch.cuda.synchronize()
+    ref = fn(a, b)
+    assert got.shape == ref.shape == (2, M, N)
+    assert wrapper.launches == before + (1 if M * N else 0)
+    if M * N:
+        assert (got.cpu() - ref).abs().max().item() <= IOU_ATOL
+    if M * N >= 1000:
+        assert (ref > 0.1).sum() >= 5
+
+
+@pytest.mark.parametrize("form", ["3d-bottom", "3d-center", "bev"])
+def test_iou_two_set_kernels_degenerate(dev, form):
+    """Every box of the degenerate pairs against every other: identical,
+    touching, nested, rotated by 45/90/180 degrees, zero height, tiny."""
+    from nms_cases import degenerate_pairs
+
+    _, fn = _set_form(form)
+    pairs = degenerate_pairs()
+    a = torch.from_numpy(np.stack([p[0] for p in pairs]))[None]
+    b = torch.from_numpy(np.stack([p[1] for p in pairs[:-2]]))[None]
+    got = fn(a.to(dev), b.to(dev)).cpu()
+    assert (got - fn(a, b)).abs().max().item() <= IOU_ATOL
+
+
+def test_merge_boxes_card_equals_cpu(dev):
+    """Box merging with N1's matrix on the card against the plain IoU on
+    the CPU: the same kept indices and labels, boxes within 1e-6; and the
+    batch path (one launch for two scenes) against the CPU's."""
+    import dataclasses
+
+    from nms_cases import clustered_boxes
+    from uni3detr_tpu_torch.eval import box_merging, postprocess
+    from uni3detr_tpu_torch.geom.iou import iou3d_rotated_pairwise
+    from uni3detr_tpu_torch.presets import KITTI_3CLASSES
+
+    parts = [clustered_boxes(40 + b, n=150, ncls=3, thr=0.1)
+             for b in range(2)]
+    boxes, scores, labels, valid = (np.stack(a) for a in zip(*parts))
+    for b in range(2):
+        v = valid[b]
+        args = (labels[b][v], boxes[b][v], scores[b][v])
+        want = box_merging.merge_boxes_3d(*args, device="cpu")
+        got = box_merging.merge_boxes_3d(*args, device=dev)
+        np.testing.assert_array_equal(got[3], want[3])
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_allclose(got[1], want[1], rtol=0, atol=1e-6)
+        assert 0 < len(want[3]) < v.sum()
+    cfg = dataclasses.replace(KITTI_3CLASSES, max_num=150)
+    t = [torch.from_numpy(x) for x in (boxes, scores, labels, valid)]
+    before = iou3d_rotated_pairwise.launches
+    got = postprocess.postprocess_batch(*[x.to(dev) for x in t], cfg)
+    assert iou3d_rotated_pairwise.launches == before + 1
+    want = postprocess.postprocess_batch(*t, cfg)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g["labels"], w["labels"])
+        np.testing.assert_array_equal(g["scores"], w["scores"])
+        np.testing.assert_allclose(g["boxes"], w["boxes"], rtol=0, atol=1e-6)
+
+
+def test_kitti_and_indoor_eval_card_equals_cpu(dev):
+    """The metrics with N1's two-set overlaps on the card against the
+    plain overlaps on the CPU: every key equal (no overlap of these
+    scenes lies within IOU_ATOL of a threshold); two launches a scene for
+    KITTI, one for indoor."""
+    from nms_cases import KITTI_CLASSES, indoor_scenes, random_kitti_scenes
+    from uni3detr_tpu_torch.eval import indoor_eval, kitti_eval
+    from uni3detr_tpu_torch.geom import iou as tiou
+
+    def same(a, b):
+        assert sorted(a) == sorted(b)
+        for k in a:
+            if isinstance(a[k], dict):
+                same(a[k], b[k])
+            else:
+                assert a[k] == b[k] or (np.isnan(a[k]) and np.isnan(b[k])), k
+
+    gts, dets = random_kitti_scenes(0)
+    n3, nb = tiou.iou3d_rotated_sets.launches, \
+        tiou.iou_bev_rotated_sets.launches
+    got = kitti_eval.kitti_eval(gts, dets, KITTI_CLASSES, device=dev)
+    assert (tiou.iou3d_rotated_sets.launches - n3,
+            tiou.iou_bev_rotated_sets.launches - nb) == (len(gts), len(gts))
+    same(got, kitti_eval.kitti_eval(gts, dets, KITTI_CLASSES, device="cpu"))
+    classes = [f"c{i}" for i in range(10)]
+    gts, dets = indoor_scenes(5)
+    same(indoor_eval.indoor_eval(gts, dets, classes, device=dev),
+         indoor_eval.indoor_eval(gts, dets, classes, device="cpu"))
+
+
+@pytest.mark.parametrize("variant", [None, "cta", "cluster", "global"])
+def test_auction_one_to_many_kitti_shape(dev, variant):
+    """K12 on KITTI's instances: 50 GT columns tiled 5 times (250 bidders,
+    padded to 256) over 300 queries (384 items), eps = spread / 8**3.
+    The 393 KB benefit matrix is over one block's shared memory: the
+    default takes the cluster of two; every variant that fits is
+    bit-equal to the plain version, rounds and bids too."""
+    gen = torch.Generator().manual_seed(8)
+    G = 6
+    c = (2 * torch.randn((G, 300, 50), generator=gen)
+         + 1.2 * torch.rand((G, 300, 50), generator=gen))
+    benefit, spread = matching._auction_instances(c.repeat(1, 1, 5))
+    assert benefit.shape == (G, 256, 384)
+    benefit, spread = benefit.to(dev), spread.to(dev)
+    if variant == "cta":
+        with pytest.raises(ValueError):
+            matching.auction_lap(benefit, spread, 512.0, variant=variant)
+        return
+    ref, rc = matching.auction_lap_plain(benefit, spread, 512.0,
+                                         return_counts=True)
+    got, counts = matching.auction_lap(benefit, spread, 512.0,
+                                       return_counts=True, variant=variant)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref) and torch.equal(counts, rc)
+    assert bool((got >= 0).all())
+    assert matching.auction_lap.variant == (variant or "cluster")

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Where the time of the port's inference goes, on one GPU.
 
-    python3 tools/profile_torch_flagship.py [n_scenes] [preset]
+    python3 tools/profile_torch_flagship.py [n_scenes] [preset] [distribution]
 
 Runs a preset (default ``uni3detr_sunrgbd``; bf16, seeded random
-weights) on clustered scenes of its ``num_points`` points, points ->
-boxes, after two warm-up scenes:
+weights) on clustered (or ``uniform``) scenes of its ``num_points``
+points, points -> boxes, after two warm-up scenes (a box-merging preset
+ends with its merged boxes on the host, ``eval.postprocess``, timed as
+"host merge"):
 
 - per stage, CUDA-event time on the stream (voxelize + FPS + glue is
   what the encoder, backbone, neck, head, decode and NMS leave of the
@@ -26,6 +28,8 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
+from uni3detr_tpu_torch.eval.postprocess import (  # noqa: E402
+    postprocess_batch)
 from uni3detr_tpu_torch.models.detector import Uni3DETR  # noqa: E402
 from uni3detr_tpu_torch.ops import cuda_lib  # noqa: E402
 from uni3detr_tpu_torch.presets import PRESETS  # noqa: E402
@@ -37,7 +41,8 @@ from uni3detr_tpu_torch.weights import random_state_dict  # noqa: E402
 STAGES = ("pts_middle_encoder", "pts_backbone", "pts_neck", "pts_bbox_head")
 
 
-def main(n_scenes: int = 5, preset: str = "uni3detr_sunrgbd"):
+def main(n_scenes: int = 5, preset: str = "uni3detr_sunrgbd",
+         distribution: str = "clustered"):
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -50,7 +55,7 @@ def main(n_scenes: int = 5, preset: str = "uni3detr_sunrgbd"):
                            random_state_dict(model, 0).items()})
     model.to(dev)
     scenes = [tuple(torch.from_numpy(a).to(dev)
-                    for a in clustered_scene(s, cfg))
+                    for a in clustered_scene(s, cfg, distribution))
               for s in range(n_scenes + 2)]
     mask = torch.ones(scenes[0][0].shape[:2], dtype=torch.bool, device=dev)
 
@@ -81,10 +86,14 @@ def main(n_scenes: int = 5, preset: str = "uni3detr_sunrgbd"):
         s1.record()
         dec = decode_predictions(outs, cfg)
         s2.record()
-        valid = post_process(*dec, cfg)[3]
+        out = post_process(*dec, cfg)
         s3.record()
-        n = int(valid.sum())
-        return n, s0, s1, s2, s3
+        if cfg.post_processing != "box_merging":
+            return int(out[3].sum()), s0, s1, s2, s3, 0.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = len(postprocess_batch(*out, cfg)[0]["scores"])
+        return n, s0, s1, s2, s3, (time.perf_counter() - t0) * 1e3
 
     with torch.inference_mode():
         for pts, rnd in scenes[:2]:
@@ -93,18 +102,19 @@ def main(n_scenes: int = 5, preset: str = "uni3detr_sunrgbd"):
         rows = []
         for pts, rnd in scenes[2:]:
             t0 = time.perf_counter()
-            n, s0, s1, s2, s3 = scene(pts, rnd)
+            n, s0, s1, s2, s3, merge = scene(pts, rnd)
             wall = (time.perf_counter() - t0) * 1e3
             rows.append(dict(wall=wall, total=s0.elapsed_time(s3),
                              decode=s1.elapsed_time(s2),
-                             nms=s2.elapsed_time(s3), boxes=n))
+                             nms=s2.elapsed_time(s3), boxes=n, merge=merge))
         torch.cuda.synchronize()
         med = lambda xs: statistics.median(xs)
         stage = {k: med([a.elapsed_time(b) for a, b in v])
                  for k, v in events.items()}
         total = med([r["total"] for r in rows])
         print(f"scenes={n_scenes} wall ms/scene={med([r['wall'] for r in rows]):.3f}"
-              f" stream ms/scene={total:.3f} boxes={[r['boxes'] for r in rows]}")
+              f" stream ms/scene={total:.3f} boxes={[r['boxes'] for r in rows]}"
+              f" host merge ms/scene={med([r['merge'] for r in rows]):.3f}")
         parts = dict(stage, decode=med([r["decode"] for r in rows]),
                      nms=med([r["nms"] for r in rows]))
         parts["voxelize+fps+glue"] = total - sum(parts.values())
@@ -131,4 +141,4 @@ def main(n_scenes: int = 5, preset: str = "uni3detr_sunrgbd"):
 
 
 if __name__ == "__main__":
-    main(*[int(a) for a in sys.argv[1:2]], *sys.argv[2:3])
+    main(*[int(a) for a in sys.argv[1:2]], *sys.argv[2:4])

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Where the time of the port's train step goes, on one GPU.
 
-    python3 tools/profile_torch_train.py [n_steps] [preset]
+    python3 tools/profile_torch_train.py [n_steps] [preset] [distribution]
 
 Runs train steps of a preset (default ``uni3detr_sunrgbd``; bf16
-compute, fp32 params, B=4 synthetic scenes, seeded random weights, AdamW
+compute, fp32 params, B=4 synthetic clustered, or ``uniform``, scenes,
+seeded random weights, AdamW
 lr 1e-4) on one fixed batch, after three warm-up steps:
 
 - per phase, CUDA-event time on the stream, median over the steps:
@@ -39,7 +40,8 @@ from uni3detr_tpu_torch.weights import random_state_dict  # noqa: E402
 PHASES = ("forward", "loss", "backward", "optimizer")
 
 
-def main(n_steps: int = 5, preset: str = "uni3detr_sunrgbd"):
+def main(n_steps: int = 5, preset: str = "uni3detr_sunrgbd",
+         distribution: str = "clustered"):
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -53,7 +55,7 @@ def main(n_steps: int = 5, preset: str = "uni3detr_sunrgbd"):
     model.to(dev).train()
     opt = make_optimizer(model, 1e-4)
     batch = {k: torch.from_numpy(v).to(dev) for k, v in
-             clustered_train_batch(0, cfg, 4).items()}
+             clustered_train_batch(0, cfg, 4, distribution).items()}
     gt = gravity_center_boxes(batch["gt_boxes"])
 
     def step():
@@ -108,4 +110,4 @@ def main(n_steps: int = 5, preset: str = "uni3detr_sunrgbd"):
 
 
 if __name__ == "__main__":
-    main(*[int(a) for a in sys.argv[1:2]], *sys.argv[2:3])
+    main(*[int(a) for a in sys.argv[1:2]], *sys.argv[2:4])

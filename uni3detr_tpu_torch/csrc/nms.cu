@@ -1,6 +1,6 @@
 // Rotated 3D IoU and per-class greedy NMS for Hopper (sm_90a).
 //
-// N1 u3d_iou3d_rotated replaces XLA code, not a Pallas kernel: the
+// N1 u3d_iou3d_rotated_kernel replaces XLA code, not a Pallas kernel: the
 // pairwise exact rotated 3D IoU of uni3detr_tpu/geom/iou.py::iou3d_rotated
 // (:120) over _rect_pair_intersection_area (:60-81). One thread computes
 // one pair: the Sutherland-Hodgman clip of box i's BEV rectangle by the
@@ -17,6 +17,14 @@
 // kernel differs from the plain version by the order of the shoelace sum
 // and the libm's sin and cos only. A pair without z overlap is 0 exactly
 // in the reference too (a finite area times 0), so it skips the clip.
+//
+// The kernel computes two box sets against each other
+// (u3d_iou_rotated_sets: (B, M) x (B, N) -> (B, M, N); the matrix is the
+// case of one set against itself), in 3D or, with the BEV template
+// flag, in bird's-eye view: the BEV intersection over clip(a1 + a2 -
+// inter, eps) with the areas dx * dy, as geom/iou.py::iou_bev_rotated
+// (:107-117), no z test. Box merging reads the matrix form; the KITTI and
+// indoor metrics read the two-set forms (detections x GT of a scene).
 //
 // u3d_iou3d_rotated_mask is the same kernel writing NMS's overlap bitmask
 // instead of the matrix: bit c of row r set when r < c, both boxes valid
@@ -73,10 +81,11 @@ __device__ __forceinline__ float sub(float a, float b) {
 }
 
 // A box as the pair test reads it: BEV corners (counter-clockwise from
-// (+dx/2, +dy/2) in the box frame), BEV extents, z interval, volume.
+// (+dx/2, +dy/2) in the box frame), BEV extents, z interval, BEV area,
+// volume.
 struct BoxG {
   float cx[4], cy[4];
-  float dx, dy, lo, hi, vol;
+  float dx, dy, lo, hi, area, vol;
 };
 
 __device__ __forceinline__ BoxG make_box(const float* b, bool bottom) {
@@ -102,7 +111,8 @@ __device__ __forceinline__ BoxG make_box(const float* b, bool bottom) {
     g.lo = sub(z, h);
     g.hi = add(z, h);
   }
-  g.vol = mul(mul(dx, dy), dz);
+  g.area = mul(dx, dy);
+  g.vol = mul(g.area, dz);
   return g;
 }
 
@@ -164,9 +174,9 @@ __device__ __forceinline__ void clip_halfplane(float (&vx)[NV],
   nv = cnt;
 }
 
-__device__ float pair_iou(const BoxG& a, const BoxG& b) {
-  const float zo = fmaxf(sub(fminf(a.hi, b.hi), fmaxf(a.lo, b.lo)), 0.f);
-  if (!(zo > 0.f)) return 0.f;   // the reference's area x 0 = 0
+// The BEV intersection area of a and b: a's rectangle clipped by b's
+// four edges, then the shoelace sum, clamped at 0.
+__device__ float bev_inter(const BoxG& a, const BoxG& b) {
   const float scale = fmaxf(fmaxf(a.dx, a.dy), fmaxf(b.dx, b.dy));
   const float sc = fmaxf(scale, 1e-3f);
   const float eps = mul(1e-5f, mul(sc, sc));
@@ -194,36 +204,50 @@ __device__ float pair_iou(const BoxG& a, const BoxG& b) {
       sum = add(sum, sub(mul(vx[i], yn), mul(xn, vy[i])));
     }
   }
-  const float area = fmaxf(mul(0.5f, sum), 0.f);
-  const float inter = mul(area, zo);
+  return fmaxf(mul(0.5f, sum), 0.f);
+}
+
+__device__ float pair_iou(const BoxG& a, const BoxG& b) {
+  const float zo = fmaxf(sub(fminf(a.hi, b.hi), fmaxf(a.lo, b.lo)), 0.f);
+  if (!(zo > 0.f)) return 0.f;   // the reference's area x 0 = 0
+  const float inter = mul(bev_inter(a, b), zo);
   const float uni = fmaxf(sub(add(a.vol, b.vol), inter), 1e-6f);
   return fminf(fmaxf(__fdiv_rn(inter, uni), 0.f), 1.f);
 }
 
-// Stage a row block and a column block of boxes (and labels) in shared
-// memory; rows past N are never read.
+__device__ float pair_iou_bev(const BoxG& a, const BoxG& b) {
+  const float inter = bev_inter(a, b);
+  const float uni = fmaxf(sub(add(a.area, b.area), inter), 1e-6f);
+  return fminf(fmaxf(__fdiv_rn(inter, uni), 0.f), 1.f);
+}
+
+// Stage a row block of set a and a column block of set b (and labels) in
+// shared memory; rows past M and columns past N are never read.
 __device__ __forceinline__ void stage_boxes(BoxG* s_row, BoxG* s_col,
-                                            const float* boxes, int N,
-                                            int r0, int c0, bool bottom) {
+                                            const float* a, int M, int r0,
+                                            const float* b, int N, int c0,
+                                            bool bottom) {
   const int tid = threadIdx.x;
-  if (tid < IOU_TILE && r0 + tid < N)
-    s_row[tid] = make_box(boxes + (long long)(r0 + tid) * 7, bottom);
+  if (tid < IOU_TILE && r0 + tid < M)
+    s_row[tid] = make_box(a + (long long)(r0 + tid) * 7, bottom);
   else if (tid >= IOU_TILE && tid < 2 * IOU_TILE &&
            c0 + tid - IOU_TILE < N)
     s_col[tid - IOU_TILE] =
-        make_box(boxes + (long long)(c0 + tid - IOU_TILE) * 7, bottom);
+        make_box(b + (long long)(c0 + tid - IOU_TILE) * 7, bottom);
 }
 
-// N1, matrix: out[b, r, c] = IoU(box r, box c). Grid (column blocks, row
-// blocks, B); thread t covers column t % 64 of rows t / 64 + 4 i.
+// N1, matrix: out[b, r, c] = IoU(box r of set a, box c of set b), 3D or
+// BEV. Grid (column blocks, row blocks, B); thread t covers column t % 64
+// of rows t / 64 + 4 i.
+template <bool BEV>
 __global__ void __launch_bounds__(IOU_THREADS) u3d_iou3d_rotated_kernel(
-    const float* __restrict__ boxes, int N, int bottom,
-    float* __restrict__ out) {
+    const float* __restrict__ a, const float* __restrict__ bset, int M,
+    int N, int bottom, float* __restrict__ out) {
   __shared__ BoxG s_row[IOU_TILE], s_col[IOU_TILE];
   const int b = blockIdx.z;
   const int r0 = blockIdx.y * IOU_TILE, c0 = blockIdx.x * IOU_TILE;
-  const float* bx = boxes + (long long)b * N * 7;
-  stage_boxes(s_row, s_col, bx, N, r0, c0, bottom != 0);
+  stage_boxes(s_row, s_col, a + (long long)b * M * 7, M, r0,
+              bset + (long long)b * N * 7, N, c0, bottom != 0);
   __syncthreads();
   const int col = threadIdx.x % IOU_TILE;
   const int c = c0 + col;
@@ -231,8 +255,10 @@ __global__ void __launch_bounds__(IOU_THREADS) u3d_iou3d_rotated_kernel(
   for (int rr = threadIdx.x / IOU_TILE; rr < IOU_TILE;
        rr += IOU_THREADS / IOU_TILE) {
     const int r = r0 + rr;
-    if (r >= N) break;
-    out[((long long)b * N + r) * N + c] = pair_iou(s_row[rr], s_col[col]);
+    if (r >= M) break;
+    out[((long long)b * M + r) * N + c] =
+        BEV ? pair_iou_bev(s_row[rr], s_col[col])
+            : pair_iou(s_row[rr], s_col[col]);
   }
 }
 
@@ -277,7 +303,7 @@ __global__ void __launch_bounds__(IOU_THREADS) u3d_iou3d_rotated_mask_kernel(
     if (tid < IOU_TILE && r0 + tid < N) mcol[r0 + tid] = 0ull;
     return;
   }
-  stage_boxes(s_row, s_col, bx, N, r0, c0, bottom != 0);
+  stage_boxes(s_row, s_col, bx, N, r0, bx, N, c0, bottom != 0);
   __syncthreads();
   for (int rr = tid / IOU_TILE; rr < IOU_TILE;
        rr += IOU_THREADS / IOU_TILE) {
@@ -361,14 +387,23 @@ __global__ void __launch_bounds__(SCAN_THREADS) u3d_nms_greedy_kernel(
 
 extern "C" {
 
-int u3d_iou3d_rotated(const void* boxes, void* out, int B, int N,
-                      int bottom, void* stream) {
-  if (B == 0 || N == 0) return (int)cudaSuccess;
-  const int nb = (N + IOU_TILE - 1) / IOU_TILE;
-  if (nb > 65535 || B > 65535) return (int)cudaErrorInvalidValue;
-  dim3 grid(nb, nb, B);
-  u3d_iou3d_rotated_kernel<<<grid, IOU_THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)boxes, N, bottom, (float*)out);
+// boxes a (B, M, 7), b (B, N, 7) fp32 -> out (B, M, N) fp32; bev != 0
+// for the BEV IoU (z ignored), else 3D with bottom != 0 for bottom z.
+int u3d_iou_rotated_sets(const void* a, const void* b, void* out, int B,
+                         int M, int N, int bev, int bottom, void* stream) {
+  if (B == 0 || M == 0 || N == 0) return (int)cudaSuccess;
+  const int nr = (M + IOU_TILE - 1) / IOU_TILE;
+  const int nc = (N + IOU_TILE - 1) / IOU_TILE;
+  if (nr > 65535 || B > 65535) return (int)cudaErrorInvalidValue;
+  dim3 grid(nc, nr, B);
+  if (bev)
+    u3d_iou3d_rotated_kernel<true><<<grid, IOU_THREADS, 0,
+                                     (cudaStream_t)stream>>>(
+        (const float*)a, (const float*)b, M, N, bottom, (float*)out);
+  else
+    u3d_iou3d_rotated_kernel<false><<<grid, IOU_THREADS, 0,
+                                      (cudaStream_t)stream>>>(
+        (const float*)a, (const float*)b, M, N, bottom, (float*)out);
   return (int)cudaGetLastError();
 }
 

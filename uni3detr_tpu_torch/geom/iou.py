@@ -7,9 +7,12 @@ half-planes keeps at most 8 vertices). Box layout:
 ``(cx, cy, cz, dx, dy, dz, yaw, ...)``.
 
 :func:`iou3d_rotated_pairwise` (N1) is the pairwise IoU of a batch of box
-sets with themselves: the CUDA kernel ``u3d_iou3d_rotated``
-(``csrc/nms.cu``) for CUDA tensors, :func:`iou3d_rotated` for CPU
-tensors; its ``launches`` attribute counts kernel launches.
+sets with themselves, :func:`iou3d_rotated_sets` and
+:func:`iou_bev_rotated_sets` the 3D and bird's-eye IoU of two batches of
+box sets against each other: the CUDA kernel ``u3d_iou_rotated_sets``
+(``csrc/nms.cu``) for CUDA tensors, the plain :func:`iou3d_rotated` and
+:func:`iou_bev_rotated` for CPU tensors; each one's ``launches``
+attribute counts its kernel launches.
 """
 from __future__ import annotations
 
@@ -135,32 +138,80 @@ def iou3d_rotated(boxes1, boxes2, z_origin: str = "center",
                                  boxes2[..., None, :, :], z_origin, eps)
 
 
-def iou3d_rotated_pairwise(boxes: torch.Tensor,
-                           z_origin: str = "bottom") -> torch.Tensor:
-    """N1: (B, N, >=7) boxes -> (B, N, N) fp32, ``out[b, i, j]`` the IoU
-    of box i clipped by box j, as :func:`iou3d_rotated` computes it.
+def iou_bev_rotated(boxes1, boxes2, eps: float = 1e-6):
+    """Pairwise exact rotated bird's-eye IoU: (..., N, >=5) x (..., M,
+    >=5) -> (..., N, M); 5-dim (x, y, dx, dy, yaw) boxes or full >=7-dim
+    boxes. The intersection over ``clip(a1 + a2 - inter, eps)``, no z
+    term (the official KITTI bev metric)."""
+    b1 = boxes1 if boxes1.shape[-1] == 5 else _bev5(boxes1)
+    b2 = boxes2 if boxes2.shape[-1] == 5 else _bev5(boxes2)
+    b1, b2 = b1[..., :, None, :], b2[..., None, :, :]
+    shape = torch.broadcast_shapes(b1.shape[:-1], b2.shape[:-1])
+    inter = _rect_intersection_area(b1.expand(*shape, 5).reshape(-1, 5),
+                                    b2.expand(*shape, 5).reshape(-1, 5)
+                                    ).reshape(shape)
+    a1, a2 = b1[..., 2] * b1[..., 3], b2[..., 2] * b2[..., 3]
+    return (inter / (a1 + a2 - inter).clamp(min=eps)).clamp(0.0, 1.0)
 
-    The kernel reads fp32 boxes and differs from the plain version by
-    fp32 rounding (the shoelace sum's order, sin and cos)."""
-    if boxes.dim() != 3 or boxes.shape[-1] < 7:
-        raise ValueError("iou3d_rotated_pairwise: boxes (B, N, >=7)")
+
+def _iou_sets(fn, boxes1, boxes2, bev: bool, z_origin: str):
+    """N1 on two batches of box sets: (B, M, >=7) x (B, N, >=7) -> (B, M,
+    N) fp32; ``fn`` is the public wrapper whose launches it counts."""
+    name = fn.__name__
+    if boxes1.dim() != 3 or boxes2.dim() != 3 or boxes1.shape[0] != \
+            boxes2.shape[0] or min(boxes1.shape[-1], boxes2.shape[-1]) < 7:
+        raise ValueError(f"{name}: boxes (B, M, >=7) and (B, N, >=7)")
     if z_origin not in ("bottom", "center"):
-        raise ValueError(f"iou3d_rotated_pairwise: z_origin {z_origin!r}")
-    if boxes.device.type == "cpu":
-        return iou3d_rotated(boxes, boxes, z_origin)
-    bx = boxes[..., :7].float().contiguous()
-    B, N = bx.shape[:2]
-    out = torch.empty((B, N, N), dtype=torch.float32, device=bx.device)
-    with torch.cuda.device(bx.device):
-        status = cuda_lib.library().u3d_iou3d_rotated(
-            bx.data_ptr(), out.data_ptr(), B, N, int(z_origin == "bottom"),
-            torch.cuda.current_stream(bx.device).cuda_stream)
-    cuda_lib.check(status, "u3d_iou3d_rotated")
-    iou3d_rotated_pairwise.launches += 1
+        raise ValueError(f"{name}: z_origin {z_origin!r}")
+    if boxes1.device.type == "cpu" and boxes2.device.type == "cpu":
+        return iou_bev_rotated(boxes1, boxes2) if bev else \
+            iou3d_rotated(boxes1, boxes2, z_origin)
+    if not (boxes1.is_cuda and boxes2.device == boxes1.device):
+        raise ValueError(f"{name}: both box sets on one CUDA device")
+    a = boxes1[..., :7].float().contiguous()
+    b = boxes2[..., :7].float().contiguous()
+    B, M, N = a.shape[0], a.shape[1], b.shape[1]
+    out = torch.empty((B, M, N), dtype=torch.float32, device=a.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(a.device):
+        status = cuda_lib.library().u3d_iou_rotated_sets(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), B, M, N, int(bev),
+            int(z_origin == "bottom"),
+            torch.cuda.current_stream(a.device).cuda_stream)
+    cuda_lib.check(status, "u3d_iou_rotated_sets")
+    fn.launches += 1
     return out
 
 
+def iou3d_rotated_pairwise(boxes: torch.Tensor,
+                           z_origin: str = "bottom") -> torch.Tensor:
+    """N1, matrix: (B, N, >=7) boxes -> (B, N, N) fp32, ``out[b, i, j]``
+    the IoU of box i clipped by box j, as :func:`iou3d_rotated` computes
+    it.
+
+    The kernel reads fp32 boxes and differs from the plain version by
+    fp32 rounding (the shoelace sum's order, sin and cos)."""
+    return _iou_sets(iou3d_rotated_pairwise, boxes, boxes, False, z_origin)
+
+
+def iou3d_rotated_sets(boxes1: torch.Tensor, boxes2: torch.Tensor,
+                       z_origin: str = "bottom") -> torch.Tensor:
+    """N1, two sets: (B, M, >=7) x (B, N, >=7) -> (B, M, N) fp32 rotated
+    3D IoU, as :func:`iou3d_rotated`."""
+    return _iou_sets(iou3d_rotated_sets, boxes1, boxes2, False, z_origin)
+
+
+def iou_bev_rotated_sets(boxes1: torch.Tensor,
+                         boxes2: torch.Tensor) -> torch.Tensor:
+    """N1, two sets in bird's-eye view: (B, M, >=7) x (B, N, >=7) -> (B,
+    M, N) fp32, as :func:`iou_bev_rotated`."""
+    return _iou_sets(iou_bev_rotated_sets, boxes1, boxes2, True, "bottom")
+
+
 iou3d_rotated_pairwise.launches = 0
+iou3d_rotated_sets.launches = 0
+iou_bev_rotated_sets.launches = 0
 
 
 def _limit_period(val, offset: float = 0.5, period: float = math.pi):

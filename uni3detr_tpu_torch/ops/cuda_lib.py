@@ -43,7 +43,7 @@ _SIGNATURES = {
     "u3d_fps_limits": [_P],
     "u3d_auction_lap": [_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _I,
                         _P, _P],
-    "u3d_iou3d_rotated": [_P, _P, _I, _I, _I, _P],
+    "u3d_iou_rotated_sets": [_P, _P, _P] + [_I] * 5 + [_P],
     "u3d_iou3d_rotated_mask": [_P, _P, _P, _I, _I, ctypes.c_float, _I, _P],
     "u3d_nms_greedy": [_P, _P, _P, _P, _I, _I, _P],
 }

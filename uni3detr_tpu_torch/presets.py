@@ -65,6 +65,31 @@ SCANNET_LARGE = dataclasses.replace(
     in_point_features=4,
 )
 
+# uni3detr_kitti_car.py:10-11,26-116,147-155,285-291: 9 decoder layers,
+# one-to-many matching (5 copies of each GT), box merging, budget caps
+KITTI_CAR = Uni3DETRConfig(
+    num_classes=1, code_size=8,
+    pc_range=(0.0, -40.0, -3.0, 70.4, 40.0, 1.0),
+    voxel_size=(0.05, 0.05, 0.1), grid_size=(41, 1600, 1408),
+    max_points_per_voxel=5, max_voxels=16000, max_voxels_test=40000,
+    num_points=18000, max_gt=50, in_point_features=4,
+    num_query=300, num_decoder_layers=9, gt_repeattimes=5,
+    post_center_range=(0.0, -40.0, -3.0, 70.4, 40.0, 1.0),
+    max_num=150, coder_alpha=0.2, post_processing="box_merging",
+    score_thr=0.5,
+    matcher_phases=3,
+    encoder_budget_shrink=(2.0, 1.4, 0.6),
+    encoder_budget_caps=(33600, 24000, 10400),
+    compute_dtype="bfloat16",
+)
+
+# uni3detr_kitti_3classes.py: 3 classes, per-class score thresholds
+KITTI_3CLASSES = dataclasses.replace(
+    KITTI_CAR,
+    num_classes=3,
+    score_thr=(0.0, 0.3, 0.65),
+)
+
 # tiny model for tests (not a reference config)
 TINY_SYNTHETIC = Uni3DETRConfig(
     num_classes=3, code_size=8,
@@ -87,5 +112,7 @@ PRESETS = {
     "uni3detr_nuscenes": NUSCENES,
     "uni3detr_scannet": SCANNET,
     "uni3detr_scannet_large": SCANNET_LARGE,
+    "uni3detr_kitti_car": KITTI_CAR,
+    "uni3detr_kitti_3classes": KITTI_3CLASSES,
     "uni3detr_tiny_synthetic": TINY_SYNTHETIC,
 }

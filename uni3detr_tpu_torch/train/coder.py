@@ -1,13 +1,17 @@
 """NMS-free decode, per-class NMS and the score / count thresholds (port
-of the ``nms`` branch of ``uni3detr_tpu/train/coder.py``).
+of the ``nms``, ``none`` and ``box_merging`` branches of
+``uni3detr_tpu/train/coder.py``).
 
 Decode averages decoder layers 1..L-1, takes the ``max_num`` best flat
 class scores, denormalizes the boxes, masks them by
 ``post_center_range`` and blends ``score = cls^alpha * iou^(1-alpha)``.
 Post-processing shifts z to the bottom face, runs rotated 3D-IoU NMS
-per class for all scenes at once (``ops.nms.nms_keep``: two kernel
-launches on the card) and applies ``score_thr`` and ``num_thr``. Outputs
-stay fixed-size with validity masks; nothing here waits on the device.
+per class for all scenes at once (``post_processing="nms"``,
+``ops.nms.nms_keep``: two kernel launches on the card; ``none`` and
+``box_merging`` pass the boxes through, box merging runs on the host
+afterwards in ``eval.postprocess``) and applies ``score_thr`` and
+``num_thr``. Outputs stay fixed-size with validity masks; nothing here
+waits on the device.
 """
 from __future__ import annotations
 
@@ -52,14 +56,17 @@ def post_process(boxes, scores, labels, valid, cfg: Uni3DETRConfig):
     ``score_thr`` (scalar, or one per class) keeps scores strictly above
     it; ``num_thr`` keeps the ``num_thr`` best surviving boxes, ties to
     the lower index as ``jnp.argsort``. Returns (boxes with bottom z,
-    scores, labels, valid), still fixed size. ``soft_nms`` and
-    ``box_merging`` are not ported.
+    scores, labels, valid), still fixed size. ``none`` and
+    ``box_merging`` skip the NMS, as the JAX coder does; ``soft_nms`` is
+    not ported.
     """
-    if cfg.post_processing != "nms":
-        raise NotImplementedError("only post_processing='nms' is ported")
+    if cfg.post_processing not in ("nms", "none", "box_merging"):
+        raise NotImplementedError(
+            f"post_processing={cfg.post_processing!r} is not ported")
     boxes = bottom_center_boxes(boxes)
-    valid = nms_keep(boxes, scores, labels, valid, cfg.nms_thr,
-                     cfg.num_classes, z_origin="bottom")
+    if cfg.post_processing == "nms":
+        valid = nms_keep(boxes, scores, labels, valid, cfg.nms_thr,
+                         cfg.num_classes, z_origin="bottom")
     if cfg.score_thr is not None:
         thr = cfg.score_thr
         if isinstance(thr, (tuple, list)):
