@@ -81,7 +81,8 @@ voxels, 900 queries, a 10-dim box code with velocity):
 K11 (single-set FPS), a public op that no model path calls, is driven
 once more on its own, as its callers call it, for its launch count.
 
-Every inference phase (4, 10, 15, 20) also runs the per-class NMS of
+Every inference phase (4, 10, 15, 20, 38, 42, 43) also runs the
+per-class NMS of
 its scenes on the card, N1 (``u3d_iou3d_rotated_mask``, writing the
 overlap bitmask) and N2 (``u3d_nms_greedy``) once a scene each, asserted,
 with decoding and post-processing under
@@ -130,9 +131,33 @@ cap), and ``uni3detr_kitti_3classes`` (per-class score thresholds, class
     milestones fall inside it), checked as phase 7, then a checkpoint
     round trip as phase 13.
 
+Then OV-Uni3DETR inference (``ov``): ``ov_uni3detr_sunrgbd_mm`` at
+full width (100k points and one 480x640 RGB image from
+``synthetic.ov_scene``, ResNet-50 with DCNv2 in stages 2-4, FPN, 64
+depth bins, the lift onto the encoder's 15x40x40 grid, 3 view convs,
+the fusion conv, a 6-layer CLIP head with 4 x 300 queries, 46 classes):
+
+37. kernels at its shapes (K1-K4, K11), as phase 3;
+38. inference, bf16, B=1, a warm-up and three timed scenes, then the
+    46-class indoor AP with the seen / unseen split against the scenes'
+    synthetic GT: launch counts K1 4, K2 17, K3 3, K4 1, N1 1, N2 1 a
+    scene and N1's two-set form once a scene; ``eval_phase`` as phase 4;
+39. NMS at 46 classes (``nms_phase``);
+40. the lift: the share of the 24000 voxels in front of the camera and
+    inside its frame (at least OV_MIN_KEPT) and the largest DCN offset
+    of each ResNet stage (``ov_lift_phase``);
+41. fp32 card vs CPU on one scene, TF32 off: the first decoder layer
+    within FP32_ATOL, the lifted voxel features and the image and fused
+    volumes within OV_VOLUME_RTOL of their largest value, each beside
+    its floor (``ov_fp32_phase``);
+42/43. ``ov_uni3detr_sunrgbd_pc`` (points only, 3 layers) and
+    ``ov_uni3detr_sunrgbd_rgb`` (camera only, 6 layers, one query group:
+    no K1-K4 launch) scenes to boxes, launch counts asserted.
+
 Then one JSON line of the kernels (launches summed over every path's
-run: the inference and train runs of all six presets and K11's own
-call, each read right after its run; times, errors, ``bound_ms`` with
+run: the inference and train runs of all six Lidar presets, the three
+OV presets' inference runs and K11's own call, each read right after
+its run; times, errors, ``bound_ms`` with
 ``bound_by``, ``library_ms`` (null where no single PyTorch call
 computes the kernel's function) and, for the convs, ``gemm_ms``, at the
 nuScenes shapes for K1-K12, summed per scene for K1-K4, per train step
@@ -192,6 +217,9 @@ KITTI_LR, KITTI_MILESTONES, KITTI_EPOCHS = 2e-5 * 3 / 8 * 18 / 2, (32, 38), 40
 MERGE_BOX_ATOL = 1e-6
 # the metrics' N1 overlaps vs the plain IoU: fp32 rounding, as NMS_IOU_ATOL
 EVAL_IOU_ATOL = 1e-4
+OV_SCENES = 4         # phases 38 and 42-43, the first is the warm-up
+OV_MIN_KEPT = 0.10    # phase 40: the least share of voxels the lift keeps
+OV_VOLUME_RTOL = 1e-3  # phase 41, of the largest value; see ov_fp32_phase
 CKPT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "build", "chip_smoke_checkpoint")
 
@@ -623,6 +651,33 @@ def kernel_wrappers():
             "auction_lap": matching.auction_lap}
 
 
+def scene_inputs(torch, scene, dev):
+    """A scene's model arguments on ``dev``: (points, mask, random
+    points) for the Lidar detector, (batch dict, random points) for
+    OV-Uni3DETR, whose scenes hold a batch dict (``synthetic.ov_scene``)."""
+    inputs, rnd = scene
+    rnd = torch.from_numpy(rnd).to(dev)
+    if isinstance(inputs, dict):
+        return ({k: torch.from_numpy(v).to(dev) for k, v in inputs.items()},
+                rnd)
+    pts = torch.from_numpy(inputs).to(dev)
+    return pts, torch.ones(pts.shape[:2], dtype=torch.bool, device=dev), rnd
+
+
+def metric_names(cfg):
+    """(class names, seen classes or None) of a preset's metric: KITTI's
+    names, the OV presets' 46 SUN RGB-D classes with their seen split,
+    else ``class{c}``."""
+    from uni3detr_tpu_torch.presets import OV_SUNRGBD_CLASSES, OV_SUNRGBD_SEEN
+
+    if cfg.post_processing == "box_merging":
+        return KITTI_NAMES[:cfg.num_classes], None
+    if hasattr(cfg, "clip_dim") and cfg.num_classes == len(
+            OV_SUNRGBD_CLASSES):
+        return OV_SUNRGBD_CLASSES, OV_SUNRGBD_SEEN
+    return [f"class{c}" for c in range(cfg.num_classes)], None
+
+
 def infer_phase(torch, model, scenes, dev, tag, gts=None):
     """Scenes to boxes (bf16, B=1): ms/scene (host and CUDA events) and
     peak memory; each kernel's launches over the run asserted (N1 and N2
@@ -645,29 +700,28 @@ def infer_phase(torch, model, scenes, dev, tag, gts=None):
     cfg = model.cfg
     merging = cfg.post_processing == "box_merging"
     subm, strided = conv_cases(cfg)
-    per_scene = {"match_positions": len(cfg.encoder_channels),
-                 "gather_conv": sum(c[-1] for c in subm),
-                 "gather_conv_ids": len(strided), "fps_pair": 1,
+    pts = getattr(cfg, "use_lidar", True)   # OV camera-only: no point branch
+    per_scene = {"match_positions": pts * len(cfg.encoder_channels),
+                 "gather_conv": pts * sum(c[-1] for c in subm),
+                 "gather_conv_ids": pts * len(strided), "fps_pair": int(pts),
                  "iou3d_rotated": int(not merging),
                  "nms_greedy": int(not merging),
                  "iou3d_rotated_matrix": int(merging),
                  "iou3d_rotated_sets": 0, "iou_bev_rotated_sets": 0}
     wrappers = {k: v for k, v in kernel_wrappers().items()
                 if k in per_scene}
-    data = [(torch.from_numpy(p).to(dev), torch.from_numpy(r).to(dev))
-            for p, r in scenes]
-    mask = torch.ones(data[0][0].shape[:2], dtype=torch.bool, device=dev)
+    data = [scene_inputs(torch, sc, dev) for sc in scenes]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     times, stream, dets = [], [], []
     for fn in wrappers.values():
         fn.launches = 0
-    for i, (pts, rnd) in enumerate(data):
+    for i, args in enumerate(data):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         e0.record()
-        outs = model(pts, mask, rnd)
+        outs = model(*args)
         torch.cuda.set_sync_debug_mode("error")
         try:
             dec = decode_predictions(outs, cfg)
@@ -686,10 +740,12 @@ def infer_phase(torch, model, scenes, dev, tag, gts=None):
         stream.append(e0.elapsed_time(e1))
         if not merging and gts is not None:
             dets.append(split_batch(boxes, scores, labels, valid)[0])
-        L, nq = cfg.num_decoder_layers, 4 * cfg.num_query
+        L, nq = cfg.num_decoder_layers, (4 if pts else 1) * cfg.num_query
         shapes = {"all_cls_scores": (L, 1, nq, cfg.num_classes),
                   "all_bbox_preds": (L, 1, nq, cfg.code_size),
                   "all_iou_preds": (L, 1, nq)}
+        if "all_uncertainty_preds" in outs:
+            shapes["all_uncertainty_preds"] = (L, 1, nq, cfg.num_classes + 1)
         for k, shp in shapes.items():
             if tuple(outs[k].shape) != shp or not bool(
                     torch.isfinite(outs[k]).all()):
@@ -717,13 +773,12 @@ def infer_phase(torch, model, scenes, dev, tag, gts=None):
     metric = None
     if gts is not None:
         t0 = time.perf_counter()
+        names, seen = metric_names(cfg)
         if merging:
-            metric = kitti_eval.kitti_eval(
-                gts, dets, KITTI_NAMES[:cfg.num_classes], device=dev)
+            metric = kitti_eval.kitti_eval(gts, dets, names, device=dev)
         else:
-            metric = indoor_eval.indoor_eval(
-                gts, dets, [f"class{c}" for c in range(cfg.num_classes)],
-                device=dev)
+            metric = indoor_eval.indoor_eval(gts, dets, names,
+                                             seen_classes=seen, device=dev)
         n_eval = sum(bool(len(g["boxes"]) and len(d["boxes"]))
                      for g, d in zip(gts, dets))
         want["iou3d_rotated_sets"] = n_eval
@@ -735,7 +790,8 @@ def infer_phase(torch, model, scenes, dev, tag, gts=None):
     peak = torch.cuda.max_memory_allocated(dev)
     print(f"[{tag}] ms/scene median of {len(times) - 1} after warm-up="
           f"{statistics.median(times[1:]):.3f} stream_ms/scene="
-          f"{statistics.median(stream[1:]):.3f} all="
+          f"{statistics.median(stream[1:]):.3f} (spread "
+          f"{min(stream[1:]):.3f}-{max(stream[1:]):.3f}) all="
           f"{[round(t, 3) for t in times]} peak_mem_bytes={peak}")
     print(f"[{tag}] launches={launches} expected={want}")
     if launches != want:
@@ -803,11 +859,9 @@ def nms_phase(torch, model, scenes, dev, tag, report):
 
     cfg = model.cfg
     thr = cfg.nms_thr
-    for i, (p, r) in enumerate(scenes):
-        pts = torch.from_numpy(p).to(dev)
-        mask = torch.ones(pts.shape[:2], dtype=torch.bool, device=dev)
+    for i, sc in enumerate(scenes):
         boxes, scores, labels, valid = decode_predictions(
-            model(pts, mask, torch.from_numpy(r).to(dev)), cfg)
+            model(*scene_inputs(torch, sc, dev)), cfg)
         bx = bottom_center_boxes(boxes)[..., :7].contiguous()
         B, N = scores.shape
         t0 = time.perf_counter()
@@ -916,11 +970,9 @@ def merge_phase(torch, model, scenes, dev, tag, report=None):
     cfg = model.cfg
     raw = dataclasses.replace(cfg, score_thr=None)
     iou_err = 0.0
-    for i, (p, r) in enumerate(scenes):
-        pts = torch.from_numpy(p).to(dev)
-        mask = torch.ones(pts.shape[:2], dtype=torch.bool, device=dev)
+    for i, sc in enumerate(scenes):
         out = post_process(*decode_predictions(
-            model(pts, mask, torch.from_numpy(r).to(dev)), cfg), raw)
+            model(*scene_inputs(torch, sc, dev)), cfg), raw)
         d = split_batch(*out, with_iou=True)[0]
         c = split_batch(*(t.cpu() for t in out))[0]
         args = (d["labels"], d["boxes"], d["scores"])
@@ -1011,13 +1063,12 @@ def eval_phase(torch, cfg, dets, gts, dev, tag, metric, report=None):
                 e = (kern(x.to(dev), y.to(dev)).cpu() - ref).abs().max()
                 errs[name] = max(errs[name], e.item())
                 hits[name] += int((ref > 0).sum())
+    names, seen = metric_names(cfg)
     if kitti:
-        want = kitti_eval.kitti_eval(gts, dets, KITTI_NAMES[:cfg.num_classes],
-                                     device="cpu")
+        want = kitti_eval.kitti_eval(gts, dets, names, device="cpu")
     else:
-        want = indoor_eval.indoor_eval(
-            gts, dets, [f"class{c}" for c in range(cfg.num_classes)],
-            device="cpu")
+        want = indoor_eval.indoor_eval(gts, dets, names, seen_classes=seen,
+                                       device="cpu")
 
     def same(x, y):
         if isinstance(x, dict):
@@ -1735,6 +1786,168 @@ def kitti(torch, dev, preset):
     return report, launches
 
 
+def ov_lift_phase(torch, model, scene, dev, tag):
+    """One multimodal scene: the share of the encoder grid's voxels that
+    the lift keeps (in front of the camera and inside its frame), which
+    must reach OV_MIN_KEPT, and the largest DCN offset of each ResNet
+    stage in pixels (random offset convs put the taps between pixels and
+    outside the image)."""
+    from uni3detr_tpu_torch.models.dcn import DeformConv2dV2
+    from uni3detr_tpu_torch.models.view_trans import project_voxels
+
+    offsets = {}
+
+    def hook(name):
+        def fn(mod, args, out):     # mod: the offset conv, 3 k*k outputs
+            offsets[name] = max(offsets.get(name, 0.0), out.float()[
+                :, :2 * mod.out_channels // 3].abs().amax().item())
+        return fn
+
+    handles = [m.conv_offset.register_forward_hook(hook(n.split(".")[0]))
+               for n, m in model.img_backbone.named_modules()
+               if isinstance(m, DeformConv2dV2)]
+    batch, rnd = scene_inputs(torch, scene, dev)
+    try:
+        model(batch, rnd)
+    finally:
+        for h in handles:
+            h.remove()
+    cfg = model.cfg
+    ref = model.view_trans.reference_voxels(batch["uni_rot_aug"])
+    mask = project_voxels(ref, batch["lidar2img"], cfg.img_size,
+                          cfg.depth_dim)[2]
+    kept = mask.float().mean().item()
+    print(f"[{tag}] lift: {mask.shape[-1]} voxels of the encoder grid, "
+          f"kept (in front of the camera, inside the frame) {kept:.4f} "
+          f"(at least {OV_MIN_KEPT}); largest |DCN offset| in pixels by "
+          f"stage {({k: round(v, 3) for k, v in sorted(offsets.items())})}")
+    if not kept >= OV_MIN_KEPT:
+        fail(f"OV lift keeps {kept} of the voxels (< {OV_MIN_KEPT})")
+    if not offsets or min(offsets.values()) <= 0.0:
+        fail(f"DCN offsets {offsets}: a DCN stage with zero offsets")
+
+
+def ov_fp32_phase(torch, base_cfg, sd, scene, dev, tag):
+    """Card (kernels, cuDNN) vs CPU (plain versions), fp32, TF32 off, on
+    one multimodal scene: voxels and FPS indices equal; the first
+    decoder layer's outputs within FP32_ATOL; the lifted per-camera voxel
+    features, the image volume and the fused volume within OV_VOLUME_RTOL
+    of their largest value. Random weights leave ResNet-50's activations
+    unnormalised (to ~1e3) and the depth softmax's logits as large, so
+    an ulp of difference at the input moves the volumes by far more than
+    FP32_ATOL; a third run, on the card with the image times (1 + 1e-6
+    N(0, 1)), prints that floor for the volumes and each decoder layer
+    (the later layers are chaotic under random weights, see
+    ``fp32_phase``), beside each layer's share within FP32_ATOL."""
+    from uni3detr_tpu_torch.models.ov_detector import OV_Uni3DETR
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(base_cfg, compute_dtype="float32")
+    res = {}
+    for label, where in (("card", dev), ("cpu", torch.device("cpu")),
+                         ("card, image perturbed", dev)):
+        model = OV_Uni3DETR(cfg).eval()
+        model.load_state_dict(sd, strict=True)
+        model.to(where)
+        batch, rnd = scene_inputs(torch, scene, where)
+        if label.endswith("perturbed"):
+            gen = torch.Generator(device=where).manual_seed(0)
+            img = batch["images"]
+            batch["images"] = img * (1 + 1e-6 * torch.randn(
+                img.shape, generator=gen, device=where))
+        t0 = time.perf_counter()
+        outs, inter = model(batch, rnd, return_intermediates=True)
+        res[label] = (
+            {k: v.cpu() for k, v in outs.items()},
+            {k: (tuple(t.cpu() for t in v) if isinstance(v, tuple)
+                 else v.cpu()) for k, v in inter.items()},
+            time.perf_counter() - t0)
+        del model, outs, inter
+    (og, ig, tg), (oc, ic, tc) = res["card"], res["cpu"]
+    op, ip, _ = res["card, image perturbed"]
+    if not (torch.equal(ig["coords"], ic["coords"]) and all(
+            torch.equal(a, b) for a, b in zip(ig["fps_idx"], ic["fps_idx"]))):
+        fail(f"{tag}: voxels or FPS indices differ between card and cpu")
+    names = ("lifted", "image_volume", "fused_volume")
+    scale = {k: ic[k].abs().max().item() for k in names}
+    vols = {k: (ig[k] - ic[k]).abs().max().item() / scale[k] for k in names}
+    floor = {k: (ig[k] - ip[k]).abs().max().item() / scale[k]
+             for k in names}
+
+    def per_layer(a, b):
+        return {k: [float(f"{(a[k][l] - b[k][l]).abs().max().item():.3g}")
+                    for l in range(a[k].shape[0])] for k in a}
+
+    def shares(a, b):
+        return [round(min(((a[k][l] - b[k][l]).abs() <= FP32_ATOL).float()
+                          .mean().item() for k in a), 6)
+                for l in range(a["all_cls_scores"].shape[0])]
+
+    errs = per_layer(og, oc)
+    print(f"[{tag}] card vs cpu, max_abs_err / max |cpu| (floor: card vs "
+          f"card with the image perturbed by 1e-6 relative): " + ", ".join(
+              f"{k} {vols[k]:.3g} ({floor[k]:.3g}; max |cpu| {scale[k]:.4g})"
+              for k in names)
+          + f" (rtol {OV_VOLUME_RTOL}); per decoder layer max_abs_err "
+          f"{errs}, share within {FP32_ATOL} {shares(og, oc)} (floor "
+          f"{shares(og, op)}, max_abs_err {per_layer(og, op)}); card "
+          f"{tg:.2f}s cpu {tc:.2f}s")
+    first = max(v[0] for v in errs.values())
+    if max(vols.values()) > OV_VOLUME_RTOL or first > FP32_ATOL:
+        fail(f"{tag}: volumes {vols} (of their largest value) or "
+             f"first-layer outputs {errs} differ by more than "
+             f"{OV_VOLUME_RTOL} / {FP32_ATOL}")
+
+
+def ov(torch, dev):
+    """Phases 37-43: OV-Uni3DETR inference. ``ov_uni3detr_sunrgbd_mm``
+    (points and one 480x640 image, ResNet-50 + DCNv2, the lift, fusion,
+    the 6-layer CLIP head, 46 classes): kernels at its shapes, scenes to
+    boxes with the 46-class indoor AP (seen / unseen), NMS at 46
+    classes, the lift's kept share and the DCN offsets, fp32 card vs
+    CPU; then ``ov_uni3detr_sunrgbd_pc`` and ``ov_uni3detr_sunrgbd_rgb``
+    (camera only: no K1-K4) scenes to boxes. Returns the launches of the
+    inference runs."""
+    from uni3detr_tpu_torch.models.ov_detector import OV_Uni3DETR
+    from uni3detr_tpu_torch.presets import PRESETS
+    from uni3detr_tpu_torch.synthetic import clustered_scene_gt, ov_scene
+
+    launches = []
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for preset in ("ov_uni3detr_sunrgbd_mm", "ov_uni3detr_sunrgbd_pc",
+                   "ov_uni3detr_sunrgbd_rgb"):
+        cfg = PRESETS[preset]
+        tag = preset.replace("ov_uni3detr_sunrgbd_", "ov-")
+        mm = preset.endswith("_mm")
+        model = OV_Uni3DETR(cfg).eval()
+        sd = _state_dict(torch, model)
+        model.load_state_dict(sd, strict=True)
+        model.to(dev)
+        scenes = [ov_scene(seed, cfg) for seed in range(OV_SCENES)]
+        gts = [clustered_scene_gt(seed, cfg) for seed in range(OV_SCENES)]
+        with torch.inference_mode():
+            if mm:
+                kernel_phase(torch, model, torch.from_numpy(
+                    scenes[0][0]["points"]).to(dev), dev, f"{tag}-kernels")
+            run, dets, metric = infer_phase(torch, model, scenes, dev, tag,
+                                            gts=gts if mm else None)
+            launches.append(run)
+            if mm:
+                eval_phase(torch, cfg, dets, gts, dev, tag, metric)
+                nms_phase(torch, model, scenes, dev, tag, {})
+                ov_lift_phase(torch, model, scenes[0], dev, tag)
+        del model
+        torch.cuda.empty_cache()
+        if mm:
+            with torch.inference_mode():
+                ov_fp32_phase(torch, cfg, sd, scenes[0], dev, f"{tag}-fp32")
+            torch.backends.cudnn.allow_tf32 = True
+            torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import torch
 
@@ -1771,6 +1984,8 @@ def main():
         if preset == "uni3detr_kitti_car":
             # N1's matrix and two-set forms at KITTI's merge and eval shapes
             report.update(kitti_report)
+    runs += ov(torch, dev)
+    t.append(time.perf_counter())
     # the NMS kernels' numbers at uni3detr_scannet's 5000 boxes
     for name in ("iou3d_rotated", "nms_greedy"):
         report[name] = scan_reports[0][name]
@@ -1779,7 +1994,7 @@ def main():
         for k, v in run.items():
             launches[k] = launches.get(k, 0) + v
     names = ("flagship", "nuscenes", "scannet", "scannet_large", "kitti_car",
-             "kitti_3classes")
+             "kitti_3classes", "ov")
     print("[time] " + ", ".join(f"{n} {t[i + 1] - t[i]:.1f}s"
                                 for i, n in enumerate(names))
           + f"; the whole smoke {time.perf_counter() - T_START:.1f}s")

@@ -1069,3 +1069,141 @@ def test_auction_one_to_many_kitti_shape(dev, variant):
     assert torch.equal(got, ref) and torch.equal(counts, rc)
     assert bool((got >= 0).all())
     assert matching.auction_lap.variant == (variant or "cluster")
+
+
+# -- OV-Uni3DETR ------------------------------------------------------------
+
+@pytest.mark.parametrize("N", [1000, 5000])
+def test_nms_kernels_46_classes_equal_serial(dev, N):
+    """The OV presets' 46 classes in one label-folded bitmask: N1 + N2
+    keep what the serial pass keeps per class on N1's matrix."""
+    from nms_cases import clustered_boxes
+    from uni3detr_tpu_torch.geom.iou import iou3d_rotated_pairwise
+    from uni3detr_tpu_torch.ops import nms
+
+    boxes, scores, labels, valid = (torch.from_numpy(a)[None] for a in
+                                    clustered_boxes(N + 46, n=N, ncls=46))
+    args = [t.to(dev) for t in (boxes, scores, labels, valid)]
+    keep = nms.nms_keep(*args, 0.5, 46)
+    iou = iou3d_rotated_pairwise(args[0]).cpu()
+    want = _serial_per_class(iou, scores, labels, valid, 0.5)
+    assert torch.equal(keep.cpu(), want)
+    assert len(labels[valid].unique()) >= 40
+    assert 0 < int(want.sum()) < int(valid.sum())
+
+
+@pytest.fixture
+def no_tf32():
+    """fp32 convs and matmuls in full precision on the card."""
+    old = (torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 \
+        = old
+
+
+def test_grid_sample_2d_card_equals_cpu(dev):
+    from uni3detr_tpu_torch.ops.sample import grid_sample_2d
+
+    rng = np.random.RandomState(0)
+    img = torch.from_numpy(rng.randn(2, 30, 40, 64).astype(np.float32))
+    pts = torch.from_numpy(rng.uniform(-1.2, 1.2, (2, 5000, 2)).astype(
+        np.float32))
+    ref = grid_sample_2d(img, pts)
+    got = grid_sample_2d(img.to(dev), pts.to(dev)).cpu()
+    assert (got - ref).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_dcn_card_equals_cpu(dev, no_tf32, stride):
+    """Offsets of several pixels (taps between pixels, outside the
+    image): fp32, 1e-4 of the largest output."""
+    from uni3detr_tpu_torch.models.dcn import DeformConv2dV2
+
+    torch.manual_seed(stride)
+    mod = DeformConv2dV2(64, 64, 3, stride)
+    torch.nn.init.normal_(mod.conv_offset.weight, std=0.1)
+    x = torch.randn(1, 64, 30, 40)
+    with torch.no_grad():
+        off, _ = mod.offsets_and_mask(x)
+        ref = mod(x)
+        mod.to(dev)
+        got = mod(x.to(dev)).cpu()
+    assert off.abs().max().item() > 2.0
+    assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+def _ov_tiny(mode, seed=1):
+    import dataclasses
+    from uni3detr_tpu_torch.models.ov_detector import OV_Uni3DETR
+    from uni3detr_tpu_torch.presets import OV_TINY_SYNTHETIC
+    from uni3detr_tpu_torch.weights import random_state_dict
+
+    cfg = OV_TINY_SYNTHETIC
+    if mode == "pc":
+        cfg = dataclasses.replace(cfg, use_camera=False, multimodal=False)
+    elif mode == "rgb":
+        cfg = dataclasses.replace(cfg, use_lidar=False, multimodal=False)
+    model = OV_Uni3DETR(cfg).eval()
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in
+                           random_state_dict(model, seed).items()})
+    return model
+
+
+def _ov_batch(model, dev):
+    from uni3detr_tpu_torch.synthetic import ov_scene
+
+    batch, rnd = ov_scene(2, model.cfg)
+    return ({k: torch.from_numpy(v).to(dev) for k, v in batch.items()},
+            torch.from_numpy(rnd).to(dev))
+
+
+@pytest.mark.parametrize("mode", ["mm", "pc", "rgb"])
+def test_ov_tiny_forward_card_equals_cpu(dev, no_tf32, mode):
+    """The tiny OV model (full-width ResNet-50 + DCN) in fp32: voxels and
+    FPS equal, all four output stacks within 1e-3."""
+    model = _ov_tiny(mode)
+    res = []
+    for where in ("cpu", dev):
+        model.to(where)
+        outs, inter = model(*_ov_batch(model, where),
+                            return_intermediates=True)
+        res.append(({k: v.cpu() for k, v in outs.items()},
+                    {k: v.cpu() for k, v in inter.items()
+                     if isinstance(v, torch.Tensor)}))
+    (oc, ic), (og, ig) = res
+    assert sorted(ic) == sorted(ig)
+    if "coords" in ic:
+        assert torch.equal(ic["coords"], ig["coords"])
+    for k in ("image_volume", "fused_volume"):
+        if k in ic:
+            assert (ig[k] - ic[k]).abs().max().item() <= 1e-3, k
+    assert len(oc) == 4
+    for k in oc:
+        assert (og[k] - oc[k]).abs().max().item() <= 1e-3, k
+
+
+def test_ov_tiny_mm_launch_counts(dev):
+    """One multimodal scene to boxes: K1 4, K2 17, K3 3, K4 1, N1 1, N2 1
+    (the camera-only model: K1-K4 0)."""
+    from uni3detr_tpu_torch.ops import nms
+    from uni3detr_tpu_torch.train.coder import (decode_predictions,
+                                                post_process)
+
+    wrappers = {"K1": sc.match_positions, "K2": sc.gather_conv,
+                "K3": sc.gather_conv_ids,
+                "K4": fps.farthest_point_sample_pair,
+                "N1": nms.overlap_mask, "N2": nms.greedy_scan}
+    for mode, k14 in (("mm", (4, 17, 3, 1)), ("rgb", (0, 0, 0, 0))):
+        model = _ov_tiny(mode).to(dev)
+        for fn in wrappers.values():
+            fn.launches = 0
+        with torch.no_grad():
+            out = post_process(*decode_predictions(
+                model(*_ov_batch(model, dev)), model.cfg), model.cfg)
+        torch.cuda.synchronize()
+        got = {k: fn.launches for k, fn in wrappers.items()}
+        assert got == dict(zip(wrappers, k14 + (1, 1))), (mode, got)
+        assert int(out[3].sum()) > 0

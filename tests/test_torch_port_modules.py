@@ -105,11 +105,18 @@ def test_weights_round_trip_leaf_for_leaf(tiny):
 @pytest.mark.parametrize("name", sorted(tpresets.PRESETS))
 def test_state_dict_has_reference_layout(name):
     """Keys and shapes equal the reference checkpoint layout (sparse conv
-    weights in the mmcv (kd, kh, kw, in, out) layout)."""
+    weights in the mmcv (kd, kh, kw, in, out) layout); the OV presets
+    build the OV model, against the OV layout of their mode."""
     cfg = jpresets.PRESETS[name]
-    ref = make_state_dict(cfg, np.random.RandomState(1))
-    ref.pop("pts_bbox_head.code_weights")
-    ours = TModel(tpresets.PRESETS[name]).state_dict()
+    if name.startswith("ov_"):
+        from test_torch_port_ov import reference_layout
+        from uni3detr_tpu_torch.models.ov_detector import OV_Uni3DETR
+        ref = reference_layout(cfg, np.random.RandomState(1))
+        ours = OV_Uni3DETR(tpresets.PRESETS[name]).state_dict()
+    else:
+        ref = make_state_dict(cfg, np.random.RandomState(1))
+        ref.pop("pts_bbox_head.code_weights")
+        ours = TModel(tpresets.PRESETS[name]).state_dict()
     assert sorted(ours) == sorted(ref)
     for k, a in ref.items():
         assert tuple(ours[k].shape) == tuple(np.shape(a)), k

@@ -86,3 +86,26 @@ class Uni3DETRConfig:
     def torch_dtype(self) -> torch.dtype:
         return torch.bfloat16 if self.compute_dtype == "bfloat16" \
             else torch.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class OVUni3DETRConfig(Uni3DETRConfig):
+    """OV-Uni3DETR: the multimodal open-vocabulary model (the fields of
+    ``uni3detr_tpu.models.config.OVUni3DETRConfig``)."""
+    use_lidar: bool = True
+    use_camera: bool = True
+    multimodal: bool = True
+    num_cams: int = 1
+    num_sweeps: int = 1  # camera sweeps; image axis laid out (S * cams)
+    sweep_fusion: str = "sweep_sum"  # sweep_sum | sweep_cat | with_time
+    img_size: Tuple[int, int] = (480, 640)  # (H, W) padded input
+    depth_dim: int = 64
+    num_view_convs: int = 3
+    view_kernel: Tuple[int, int, int] = (3, 3, 3)
+    fpn_levels: int = 4
+    stage_with_dcn: Tuple[bool, ...] = (False, True, True, True)
+    frozen_stages: int = 1
+    use_grid_mask: bool = True
+    clip_dim: int = 1024
+    zeroshot_path: Optional[str] = None
+    uncertainty_consistency_weight: float = 1.0

@@ -28,15 +28,15 @@ def _minmax_norm(pts: torch.Tensor) -> torch.Tensor:
     return (pts - mn) / (mx - mn).clamp(min=1e-6)
 
 
-class Uni3DETR(nn.Module):
+class PointBranch:
+    """The point branch shared by ``Uni3DETR`` and ``OV_Uni3DETR``:
+    voxelize, sparse encoder, SECOND3D, SECOND3DFPN and the paired FPS
+    seeds, under the reference names ``pts_*``."""
 
-    def __init__(self, cfg: Uni3DETRConfig):
-        super().__init__()
+    def _build_point_branch(self, cfg: Uni3DETRConfig):
         if cfg.encoder_impl != "gather":
             raise NotImplementedError("the port runs the gather encoder "
                                       "only")
-        self.cfg = cfg
-        dtype = cfg.torch_dtype
         self.pts_middle_encoder = SparseEncoderHD(
             cfg.in_point_features, tuple(cfg.grid_size),
             base_channels=cfg.encoder_base_channels,
@@ -44,19 +44,14 @@ class Uni3DETR(nn.Module):
             encoder_channels=cfg.encoder_channels,
             downsample_paddings=cfg.encoder_downsample_paddings,
             budget_shrink=cfg.encoder_budget_shrink,
-            budget_caps=cfg.encoder_budget_caps, compute_dtype=dtype)
+            budget_caps=cfg.encoder_budget_caps,
+            compute_dtype=cfg.torch_dtype)
         self.pts_backbone = SECOND3D(
             cfg.encoder_out_channels, cfg.backbone_channels,
             cfg.backbone_layers, cfg.backbone_strides)
         self.pts_neck = SECOND3DFPN(
             cfg.backbone_channels, cfg.neck_channels,
             cfg.neck_upsample_strides)
-        self.pts_bbox_head = Uni3DETRHead(
-            cfg.num_classes, num_query=cfg.num_query,
-            code_size=cfg.code_size, embed_dim=cfg.embed_dim,
-            num_decoder_layers=cfg.num_decoder_layers,
-            num_heads=cfg.num_heads, ffn_dim=cfg.ffn_dim,
-            dropout=cfg.dropout, pc_range=tuple(cfg.pc_range))
 
     @torch.no_grad()
     def voxelize(self, points, pts_mask):
@@ -71,26 +66,14 @@ class Uni3DETR(nn.Module):
         return hard_voxelize(points, pts_mask,
                              max_points=cfg.max_points_per_voxel, **kw)
 
-    def forward(self, points, pts_mask, random_points=None,
-                return_intermediates: bool = False):
-        """points (B, P, C) xyz first; pts_mask (B, P) bool;
-        random_points (B, nq, 3) uniform [0, 1) for the eval query group
-        (unused in training).
-
-        Returns the head's per-layer output stacks; with
-        ``return_intermediates`` also a dict of the voxelization and the
-        FPS indices. In eval mode no autograd graph is recorded;
-        voxelization and FPS never record one.
-        """
-        with torch.set_grad_enabled(self.training and torch.is_grad_enabled()):
-            return self._forward(points, pts_mask, random_points,
-                                 return_intermediates)
-
-    def _forward(self, points, pts_mask, random_points, return_intermediates):
+    def point_volume(self, points, pts_mask):
+        """-> (fused volume (B, D, H, W, C) channels-last in the compute
+        dtype, FPS seeds (B, 2*nq, 3) in [0, 1], the encoder's output grid
+        (D, H, W), intermediates: voxels and FPS indices)."""
         cfg = self.cfg
         dtype = cfg.torch_dtype
         feats, coords, vmask = self.voxelize(points, pts_mask)
-        volume, _ = self.pts_middle_encoder(feats, coords, vmask)
+        volume, grid = self.pts_middle_encoder(feats, coords, vmask)
         ms = self.pts_backbone(volume.to(dtype).permute(0, 4, 1, 2, 3))
         fused = self.pts_neck(ms).to(dtype)
         fused = fused.permute(0, 2, 3, 4, 1).contiguous()   # (B, D, H, W, C)
@@ -107,8 +90,36 @@ class Uni3DETR(nn.Module):
                 p, 1, i.long()[..., None].expand(-1, -1, 3))
             fpsbpts = torch.cat([_minmax_norm(take(xyz, idx1)),
                                  _minmax_norm(take(vc, idx2))], dim=1)
-        outs = self.pts_bbox_head(fused, fpsbpts, random_points)
-        if return_intermediates:
-            return outs, {"feats": feats, "coords": coords, "vmask": vmask,
-                          "fps_idx": (idx1, idx2)}
-        return outs
+        return fused, fpsbpts, grid, {"feats": feats, "coords": coords,
+                                      "vmask": vmask,
+                                      "fps_idx": (idx1, idx2)}
+
+
+class Uni3DETR(PointBranch, nn.Module):
+
+    def __init__(self, cfg: Uni3DETRConfig):
+        super().__init__()
+        self.cfg = cfg
+        self._build_point_branch(cfg)
+        self.pts_bbox_head = Uni3DETRHead(
+            cfg.num_classes, num_query=cfg.num_query,
+            code_size=cfg.code_size, embed_dim=cfg.embed_dim,
+            num_decoder_layers=cfg.num_decoder_layers,
+            num_heads=cfg.num_heads, ffn_dim=cfg.ffn_dim,
+            dropout=cfg.dropout, pc_range=tuple(cfg.pc_range))
+
+    def forward(self, points, pts_mask, random_points=None,
+                return_intermediates: bool = False):
+        """points (B, P, C) xyz first; pts_mask (B, P) bool;
+        random_points (B, nq, 3) uniform [0, 1) for the eval query group
+        (unused in training).
+
+        Returns the head's per-layer output stacks; with
+        ``return_intermediates`` also a dict of the voxelization and the
+        FPS indices. In eval mode no autograd graph is recorded;
+        voxelization and FPS never record one.
+        """
+        with torch.set_grad_enabled(self.training and torch.is_grad_enabled()):
+            fused, fpsbpts, _, inter = self.point_volume(points, pts_mask)
+            outs = self.pts_bbox_head(fused, fpsbpts, random_points)
+        return (outs, inter) if return_intermediates else outs

@@ -22,6 +22,20 @@ from .transformer import Uni3DETRDecoder, _Transformer
 _CLS_BIAS_INIT = float(-math.log((1 - 0.01) / 0.01))
 
 
+def decode_layer_boxes(tmp, ref, pr):
+    """A layer's reg output (..., code) and the reference entering it
+    (..., 3), logit space -> boxes: the centre is the sigmoid of offset
+    plus reference, scaled to ``pc_range`` ``pr``; sizes, yaw (and
+    velocity) pass through."""
+    xy = torch.sigmoid(tmp[..., 0:2] + ref[..., 0:2])
+    z = torch.sigmoid(tmp[..., 4:5] + ref[..., 2:3])
+    return torch.cat([xy[..., 0:1] * (pr[3] - pr[0]) + pr[0],
+                      xy[..., 1:2] * (pr[4] - pr[1]) + pr[1],
+                      tmp[..., 2:4],
+                      z * (pr[5] - pr[2]) + pr[2],
+                      tmp[..., 5:]], dim=-1)
+
+
 class Uni3DETRHead(nn.Module):
 
     def __init__(self, num_classes: int, num_query: int = 300,
@@ -70,21 +84,13 @@ class Uni3DETRHead(nn.Module):
         G = query.shape[1]
         states, refs_in = self.transformer.decoder(query, ref, volume,
                                                    self.reg_branches)
-        pr = self.pc_range
         all_cls, all_box, all_iou = [], [], []
         for l, (h, r) in enumerate(zip(states, refs_in)):
             h = h.reshape(B, G * nq, C)
-            r = r.reshape(B, G * nq, 3)
-            tmp = self.reg_branches[l](h)
-            xy = torch.sigmoid(tmp[..., 0:2] + r[..., 0:2])
-            z = torch.sigmoid(tmp[..., 4:5] + r[..., 2:3])
-            box = torch.cat([xy[..., 0:1] * (pr[3] - pr[0]) + pr[0],
-                             xy[..., 1:2] * (pr[4] - pr[1]) + pr[1],
-                             tmp[..., 2:4],
-                             z * (pr[5] - pr[2]) + pr[2],
-                             tmp[..., 5:]], dim=-1)
             all_cls.append(self.cls_branches[l](h))
-            all_box.append(box)
+            all_box.append(decode_layer_boxes(
+                self.reg_branches[l](h), r.reshape(B, G * nq, 3),
+                self.pc_range))
             all_iou.append(self.iou_branches[l](h)[..., 0])
         return {
             "all_cls_scores": torch.stack(all_cls).float(),

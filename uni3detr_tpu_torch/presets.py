@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import dataclasses
 
-from .config import Uni3DETRConfig
+from .config import OVUni3DETRConfig, Uni3DETRConfig
 
 # uni3detr_sunrgbd.py:10-12,26-140,230-242
 SUNRGBD = Uni3DETRConfig(
@@ -107,6 +107,57 @@ TINY_SYNTHETIC = Uni3DETRConfig(
     post_center_range=(-2.0, -2.0, -1.0, 2.0, 2.0, 1.0),
 )
 
+_OV_COMMON = dict(
+    num_classes=46, code_size=8,
+    pc_range=(-3.2, -0.2, -2.0, 3.2, 6.2, 0.56),
+    voxel_size=(0.02, 0.02, 0.02), grid_size=(128, 320, 320),
+    max_points_per_voxel=5, max_voxels=16000, max_voxels_test=40000,
+    num_points=100000, max_gt=64, in_point_features=4,
+    num_query=300,
+    post_center_range=(-3.2, -0.2, -2.0, 3.2, 6.2, 0.56),
+    max_num=1000, coder_alpha=1.0, post_processing="nms", nms_thr=0.5,
+    num_cams=1, img_size=(480, 640), depth_dim=64, clip_dim=1024,
+    encoder_budget_shrink=(0.7, 0.3, 0.12),  # same geometry as SUNRGBD
+    compute_dtype="bfloat16",
+)
+
+# ov_uni3detr_sunrgbd_pc.py: point-only OV, 46 classes, 3 decoder layers
+OV_SUNRGBD_PC = OVUni3DETRConfig(
+    **_OV_COMMON, use_camera=False, multimodal=False,
+    num_decoder_layers=3)
+
+# ov_uni3detr_sunrgbd_rgb.py: camera-only, 6 decoder layers, voxel lift
+OV_SUNRGBD_RGB = OVUni3DETRConfig(
+    **_OV_COMMON, use_lidar=False, multimodal=False,
+    num_decoder_layers=6)
+
+# ov_uni3detr_sunrgbd_mm.py: both branches + fusion
+OV_SUNRGBD_MM = OVUni3DETRConfig(
+    **_OV_COMMON, multimodal=True, num_decoder_layers=6)
+
+# tiny OV model for tests (not a reference config)
+OV_TINY_SYNTHETIC = OVUni3DETRConfig(
+    **{k: getattr(TINY_SYNTHETIC, k)
+       for k in TINY_SYNTHETIC.__dataclass_fields__},
+    num_cams=1, img_size=(32, 32), depth_dim=8, num_view_convs=1,
+    fpn_levels=2, stage_with_dcn=(False, False, True, True),
+    clip_dim=16, multimodal=True,
+)
+
+# the 46 SUN RGB-D classes of the OV presets and the 10 seen in training
+# (configs/ov_uni3detr/ov_uni3detr_sunrgbd_pc.py class_names, seen_classes)
+OV_SUNRGBD_CLASSES = (
+    'chair', 'table', 'pillow', 'sofa_chair', 'desk', 'bed', 'sofa',
+    'computer', 'box', 'lamp', 'garbage_bin', 'cabinet', 'shelf', 'drawer',
+    'sink', 'night_stand', 'kitchen_counter', 'paper', 'end_table',
+    'kitchen_cabinet', 'picture', 'book', 'stool', 'coffee_table',
+    'bookshelf', 'painting', 'key_board', 'dresser', 'tv', 'whiteboard',
+    'cpu', 'toilet', 'file_cabinet', 'bench', 'ottoman', 'plant', 'monitor',
+    'printer', 'recycle_bin', 'door', 'fridge', 'towel', 'cup', 'mirror',
+    'laptop', 'cloth')
+OV_SUNRGBD_SEEN = ('chair', 'table', 'pillow', 'sofa_chair', 'desk', 'bed',
+                   'sofa', 'computer', 'lamp', 'box')
+
 PRESETS = {
     "uni3detr_sunrgbd": SUNRGBD,
     "uni3detr_nuscenes": NUSCENES,
@@ -115,4 +166,8 @@ PRESETS = {
     "uni3detr_kitti_car": KITTI_CAR,
     "uni3detr_kitti_3classes": KITTI_3CLASSES,
     "uni3detr_tiny_synthetic": TINY_SYNTHETIC,
+    "ov_uni3detr_sunrgbd_pc": OV_SUNRGBD_PC,
+    "ov_uni3detr_sunrgbd_rgb": OV_SUNRGBD_RGB,
+    "ov_uni3detr_sunrgbd_mm": OV_SUNRGBD_MM,
+    "ov_uni3detr_tiny_synthetic": OV_TINY_SYNTHETIC,
 }

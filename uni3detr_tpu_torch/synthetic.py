@@ -112,3 +112,46 @@ def clustered_train_batch(seed: int, cfg: Uni3DETRConfig, batch: int,
     pts = np.stack(pts)
     return {"points": pts, "pts_mask": np.ones(pts.shape[:2], bool),
             "gt_boxes": boxes, "gt_labels": labels, "gt_mask": gmask}
+
+
+# the synthetic camera: SUN RGB-D's depth coordinates put the camera at
+# the origin looking along +y with z up, so camera x = x, camera y (image
+# rows, down) = -z and the depth is y; fx = fy = 520 at 640 pixels wide
+# (SUN RGB-D's Kinect intrinsics are ~518-529), scaled with the width,
+# the principal point at the image centre
+CAMERA_FOCAL = 520.0
+LIDAR_TO_CAMERA = np.array([[1, 0, 0, 0], [0, 0, -1, 0], [0, 1, 0, 0],
+                            [0, 0, 0, 1]], np.float32)
+
+
+def lidar2img(img_size) -> np.ndarray:
+    """(4, 4) projection of the synthetic camera for an (H, W) image."""
+    H, W = img_size
+    K = np.eye(4, dtype=np.float32)
+    K[0, 0] = K[1, 1] = CAMERA_FOCAL * W / 640
+    K[0, 2], K[1, 2] = W / 2, H / 2
+    return K @ LIDAR_TO_CAMERA
+
+
+def ov_scene(seed: int, cfg, distribution: str = "clustered"):
+    """One OV input batch (B=1) as numpy, with the keys the OV model
+    reads: the points of ``clustered_scene(seed, cfg, distribution)``
+    (``cfg.use_lidar``) and, with ``cfg.use_camera``, a uniform [0, 1)
+    RGB image of ``cfg.img_size`` per camera and sweep, the synthetic
+    camera's ``lidar2img`` and an identity ``uni_rot_aug``.
+
+    Returns (batch dict, random query points (1, nq, 3))."""
+    pts, rnd = clustered_scene(seed, cfg, distribution)
+    batch = {}
+    if cfg.use_lidar:
+        batch["points"] = pts
+        batch["pts_mask"] = np.ones(pts.shape[:2], bool)
+    if cfg.use_camera:
+        rng = np.random.RandomState([seed, 1])
+        N = cfg.num_cams * cfg.num_sweeps
+        H, W = cfg.img_size
+        batch["images"] = rng.rand(1, N, H, W, 3).astype(np.float32)
+        batch["lidar2img"] = np.broadcast_to(
+            lidar2img(cfg.img_size), (1, N, 4, 4)).copy()
+        batch["uni_rot_aug"] = np.eye(3, dtype=np.float32)[None]
+    return batch, rnd

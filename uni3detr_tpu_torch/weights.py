@@ -4,6 +4,9 @@
   (``{"params", "batch_stats"}`` as numpy) into the port's reference-
   layout ``state_dict``: the inverse of
   ``uni3detr_tpu/train/torch_import.py::import_torch_state_dict``.
+- :func:`state_dict_from_jax_ov` does the same for ``OV_Uni3DETR``
+  (``{"params", "batch_stats", "constants"}``): the inverse of
+  ``import_torch_state_dict_ov``.
 - :func:`random_state_dict` makes seeded random weights for a model
   (numpy's generator, so every device gets the same numbers).
 """
@@ -140,7 +143,10 @@ def _head(o: _Out, cfg, p, prefix):
         _branch(o, f"{prefix}.cls_branches.{l}", p[f"cls_branch{l}"], True)
         _branch(o, f"{prefix}.reg_branches.{l}", p[f"reg_branch{l}"], False)
         _branch(o, f"{prefix}.iou_branches.{l}", p[f"iou_branch{l}"], False)
-    dec, dp = f"{prefix}.transformer.decoder", p["decoder"]
+    _decoder(o, cfg, p["decoder"], f"{prefix}.transformer.decoder")
+
+
+def _decoder(o: _Out, cfg, dp, dec):
     for mlp in ("ref_point_head", "query_scale"):
         for i in range(3):
             o.linear(f"{dec}.{mlp}.layers.{i}", dp[mlp][f"Dense_{i}"])
@@ -174,12 +180,129 @@ def state_dict_from_jax(variables: Mapping, cfg: Uni3DETRConfig
     return o.sd
 
 
+def _conv2d(o: _Out, k, p):
+    """flax Conv (kh, kw, in, out) [+ bias] -> torch (out, in, kh, kw)."""
+    o.sd[k + ".weight"] = _f32(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+    if "bias" in p:
+        o.sd[k + ".bias"] = _f32(p["bias"])
+
+
+def _resnet(o: _Out, cfg, p, s, prefix):
+    _conv2d(o, f"{prefix}.conv1", p["stem_conv"])
+    o.bn(f"{prefix}.bn1", p["stem_bn"], s["stem_bn"])
+    for i, n in enumerate((3, 4, 6, 3)):
+        for j in range(n):
+            src = f"{prefix}.layer{i + 1}.{j}"
+            bp, bs = p[f"layer{i + 1}_{j}"], s[f"layer{i + 1}_{j}"]
+            _conv2d(o, f"{src}.conv1", bp["conv1"])
+            if cfg.stage_with_dcn[i]:
+                w = np.asarray(bp["conv2"]["kernel"])   # (kk, in, out)
+                k = round(w.shape[0] ** 0.5)
+                o.sd[f"{src}.conv2.weight"] = _f32(
+                    w.reshape(k, k, *w.shape[1:]).transpose(3, 2, 0, 1))
+                _conv2d(o, f"{src}.conv2.conv_offset",
+                        bp["conv2"]["offset_conv"])
+            else:
+                _conv2d(o, f"{src}.conv2", bp["conv2"])
+            _conv2d(o, f"{src}.conv3", bp["conv3"])
+            for b in (1, 2, 3):
+                o.bn(f"{src}.bn{b}", bp[f"bn{b}"], bs[f"bn{b}"])
+            if j == 0:
+                _conv2d(o, f"{src}.downsample.0", bp["ds_conv"])
+                o.bn(f"{src}.downsample.1", bp["ds_bn"], bs["ds_bn"])
+
+
+# the BN variance that the JAX importer's eps 1e-5 turns into a scale of
+# exactly 1 in fp32 (1 / sqrt(var + 1e-5) == 1)
+_UNIT_VAR = np.float32(1.0) - np.float32(1e-5)
+
+
+def _view_trans(o: _Out, cfg, p, s, prefix):
+    for k in range(cfg.num_view_convs):
+        src = f"{prefix}.conv_trans_head_{k + 1}"
+        o.conv3d(f"{src}.0", p[f"conv_trans{k + 1}"]["kernel"])
+        o.sd[f"{src}.0.bias"] = _f32(p[f"conv_trans{k + 1}"]["bias"])
+        o.bn(f"{src}.1", p[f"bn{k + 1}"], s[f"bn{k + 1}"])
+    for name in ("trans_conv", "time_conv"):
+        if name in p:
+            # the JAX Dense holds the reference's conv with its eval BN
+            # folded in: the conv takes the Dense, the BN is the identity
+            kern = np.asarray(p[name]["kernel"])          # (in, out)
+            o.sd[f"{prefix}.{name}.0.weight"] = _f32(kern.T.reshape(
+                kern.shape[1], kern.shape[0], 1, 1, 1))
+            o.sd[f"{prefix}.{name}.0.bias"] = _f32(p[name]["bias"])
+            c = kern.shape[1]
+            o.bn(f"{prefix}.{name}.1",
+                 {"scale": np.ones(c), "bias": np.zeros(c)},
+                 {"mean": np.zeros(c), "var": np.full(c, _UNIT_VAR)})
+
+
+def _head_clip(o: _Out, cfg, p, c, prefix):
+    o.sd[f"{prefix}.tgt_embed.weight"] = _f32(p["tgt_embed"])
+    o.sd[f"{prefix}.refpoint_embed.weight"] = _f32(p["refpoint_embed"])
+    for l in range(cfg.num_decoder_layers):
+        cb = p[f"cls_branch{l}"]
+        for i, seq in enumerate((0, 3)):
+            o.linear(f"{prefix}.cls_branches.{l}.{seq}", cb[f"Dense_{i}"])
+            o.layernorm(f"{prefix}.cls_branches.{l}.{seq + 1}",
+                        cb[f"LayerNorm_{i}"])
+        _branch(o, f"{prefix}.uncertainty_branches.{l}",
+                p[f"uncertainty_branch{l}"], True)
+        _branch(o, f"{prefix}.reg_branches.{l}", p[f"reg_branch{l}"], False)
+        _branch(o, f"{prefix}.iou_branches.{l}", p[f"iou_branch{l}"], False)
+    _decoder(o, cfg, p["decoder"], f"{prefix}.transformer.decoder")
+    # stored (ncls, clip_dim) in JAX, registered transposed in the reference
+    o.sd[f"{prefix}.zs_weights"] = _f32(np.asarray(c["zs_weights"]).T)
+
+
+def state_dict_from_jax_ov(variables: Mapping, cfg
+                           ) -> Dict[str, np.ndarray]:
+    """JAX ``{"params", "batch_stats", "constants"}`` of ``OV_Uni3DETR``
+    -> the port's ``state_dict`` as numpy arrays: the inverse of
+    ``import_torch_state_dict_ov`` (the reference's dead ``pts_conv`` /
+    ``img_conv`` modules, which that importer drops, are not built)."""
+    p, s = variables["params"], variables["batch_stats"]
+    o = _Out()
+    if "pts_middle_encoder" in p:
+        _encoder(o, cfg, p["pts_middle_encoder"], s["pts_middle_encoder"],
+                 "pts_middle_encoder")
+        _backbone(o, cfg, p["pts_backbone"], s["pts_backbone"],
+                  "pts_backbone")
+        _neck(o, cfg, p["pts_neck"], s["pts_neck"], "pts_neck")
+    if "img_backbone" in p:
+        _resnet(o, cfg, p["img_backbone"], s["img_backbone"], "img_backbone")
+        for i in range(4):
+            for kind, name in (("lateral", "lateral_convs"),
+                               ("fpn_conv", "fpn_convs")):
+                _conv2d(o, f"img_neck.{name}.{i}.conv",
+                        p["img_neck"][f"{kind}{i}"])
+        _conv2d(o, "input_proj", p["input_proj"])
+        _conv2d(o, "depth_net", p["depth_net"])
+        _view_trans(o, cfg, p["view_trans"], s.get("view_trans", {}),
+                    "view_trans")
+    if "fusion_conv" in p:
+        o.conv3d("conv_trans_head_1.0", p["fusion_conv"]["kernel"])
+        o.sd["conv_trans_head_1.0.bias"] = _f32(p["fusion_conv"]["bias"])
+        o.bn("conv_trans_head_1.1", p["fusion_bn"], s["fusion_bn"])
+    _head_clip(o, cfg, p["pts_bbox_head"], variables["constants"][
+        "pts_bbox_head"], "pts_bbox_head")
+    return o.sd
+
+
+DCN_OFFSET_SCALE = 0.02
+
+
 def random_state_dict(model: nn.Module, seed: int) -> Dict[str, np.ndarray]:
     """Seeded random weights for every entry of ``model.state_dict()``.
 
     Weights are N(0, 2/fan) (fan = fan_in + fan_out for linears, fan_in
     for convs), norm scales 1 + 0.1 N, biases 0.02 N, BN running means
-    0.1 N and variances U(0.5, 1.5), embeddings N(0, 1).
+    0.1 N and variances U(0.5, 1.5), embeddings N(0, 1), the CLIP text
+    embeddings N(0, 1) normalised per class. The DCN offset convs take
+    ``DCN_OFFSET_SCALE`` of a conv's weights: the deep ResNet stages'
+    activations reach ~1e2, and full-size offset weights would move every
+    tap out of the image (a DCN of zeros), where these move them by
+    about a pixel or a few.
     """
     rng = np.random.RandomState(seed)
     out = {}
@@ -188,6 +311,9 @@ def random_state_dict(model: nn.Module, seed: int) -> Dict[str, np.ndarray]:
         leaf = name.rsplit(".", 1)[-1]
         if leaf == "num_batches_tracked":
             out[name] = np.asarray(0, np.int64)
+        elif leaf == "zs_weights":  # (clip_dim, ncls), unit columns
+            w = rng.randn(*shape)
+            out[name] = w / np.linalg.norm(w, axis=0, keepdims=True)
         elif leaf == "running_var":
             out[name] = rng.uniform(0.5, 1.5, shape)
         elif leaf == "running_mean":
@@ -206,6 +332,8 @@ def random_state_dict(model: nn.Module, seed: int) -> Dict[str, np.ndarray]:
         else:                       # conv (out, in, k..) / deconv (in, ..)
             fan_in = int(np.prod(shape[1:]))
             out[name] = rng.randn(*shape) * math.sqrt(2.0 / fan_in)
+            if "conv_offset" in name:
+                out[name] *= DCN_OFFSET_SCALE
         out[name] = np.asarray(out[name]).astype(
             np.int64 if leaf == "num_batches_tracked" else np.float32)
     return out
