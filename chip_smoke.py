@@ -154,10 +154,32 @@ the fusion conv, a 6-layer CLIP head with 4 x 300 queries, 46 classes):
     ``ov_uni3detr_sunrgbd_rgb`` (camera only, 6 layers, one query group:
     no K1-K4 launch) scenes to boxes, launch counts asserted.
 
+OV-Uni3DETR training (``ov_train``), on ``synthetic.ov_train_batch``
+(the GT boxes whose centre the camera sees) at the configs' batch
+sizes:
+
+44. mm train kernels: K7 and K10 against their plain versions on the
+    features and cotangents of one train step's own backward (recorded
+    at the wrappers, ri 2), K4 at the B=4 batch, K12 on the step's own
+    costs of all 6 layers (72 x 64 x 384) in every variant, as phase 6;
+45. mm train at B=4: two warm-up and 14 timed steps under the config's
+    step schedule (milestones inside the run) with its lr multipliers;
+    ri drawn each step from a seeded CPU generator and each step's
+    launches asserted by ri (ri 1, 2: K1 4, K2 33, K3 6, K4 1, K7 17,
+    K10 3, K12 1; ri 0: K1 4, K2 17, K3 3, K4 1, K12 1); the loss must
+    fall, ri take all three values and the frozen ResNet stages end
+    bit-equal;
+46. checkpoint round trip as phase 13, the modality generator
+    included;
+47. one fp32 mm step card vs CPU at B=2 (ri 2), as phase 8, with the
+    image backbone, FPN + proj + depth and view convs + fusion groups;
+48/49. pc at B=8 and rgb at B=2 (K12 alone): seven steps each, launches
+    asserted.
+
 Then one JSON line of the kernels (launches summed over every path's
 run: the inference and train runs of all six Lidar presets, the three
-OV presets' inference runs and K11's own call, each read right after
-its run; times, errors, ``bound_ms`` with
+OV presets' inference and train runs and K11's own call, each read
+right after its run; times, errors, ``bound_ms`` with
 ``bound_by``, ``library_ms`` (null where no single PyTorch call
 computes the kernel's function) and, for the convs, ``gemm_ms``, at the
 nuScenes shapes for K1-K12, summed per scene for K1-K4, per train step
@@ -193,7 +215,8 @@ PARITY_B = 2          # phase 8 batch (the CPU side runs the full model)
 PARITY_LOSS_RTOL = 2e-3
 # phase 8, max |grad diff| / max |grad| per group; see train_parity_phase
 PARITY_GRAD_RTOL = {"sparse-conv weights": 0.3, "backbone+neck": 0.3,
-                    "head": 0.01}
+                    "head": 0.01, "image backbone": 0.3, "FPN+proj+depth": 0.3,
+                    "view convs+fusion": 0.3}
 NUS_SCENES = 5        # phase 10, the first is the warm-up
 NUS_WARMUP, NUS_STEPS = 3, 20
 # uni3detr_nuscenes.py optimizer / lr_config / momentum_config
@@ -220,6 +243,22 @@ EVAL_IOU_ATOL = 1e-4
 OV_SCENES = 4         # phases 38 and 42-43, the first is the warm-up
 OV_MIN_KEPT = 0.10    # phase 40: the least share of voxels the lift keeps
 OV_VOLUME_RTOL = 1e-3  # phase 41, of the largest value; see ov_fp32_phase
+# phases 44-49: the OV configs' samples_per_gpu (mm 4, pc 8, rgb 2)
+OV_TRAIN_B = {"mm": 4, "pc": 8, "rgb": 2}
+OV_TRAIN_WARMUP, OV_TRAIN_STEPS = 2, 14      # mm; pc and rgb 1 + 6
+OV_PARITY_B = 2       # phase 47 (the CPU side runs the full model)
+OV_PARITY_MODALITY = 2
+# phase 47's gradient norm, relative: the ResNet's gradients carry ~1% of
+# ReLU-mask noise between two correct fp32 runs (the CPU port against an
+# fp64 run of itself, tests/test_torch_port_ov_train.py), which moves the
+# global norm by ~0.5% between card and CPU
+OV_PARITY_NORM_RTOL = 2e-2
+OV_MODALITY_SEED = 0
+# ov_uni3detr_sunrgbd_pc.py optimizer / lr_config (mm and rgb inherit):
+# AdamW 2e-5 * 2 / 8 * 20, the step policy at epochs 32 and 38 of 40
+# (the run's steps stand for the 40 epochs, so both milestones fall
+# inside it)
+OV_LR, OV_MILESTONES, OV_EPOCHS = 2e-5 * 2 / 8 * 20, (32, 38), 40
 CKPT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "build", "chip_smoke_checkpoint")
 
@@ -1192,23 +1231,51 @@ def fp32_phase(torch, base_cfg, sd, scene, dev, tag, every_layer=True,
              f"{within} of the outputs within {FP32_ATOL}")
 
 
-def train_per_step(cfg):
+def train_per_step(cfg, modality=None):
     """Kernel launches of one train step: the forward's K1-K4, K2/K3
     again for the feature gradients (not of conv_input, whose input needs
     none), K7/K10 for every weight gradient, K12 once for the instances
-    of all decoder layers."""
+    of all decoder layers. OV-Uni3DETR: camera-only runs K12 alone; under
+    the modality draw ri = 0 ([image, image]) no gradient reaches the
+    point branch, which still runs forward."""
+    counts = dict.fromkeys(kernel_wrappers(), 0)
+    counts["auction_lap"] = 1
+    if is_ov(cfg) and not cfg.use_lidar:
+        return counts
     subm, strided = conv_cases(cfg)
     n_subm = sum(c[-1] for c in subm)
-    return {"match_positions": len(cfg.encoder_channels),
-            "gather_conv": 2 * n_subm - 1,
-            "gather_conv_ids": 2 * len(strided), "fps_pair": 1,
-            "iou3d_rotated": 0, "nms_greedy": 0, "iou3d_rotated_matrix": 0,
-            "iou3d_rotated_sets": 0, "iou_bev_rotated_sets": 0,
-            "gather_conv_dw": n_subm, "gather_conv_ids_dw": len(strided),
-            "auction_lap": 1}
+    counts.update(match_positions=len(cfg.encoder_channels),
+                  gather_conv=n_subm, gather_conv_ids=len(strided),
+                  fps_pair=1)
+    if modality != 0:
+        counts.update(gather_conv=2 * n_subm - 1,
+                      gather_conv_ids=2 * len(strided),
+                      gather_conv_dw=n_subm,
+                      gather_conv_ids_dw=len(strided))
+    return counts
 
 
-def dw_phase(torch, model, batch, dev, tag, kitti_auction):
+def is_ov(cfg):
+    return hasattr(cfg, "clip_dim")
+
+
+def build_model(cfg):
+    """``Uni3DETR`` or, for an OV preset, ``OV_Uni3DETR``."""
+    from uni3detr_tpu_torch.models.detector import Uni3DETR
+    from uni3detr_tpu_torch.models.ov_detector import OV_Uni3DETR
+    return (OV_Uni3DETR if is_ov(cfg) else Uni3DETR)(cfg)
+
+
+def model_outputs(model, batch, modality=None):
+    """The head's outputs on a train batch dict; an OV model with both
+    branches fuses by ``modality``."""
+    if is_ov(model.cfg):
+        return model(batch, modality=modality)
+    return model(batch["points"], batch["pts_mask"])
+
+
+def dw_phase(torch, model, batch, dev, tag, kitti_auction,
+             own_cotangents=False):
     """K7, K10 and K12 against their plain versions at the train step's
     shapes, and K4 at the train batch's (B sets of each kind in one
     launch). Tolerances DW_RTOL of max |dW|: fp32 sums of up to B*V rows
@@ -1216,12 +1283,16 @@ def dw_phase(torch, model, batch, dev, tag, kitti_auction):
     looser only for safety. bf16 K7/K10 must give a bit-equal dW on a
     second call (fixed-order chunk sums, no float atomics); each shape
     prints the products' rate achieved (``pairs`` products of C x Cout).
-    Auction and FPS: equal."""
+    Auction and FPS: equal. K7/K10 take random features and cotangents
+    in fp32 and bf16 at each shape, or with ``own_cotangents`` the
+    features and cotangents of one train step (``own_dw_calls``, the
+    preset's dtype). An OV model's step fuses [points, image] (ri 2)."""
     from uni3detr_tpu_torch.geom.boxes import gravity_center_boxes
     from uni3detr_tpu_torch.ops import fps, matching, sparse_conv_cuda as sc
     from uni3detr_tpu_torch.train import losses
 
     cfg = model.cfg
+    B = batch["points"].shape[0]
     feats, coords, vmask = model.voxelize(batch["points"], batch["pts_mask"])
     sets = model.pts_middle_encoder.site_sets(coords, vmask, backward=True)
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -1231,73 +1302,93 @@ def dw_phase(torch, model, batch, dev, tag, kitti_auction):
         _report_add(report, name, *a, **kw)
         _report_add(by_route, route, *a, **kw)
 
-    def dw_check(name, kern, plain, rest, nb, C, Cout, V, Vout, calls,
-                 route):
-        K = nb.shape[2]
+    def check(name, kern, plain, a, nb, V, Vout, calls, route, what):
+        C, Cout, K = a[0].shape[2], a[-1].shape[2], nb.shape[2]
         pairs = int((nb < V).sum())
-        for dtype, key in ((torch.float32, "float32"),
-                           (torch.bfloat16, "bfloat16")):
-            x = torch.randn((TRAIN_B, V, C), generator=gen, device=dev)
-            g = torch.randn((TRAIN_B, Vout, Cout), generator=gen, device=dev)
-            a = (x.to(dtype),) + rest + (g.to(dtype),)
-            got, ref = kern(*a), plain(*a)
-            err = (got - ref).abs().max().item()
-            scale = ref.abs().max().item()
-            if not err <= DW_RTOL[key] * max(scale, 1e-6):
-                fail(f"{name} C={C}->{Cout} {dtype}: max err {err} > "
-                     f"{DW_RTOL[key]} x {scale}")
-            bf16 = dtype == torch.bfloat16
-            if bf16 and not torch.equal(kern(*a), got):
-                fail(f"{name} C={C}->{Cout} bf16: two calls differ")
-            ms = median_ms(torch, lambda: kern(*a), 10)
-            pms = median_ms(torch, lambda: plain(*a), 10)
-            bound = dw_roofline(pairs, V, C, Vout, K, Cout, TRAIN_B,
-                                elem=2 if bf16 else 4,
-                                ids=name == "gather_conv_ids_dw")
-            extra = ""
-            if bf16:   # the presets' dtype: reported
-                rows_t = _gathered(torch, a[0], nb).T
-                g2 = a[-1].reshape(-1, Cout)
-                gms = median_ms(torch, lambda: rows_t @ g2, 10)
-                add(name, route, err, ms, pms, calls, bound, gemm_ms=gms)
-                extra = f" gemm_ms={gms:.4f} repeat bit-equal"
-                del rows_t, g2
-            print(f"[{tag}] {name} B={TRAIN_B} V={V} Vout={Vout} "
-                  f"C={C}->{Cout} {dtype} max_abs_err={err:.3g} (max |ref| "
-                  f"{scale:.3g}, rtol {DW_RTOL[key]}) ms={ms:.4f} "
-                  f"plain_ms={pms:.4f}{extra} bound_ms="
-                  f"{bound['bound_ms']:.5f} ({bound['bound_by']}, {pairs} "
-                  f"pairs, {bound['ops'] / ms / 1e9:.2f} TFLOP/s achieved) "
-                  f"x{calls}/step tpu={route}")
-            del got, ref, a, x, g
+        key = "bfloat16" if a[0].dtype == torch.bfloat16 else "float32"
+        got, ref = kern(*a), plain(*a)
+        err = (got - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        if not err <= DW_RTOL[key] * max(scale, 1e-6):
+            fail(f"{name} C={C}->{Cout} {key} ({what}): max err {err} > "
+                 f"{DW_RTOL[key]} x {scale}")
+        bf16 = key == "bfloat16"
+        if bf16 and not torch.equal(kern(*a), got):
+            fail(f"{name} C={C}->{Cout} bf16 ({what}): two calls differ")
+        ms = median_ms(torch, lambda: kern(*a), 10)
+        pms = median_ms(torch, lambda: plain(*a), 10)
+        bound = dw_roofline(pairs, V, C, Vout, K, Cout, B,
+                            elem=2 if bf16 else 4,
+                            ids=name == "gather_conv_ids_dw")
+        extra = ""
+        if bf16:   # the presets' dtype: reported
+            rows_t = _gathered(torch, a[0], nb).T
+            g2 = a[-1].reshape(-1, Cout)
+            gms = median_ms(torch, lambda: rows_t @ g2, 10)
+            add(name, route, err, ms, pms, calls, bound, gemm_ms=gms)
+            extra = f" gemm_ms={gms:.4f} repeat bit-equal"
+            del rows_t, g2
+        print(f"[{tag}] {name} B={B} V={V} Vout={Vout} C={C}->{Cout} "
+              f"{key} ({what}) max_abs_err={err:.3g} (max |ref| "
+              f"{scale:.3g}, rtol {DW_RTOL[key]}) ms={ms:.4f} "
+              f"plain_ms={pms:.4f}{extra} bound_ms={bound['bound_ms']:.5f} "
+              f"({bound['bound_by']}, {pairs} pairs, "
+              f"{bound['ops'] / ms / 1e9:.2f} TFLOP/s achieved) "
+              f"x{calls}/step tpu={route}")
+        del got, ref
 
-    subm, strided = conv_cases(cfg)
-    for si, C, Cout, calls in subm:
-        s = sets[si]
-        nb = sc.match_positions_plain(s["ids"], s["qids"], s["n_sites"])
-        dw_check("gather_conv_dw", sc.gather_conv_dw,
-                 sc.gather_conv_dw_plain, (nb,), nb, C, Cout, s["n_sites"],
-                 s["n_sites"], calls, tpu_route("subm-dw", s["n_sites"]))
-    for si, C, Cout, calls in strided:
-        prev, s = sets[si - 1], sets[si]
-        nb = sc.match_positions_plain(prev["ids"], s["sq"], prev["n_sites"])
-        dw_check("gather_conv_ids_dw", sc.gather_conv_ids_dw,
-                 sc.gather_conv_ids_dw_plain, (prev["ids"], s["sq"]), nb, C,
-                 Cout, prev["n_sites"], s["n_sites"], calls,
-                 tpu_route("strided-dw", prev["n_sites"], s["n_sites"]))
+    def random_inputs(rest, V, Vout, C, Cout):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((B, V, C), generator=gen, device=dev)
+            g = torch.randn((B, Vout, Cout), generator=gen, device=dev)
+            yield (x.to(dtype),) + rest + (g.to(dtype),)
 
-    # K4 at the train batch: 2 * TRAIN_B problems a launch, the largest
+    if own_cotangents:
+        for name, a in own_dw_calls(torch, model, batch):
+            V, Vout = a[0].shape[1], a[-1].shape[1]
+            if name == "gather_conv_dw":
+                nb, kern, plain = a[1], sc.gather_conv_dw, \
+                    sc.gather_conv_dw_plain
+                route = tpu_route("subm-dw", V)
+            else:
+                nb = sc.match_positions_plain(a[1], a[2], V)
+                kern, plain = sc.gather_conv_ids_dw, \
+                    sc.gather_conv_ids_dw_plain
+                route = tpu_route("strided-dw", V, Vout)
+            check(name, kern, plain, a, nb, V, Vout, 1, route,
+                  "the step's own")
+    else:
+        subm, strided = conv_cases(cfg)
+        for si, C, Cout, calls in subm:
+            s = sets[si]
+            V = s["n_sites"]
+            nb = sc.match_positions_plain(s["ids"], s["qids"], V)
+            for a in random_inputs((nb,), V, V, C, Cout):
+                check("gather_conv_dw", sc.gather_conv_dw,
+                      sc.gather_conv_dw_plain, a, nb, V, V, calls,
+                      tpu_route("subm-dw", V), "random")
+        for si, C, Cout, calls in strided:
+            prev, s = sets[si - 1], sets[si]
+            V, Vout = prev["n_sites"], s["n_sites"]
+            nb = sc.match_positions_plain(prev["ids"], s["sq"], V)
+            for a in random_inputs((prev["ids"], s["sq"]), V, Vout, C,
+                                   Cout):
+                check("gather_conv_ids_dw", sc.gather_conv_ids_dw,
+                      sc.gather_conv_ids_dw_plain, a, nb, V, Vout, calls,
+                      tpu_route("strided-dw", V, Vout), "random")
+
+    # K4 at the train batch: 2 * B problems a launch, the largest
     # slices in shared memory of any main-path call; exact
     fargs = fps_sets(torch, batch["points"], batch["pts_mask"], coords,
                      vmask)
     S = cfg.num_query
     sizes = [fargs[0].shape[1], fargs[2].shape[1]]
     sms, smem_limit, _ = fps._device_limits(dev.index or 0)
-    grid, in_smem = fps.fps_plan(sizes, TRAIN_B, sms, smem_limit)
-    fps_pair_check(torch, fargs, S, f"{tag} B={TRAIN_B} N={sizes}")
+    grid, in_smem = fps.fps_plan(sizes, B, sms, smem_limit)
+    fps_pair_check(torch, fargs, S, f"{tag} B={B} N={sizes}")
     ms = median_ms(torch, lambda: fps.farthest_point_sample_pair(*fargs, S),
                    5)
-    print(f"[{tag}] K4 fps_pair B={TRAIN_B} N=({sizes[0]}, {sizes[1]}) "
+    print(f"[{tag}] K4 fps_pair B={B} N=({sizes[0]}, {sizes[1]}) "
           f"S={S} exact ms={ms:.4f} grid={grid} slices in "
           f"{'shared' if in_smem else 'global'} memory x1/step")
 
@@ -1306,7 +1397,7 @@ def dw_phase(torch, model, batch, dev, tag, kitti_auction):
     # builds them; then DETR-like synthetic costs (focal +-4, L1, IoU
     # terms) and a KITTI-shaped set (gt_repeat=5 duplicated columns)
     torch.manual_seed(0)          # dropout
-    outs = model(batch["points"], batch["pts_mask"])
+    outs = model_outputs(model, batch, modality=2)
     costs = losses.all_layer_costs(outs, gravity_center_boxes(
         batch["gt_boxes"]), batch["gt_labels"], cfg)
     L, B = costs.shape[:2]
@@ -1323,7 +1414,7 @@ def dw_phase(torch, model, batch, dev, tag, kitti_auction):
         return matching._auction_instances(c.repeat(1, 1, rep))
 
     cases = [("model-costs", *model_case, 1),
-             ("synthetic", *synthetic(TRAIN_B * 3, cfg.num_query,
+             ("synthetic", *synthetic(B * 3, cfg.num_query,
                                       cfg.max_gt, 1), 2048.0, 0)]
     if kitti_auction:
         # KITTI: 300 queries, 50 GT columns tiled 5 times, eps spread / 8**3
@@ -1337,6 +1428,44 @@ def dw_phase(torch, model, batch, dev, tag, kitti_auction):
           f"budgets={[s['n_sites'] for s in sets]}")
     print_report(tag, report, by_route)
     return report
+
+
+def own_dw_calls(torch, model, batch):
+    """(name, arguments) of every K7 / K10 call in the backward of one
+    train step on ``batch`` (an OV model fusing [points, image], ri 2),
+    recorded by wrapping the module's entry points for that step only;
+    the parameters' gradients are dropped after."""
+    from uni3detr_tpu_torch.geom.boxes import gravity_center_boxes
+    from uni3detr_tpu_torch.ops import sparse_conv_cuda as sc
+    from uni3detr_tpu_torch.train.losses import uni3detr_loss
+
+    calls = []
+    saved = {n: getattr(sc, n) for n in ("gather_conv_dw",
+                                         "gather_conv_ids_dw")}
+
+    def recorder(name, fn):
+        def call(*a):
+            calls.append((name, tuple(t.detach() for t in a)))
+            return fn(*a)
+        call.launches = fn.launches     # the wrapper counts by its name
+        return call
+
+    for name, fn in saved.items():
+        setattr(sc, name, recorder(name, fn))
+    try:
+        with torch.enable_grad():
+            torch.manual_seed(0)          # dropout
+            outs = model_outputs(model.train(), batch, modality=2)
+            total, _ = uni3detr_loss(outs, gravity_center_boxes(
+                batch["gt_boxes"]), batch["gt_labels"], batch["gt_mask"],
+                model.cfg)
+            total.backward()
+    finally:
+        for name, fn in saved.items():
+            fn.launches = getattr(sc, name).launches
+            setattr(sc, name, fn)
+    model.zero_grad(set_to_none=True)
+    return calls
 
 
 def auction_check(torch, tag, label, benefit, spread, eps_div, calls, add):
@@ -1394,44 +1523,64 @@ def auction_check(torch, tag, label, benefit, spread, eps_div, calls, add):
 
 
 def train_phase(torch, cfg, sd, batch, dev, tag, warmup, steps,
-                lr_schedule, momentum_schedule=None):
-    """Train steps on one fixed batch; returns (launches of the timed
-    steps, model, optimizer)."""
-    from uni3detr_tpu_torch.models.detector import Uni3DETR
+                lr_schedule, momentum_schedule=None, lr_mult=None,
+                modality_seed=None):
+    """Train steps on one fixed batch, each step's launches asserted;
+    returns (launches of the timed steps, model, optimizer, the OV
+    modality generator or None). An OV model trains with the per-module
+    multipliers ``lr_mult`` and, with both branches, draws ri from a CPU
+    generator seeded ``modality_seed``: each step's launches are those of
+    its ri, and ri must take all three values over the run; the frozen
+    ResNet stages must end bit-equal to their start."""
     from uni3detr_tpu_torch.ops import matching
     from uni3detr_tpu_torch.train.step import make_optimizer, train_step
 
-    model = Uni3DETR(cfg)
+    model = build_model(cfg)
     model.load_state_dict(sd, strict=True)
     model.to(dev)
     opt = make_optimizer(model, lr_schedule,
-                         momentum_schedule=momentum_schedule)
+                         momentum_schedule=momentum_schedule,
+                         lr_mult=lr_mult)
+    mm = is_ov(cfg) and cfg.use_lidar and cfg.use_camera
+    gen = torch.Generator().manual_seed(modality_seed) if mm else None
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters()
+              if not p.requires_grad}
     counters = kernel_wrappers()
-    losses, times = [], []
+    losses, times, draws = [], [], []
+    want = dict.fromkeys(counters, 0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     for i in range(warmup + steps):
         if i == warmup:
             for fn in counters.values():
                 fn.launches = 0
+        before = {k: fn.launches for k, fn in counters.items()}
         t0 = time.perf_counter()
-        logs = train_step(model, opt, batch)
+        logs = train_step(model, opt, batch, modality_generator=gen)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
+        ri = model.last_modality if mm else None
+        draws.append(ri)
+        step = {k: fn.launches - before[k] for k, fn in counters.items()}
+        expect = train_per_step(cfg, ri)
+        if step != expect:
+            fail(f"train step {i} (ri {ri}): launches {step} != {expect}")
+        if i >= warmup:
+            want = {k: want[k] + v for k, v in expect.items()}
         loss, gnorm = float(logs["total_loss"]), float(logs["grad_norm"])
         losses.append(loss)
         group = opt.adamw.param_groups[0]
         print(f"[{tag}] step {i}: total_loss={loss:.5f} grad_norm="
-              f"{gnorm:.5f} lr={group['lr']:.4g} beta1="
-              f"{group['betas'][0]:.4f} ms={times[-1]:.3f} peak_mem_bytes="
-              f"{torch.cuda.max_memory_allocated(dev)}"
+              f"{gnorm:.5f} lr={group['lr'] / group['lr_mult']:.4g} beta1="
+              f"{group['betas'][0]:.4f}"
+              + (f" ri={ri}" if mm else "") + f" ms={times[-1]:.3f} "
+              f"peak_mem_bytes={torch.cuda.max_memory_allocated(dev)}"
               f"{' (warm-up)' if i < warmup else ''}")
         if not all(math.isfinite(float(v)) for v in logs.values()):
             fail(f"train step {i}: non-finite logs {logs}")
     launches = {k: fn.launches for k, fn in counters.items()}
     if not all(bool(torch.isfinite(p).all()) for p in model.parameters()):
         fail("train: non-finite parameters after the run")
-    want = {k: v * steps for k, v in train_per_step(cfg).items()}
     timed = times[warmup:]
     print(f"[{tag}] ms/step median of {steps} after {warmup} "
           f"warm-up={statistics.median(timed):.3f} min={min(timed):.3f} "
@@ -1440,22 +1589,39 @@ def train_phase(torch, cfg, sd, batch, dev, tag, warmup, steps,
     print(f"[{tag}] launches={launches} expected={want}")
     if launches != want:
         fail(f"train kernel launch counts {launches} != {want}")
+    if frozen:
+        moved = [n for n, p in model.named_parameters()
+                 if n in frozen and not torch.equal(p, frozen[n])]
+        print(f"[{tag}] frozen parameters: {len(frozen)} tensors, "
+              f"{sum(t.numel() for t in frozen.values())} values, bit-equal "
+              f"after the run: {not moved}")
+        if moved:
+            fail(f"train: frozen parameters moved: {moved[:4]}")
+    if mm:
+        print(f"[{tag}] modality draws ri by step {draws}")
+        if set(draws) != {0, 1, 2}:
+            fail(f"train: ri took only {sorted(set(draws))}")
     rounds = matching.auction_lap.counts[:, 0].tolist()
     print(f"[{tag}] the last step's matching (one K12 launch, "
           f"{matching.auction_lap.variant}): {len(rounds)} instances, rounds "
           f"min={min(rounds)} median={statistics.median(rounds)} "
           f"max={max(rounds)}")
-    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
-    print(f"[{tag}] loss mean of the first 5 steps {first:.5f}, of the "
-          f"last 5 {last:.5f}")
+    n = min(5, len(losses) // 2)
+    first, last = statistics.mean(losses[:n]), statistics.mean(losses[-n:])
+    print(f"[{tag}] loss mean of the first {n} steps {first:.5f}, of the "
+          f"last {n} {last:.5f}")
     if not last < first:
         fail("train: the loss did not fall")
-    return launches, model, opt
+    return launches, model, opt, gen
 
 
-def train_parity_phase(torch, sd, batch_np, dev):
+def train_parity_phase(torch, sd, batch_np, dev, base_cfg=None,
+                       modality=None, lr_mult=None, tag="fp32-train",
+                       norm_rtol=PARITY_LOSS_RTOL, first_layer=False):
     """One fp32 train step on the card (kernels) and on the CPU (plain
-    versions): TF32 off, dropout 0, scipy's exact matching on both.
+    versions): TF32 off, dropout 0, scipy's exact matching on both; an
+    OV model with both branches under the pinned ``modality`` and with
+    the multipliers ``lr_mult``. ``base_cfg`` defaults to the flagship.
 
     Losses within PARITY_LOSS_RTOL relative (the eval phase's head
     outputs differ by ~2e-3 absolute between card and CPU). Gradients,
@@ -1466,79 +1632,128 @@ def train_parity_phase(torch, sd, batch_np, dev):
     cuDNN's algorithm choice (or in nothing, through atomics) differ by
     2-6% (sparse encoder) and 4-15% (backbone) with the head at ~0.1%,
     the same assignment replayed on both. A second card step prints that
-    floor beside the card-vs-CPU numbers."""
-    from uni3detr_tpu_torch.models.detector import Uni3DETR
+    floor beside the card-vs-CPU numbers. OV adds the image backbone,
+    the FPN with the projection and depth convs, and the view convs
+    with the fusion conv, and holds the gradient norm to ``norm_rtol``
+    apart from the losses (see OV_PARITY_NORM_RTOL). With
+    ``first_layer`` only the first decoder layer's losses are held: the
+    later layers of the 6-layer head are chaotic under random weights
+    (``ov_fp32_phase``), so their worst relative error is printed beside
+    a floor, a card step with the image times (1 + 1e-6 N(0, 1))."""
     from uni3detr_tpu_torch.presets import SUNRGBD
     from uni3detr_tpu_torch.train.step import make_optimizer, train_step
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = dataclasses.replace(SUNRGBD, compute_dtype="float32", dropout=0.0,
-                              matcher="scipy")
+    cfg = dataclasses.replace(base_cfg or SUNRGBD, compute_dtype="float32",
+                              dropout=0.0, matcher="scipy")
+    B = next(iter(batch_np.values())).shape[0]
     res = {}
-    for label, where in (("card", dev), ("card again", dev),
-                         ("cpu", torch.device("cpu"))):
-        model = Uni3DETR(cfg)
+    runs = [("card", dev), ("card again", dev), ("cpu", torch.device("cpu"))]
+    if first_layer:
+        runs.append(("card, image perturbed", dev))
+    for label, where in runs:
+        model = build_model(cfg)
         model.load_state_dict(sd, strict=True)
         model.to(where)
-        opt = make_optimizer(model, TRAIN_LR)
+        opt = make_optimizer(model, TRAIN_LR, lr_mult=lr_mult)
         batch = {k: torch.from_numpy(v).to(where) for k, v in batch_np.items()}
+        if label.endswith("perturbed"):
+            gen = torch.Generator(device=where).manual_seed(0)
+            img = batch["images"]
+            batch["images"] = img * (1 + 1e-6 * torch.randn(
+                img.shape, generator=gen, device=where))
         t0 = time.perf_counter()
-        logs = train_step(model, opt, batch)
+        logs = train_step(model, opt, batch, modality=modality)
         mu = {n: opt.adamw.state[p]["exp_avg"].cpu()
-              for n, p in model.named_parameters()}
+              for n, p in model.named_parameters() if p in opt.adamw.state}
         res[label] = ({k: float(v) for k, v in logs.items()}, mu,
                       time.perf_counter() - t0)
+        del model, opt, batch
     lc, mc, tc = res["cpu"]
+    top = {n: n.split(".")[0] for n in mc}
     groups = {
-        "sparse-conv weights": [n for n in mc if n.startswith(
-            "pts_middle_encoder") and mc[n].dim() == 5],
-        "backbone+neck": [n for n in mc if n.split(".")[0] in (
-            "pts_backbone", "pts_neck")],
-        "head": [n for n in mc if n.startswith("pts_bbox_head")]}
+        "sparse-conv weights": [n for n in mc if top[n] ==
+                                "pts_middle_encoder" and mc[n].dim() == 5],
+        "backbone+neck": [n for n in mc if top[n] in ("pts_backbone",
+                                                      "pts_neck")],
+        "head": [n for n in mc if top[n] == "pts_bbox_head"],
+        "image backbone": [n for n in mc if top[n] == "img_backbone"],
+        "FPN+proj+depth": [n for n in mc if top[n] in (
+            "img_neck", "input_proj", "depth_net")],
+        "view convs+fusion": [n for n in mc if top[n] in (
+            "view_trans", "conv_trans_head_1")]}
+    bad = []
+
+    def held(k):
+        return k != "grad_norm" and (not first_layer or k.startswith("d0."))
+
+    def rel(a, b, keys):
+        return {k: abs(a[k] - b[k]) / max(abs(b[k]), 1e-6) for k in keys}
+
+    if first_layer:
+        later = [k for k in lc if k != "grad_norm" and not held(k)]
+        e, f = rel(res["card"][0], lc, later), rel(
+            res["card"][0], res["card, image perturbed"][0], later)
+        k, kf = max(e, key=e.get), max(f, key=f.get)
+        print(f"[{tag}] later decoder layers' losses (not held): worst "
+              f"relative error card vs cpu {e[k]:.3g} ({k}), card vs card "
+              f"with the image perturbed {f[kf]:.3g} ({kf})")
     for label in ("card", "card again"):
         lg, mg, tg = res[label]
-        loss_err = {k: abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-6)
-                    for k in lc}
+        loss_err = rel(lg, lc, [k for k in lc if held(k)])
         worst = max(loss_err, key=loss_err.get)
-        print(f"[fp32-train] B={PARITY_B} {label}: total_loss "
+        norm_err = abs(lg["grad_norm"] - lc["grad_norm"]) / max(
+            abs(lc["grad_norm"]), 1e-6)
+        print(f"[{tag}] B={B} {label}: total_loss "
               f"{lg['total_loss']:.6f} cpu {lc['total_loss']:.6f}; worst "
               f"relative loss error {loss_err[worst]:.3g} ({worst}, rtol "
-              f"{PARITY_LOSS_RTOL}); {label} {tg:.2f}s cpu {tc:.2f}s")
-        if label == "card" and loss_err[worst] > PARITY_LOSS_RTOL:
-            fail(f"fp32 train: losses differ {loss_err}")
+              f"{PARITY_LOSS_RTOL}); grad_norm {lg['grad_norm']:.6f} cpu "
+              f"{lc['grad_norm']:.6f}, relative {norm_err:.3g} (rtol "
+              f"{norm_rtol}); {label} {tg:.2f}s cpu {tc:.2f}s")
+        if label == "card" and (loss_err[worst] > PARITY_LOSS_RTOL
+                                or norm_err > norm_rtol):
+            bad.append(f"losses differ {loss_err}, grad norm {norm_err}")
     _, m1, _ = res["card"]
     _, m2, _ = res["card again"]
     for group, names in groups.items():
+        if not names:
+            continue
         scale = max(mc[n].abs().max().item() for n in names)
         err = max((m1[n] - mc[n]).abs().max().item() for n in names)
         floor = max((m1[n] - m2[n]).abs().max().item() for n in names)
-        print(f"[fp32-train] grads {group}: card vs cpu {err / scale:.3g} "
+        print(f"[{tag}] grads {group}: card vs cpu {err / scale:.3g} "
               f"of max |grad| {scale:.3g} (rtol {PARITY_GRAD_RTOL[group]});"
               f" card vs card again {floor / scale:.3g}")
         if not err <= PARITY_GRAD_RTOL[group] * scale:
-            fail(f"fp32 train: {group} gradients differ by {err} of {scale}")
+            bad.append(f"{group} gradients differ by {err} of {scale}")
+    if bad:
+        fail(f"fp32 train: {bad}")
 
 
-def checkpoint_phase(torch, model, opt, batch, dev, schedules):
-    """Save, load into a fresh model and optimizer, compare every tensor
-    bit for bit, then take one step from each with the global generator
-    (dropout) seeded alike: losses within CKPT_LOSS_RTOL relative (the
-    two forwards see equal weights and inputs; the card's atomics in the
-    sparse-conv index build and cuDNN may still order sums differently)."""
-    from uni3detr_tpu_torch.models.detector import Uni3DETR
+def checkpoint_phase(torch, model, opt, batch, dev, schedules, lr_mult=None,
+                     generator=None):
+    """Save, load into a fresh model and optimizer (and, for OV, a fresh
+    modality generator), compare every tensor bit for bit, then take one
+    step from each with the global generator (dropout) seeded alike:
+    losses within CKPT_LOSS_RTOL relative (the two forwards see equal
+    weights and inputs; the card's atomics in the sparse-conv index
+    build and cuDNN may still order sums differently), and the same ri."""
     from uni3detr_tpu_torch.train import checkpoint
     from uni3detr_tpu_torch.train.step import make_optimizer, train_step
 
     t0 = time.perf_counter()
     checkpoint.save_checkpoint(CKPT_DIR, model, opt,
-                               meta={"config": model.cfg})
+                               meta={"config": model.cfg},
+                               generator=generator)
     size = os.path.getsize(os.path.join(CKPT_DIR, "checkpoint.pt"))
     t1 = time.perf_counter()
     tree, meta = checkpoint.load_checkpoint(CKPT_DIR)
-    fresh = Uni3DETR(model.cfg).to(dev)
-    fopt = make_optimizer(fresh, schedules[0], momentum_schedule=schedules[1])
-    checkpoint.restore(fresh, tree, fopt)
+    fresh = build_model(model.cfg).to(dev)
+    fopt = make_optimizer(fresh, schedules[0], momentum_schedule=schedules[1],
+                          lr_mult=lr_mult)
+    fgen = None if generator is None else torch.Generator()
+    checkpoint.restore(fresh, tree, fopt, fgen)
     t2 = time.perf_counter()
     shutil.rmtree(CKPT_DIR)
     if tree["step"] != opt.steps or fopt.steps != opt.steps:
@@ -1553,19 +1768,26 @@ def checkpoint_phase(torch, model, opt, batch, dev, schedules):
             if not torch.equal(v, fopt.adamw.state[q][key]):
                 fail(f"checkpoint: optimizer {key} differs")
             n_state += 1
+    groups = [(g["lr"], g["lr_mult"]) for g in opt.adamw.param_groups]
+    if groups != [(g["lr"], g["lr_mult"]) for g in fopt.adamw.param_groups]:
+        fail("checkpoint: the optimizer's groups differ")
     print(f"[checkpoint] {len(a)} model tensors, {n_state} optimizer "
-          f"tensors and step {opt.steps} equal bit for bit; {size} bytes, "
-          f"save {t1 - t0:.2f}s load {t2 - t1:.2f}s")
-    losses = []
-    for m, o in ((model, opt), (fresh, fopt)):
+          f"tensors in {len(groups)} groups (lr, multiplier) {groups} and "
+          f"step {opt.steps} equal bit for bit; {size} bytes, save "
+          f"{t1 - t0:.2f}s load {t2 - t1:.2f}s")
+    losses, draws = [], []
+    for m, o, g in ((model, opt, generator), (fresh, fopt, fgen)):
         torch.manual_seed(1234)
-        losses.append(float(train_step(m, o, batch)["total_loss"]))
+        losses.append(float(train_step(m, o, batch, modality_generator=g)[
+            "total_loss"]))
+        draws.append(getattr(m, "last_modality", None))
     rel = abs(losses[0] - losses[1]) / max(abs(losses[0]), 1e-6)
     print(f"[checkpoint] next step total_loss {losses[0]:.6f} (kept run) "
           f"{losses[1]:.6f} (resumed) relative {rel:.3g} (rtol "
-          f"{CKPT_LOSS_RTOL})")
-    if not rel <= CKPT_LOSS_RTOL:
-        fail(f"checkpoint: resumed loss {losses[1]} vs {losses[0]}")
+          f"{CKPT_LOSS_RTOL})" + (f"; ri {draws}" if generator else ""))
+    if not rel <= CKPT_LOSS_RTOL or draws[0] != draws[1]:
+        fail(f"checkpoint: resumed loss {losses[1]} vs {losses[0]}, ri "
+             f"{draws}")
 
 
 def fps_path(torch, scene, dev, num_samples):
@@ -1673,7 +1895,7 @@ def nuscenes(torch, dev):
     schedules = (cyclic_lr_schedule(NUS_LR, total, NUS_LR_RATIO, NUS_UP),
                  cyclic_momentum_schedule(0.95, total, NUS_MOMENTUM_RATIO,
                                           NUS_UP))
-    train_launches, model, opt = train_phase(
+    train_launches, model, opt, _ = train_phase(
         torch, cfg, sd, batch, dev, "nuscenes-train", NUS_WARMUP, NUS_STEPS,
         *schedules)
     checkpoint_phase(torch, model, opt, batch, dev, schedules)
@@ -1775,7 +1997,7 @@ def kitti(torch, dev, preset):
         total = KITTI_WARMUP + KITTI_STEPS
         schedules = (step_lr_schedule(KITTI_LR, total / KITTI_EPOCHS,
                                       KITTI_MILESTONES), None)
-        train_launches, model, opt = train_phase(
+        train_launches, model, opt, _ = train_phase(
             torch, cfg, sd, batch, dev, f"{tag}-train", KITTI_WARMUP,
             KITTI_STEPS, *schedules)
         launches.append(train_launches)
@@ -1900,15 +2122,72 @@ def ov_fp32_phase(torch, base_cfg, sd, scene, dev, tag):
              f"{OV_VOLUME_RTOL} / {FP32_ATOL}")
 
 
+def ov_train(torch, cfg, sd, dev, tag):
+    """Phases 44-47 (``_mm``) or 48/49 (``_pc``, ``_rgb``): training on
+    ``synthetic.ov_train_batch`` at the config's batch size. mm: the
+    train kernels at its shapes (K7/K10 on the step's own features and
+    cotangents, K12 on its own costs of all 6 layers, 72 x 64 x 384, K4
+    at the batch), train steps under the step schedule with the config's
+    multipliers (ri drawn each step, launches by ri, frozen stages
+    bit-equal), one fp32 step card vs CPU, a checkpoint round trip. pc
+    and rgb: a few steps, launches asserted (rgb: K12 alone). Returns the
+    launches of the timed steps."""
+    from uni3detr_tpu_torch.presets import OV_SUNRGBD_MM_LR_MULT
+    from uni3detr_tpu_torch.synthetic import ov_train_batch
+    from uni3detr_tpu_torch.train.step import step_lr_schedule
+
+    mode = tag.split("-")[-1]
+    B = OV_TRAIN_B[mode]
+    batch_np, share = ov_train_batch(0, cfg, B)
+    print(f"[{tag}-train] B={B}: GT boxes kept (centre in the camera's "
+          f"frame) {share:.3f}" if cfg.use_camera else
+          f"[{tag}-train] B={B}")
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lr_mult = OV_SUNRGBD_MM_LR_MULT if mode == "mm" else None
+    if mode == "mm":
+        model = build_model(cfg)
+        model.load_state_dict(sd, strict=True)
+        model.to(dev)
+        dw_phase(torch, model, batch, dev, f"{tag}-train-kernels", False,
+                 own_cotangents=True)
+        del model
+        torch.cuda.empty_cache()
+        warmup, steps = OV_TRAIN_WARMUP, OV_TRAIN_STEPS
+    else:
+        warmup, steps = 1, 6
+    total = warmup + steps
+    schedules = (step_lr_schedule(OV_LR, total / OV_EPOCHS, OV_MILESTONES),
+                 None)
+    launches, model, opt, gen = train_phase(
+        torch, cfg, sd, batch, dev, f"{tag}-train", warmup, steps,
+        *schedules, lr_mult=lr_mult, modality_seed=OV_MODALITY_SEED)
+    if mode == "mm":
+        checkpoint_phase(torch, model, opt, batch, dev, schedules, lr_mult,
+                         gen)
+    del model, opt, batch
+    torch.cuda.empty_cache()
+    if mode == "mm":
+        train_parity_phase(torch, sd, ov_train_batch(1, cfg, OV_PARITY_B)[0],
+                           dev, cfg, OV_PARITY_MODALITY, lr_mult,
+                           f"{tag}-fp32-train", OV_PARITY_NORM_RTOL,
+                           first_layer=True)
+        torch.backends.cudnn.allow_tf32 = True
+        torch.cuda.empty_cache()
+    return launches
+
+
 def ov(torch, dev):
-    """Phases 37-43: OV-Uni3DETR inference. ``ov_uni3detr_sunrgbd_mm``
-    (points and one 480x640 image, ResNet-50 + DCNv2, the lift, fusion,
-    the 6-layer CLIP head, 46 classes): kernels at its shapes, scenes to
-    boxes with the 46-class indoor AP (seen / unseen), NMS at 46
-    classes, the lift's kept share and the DCN offsets, fp32 card vs
-    CPU; then ``ov_uni3detr_sunrgbd_pc`` and ``ov_uni3detr_sunrgbd_rgb``
-    (camera only: no K1-K4) scenes to boxes. Returns the launches of the
-    inference runs."""
+    """Phases 37-49: OV-Uni3DETR. ``ov_uni3detr_sunrgbd_mm`` (points and
+    one 480x640 image, ResNet-50 + DCNv2, the lift, fusion, the 6-layer
+    CLIP head, 46 classes): kernels at its shapes, scenes to boxes with
+    the 46-class indoor AP (seen / unseen), NMS at 46 classes, the lift's
+    kept share and the DCN offsets, fp32 card vs CPU, then training
+    (``ov_train``); then ``ov_uni3detr_sunrgbd_pc`` and
+    ``ov_uni3detr_sunrgbd_rgb`` (camera only: no K1-K4) scenes to boxes
+    and a few train steps. Returns the launches of the inference and
+    train runs."""
     from uni3detr_tpu_torch.models.ov_detector import OV_Uni3DETR
     from uni3detr_tpu_torch.presets import PRESETS
     from uni3detr_tpu_torch.synthetic import clustered_scene_gt, ov_scene
@@ -1945,6 +2224,7 @@ def ov(torch, dev):
                 ov_fp32_phase(torch, cfg, sd, scenes[0], dev, f"{tag}-fp32")
             torch.backends.cudnn.allow_tf32 = True
             torch.cuda.empty_cache()
+        launches.append(ov_train(torch, cfg, sd, dev, tag))
     return launches
 
 

@@ -1207,3 +1207,217 @@ def test_ov_tiny_mm_launch_counts(dev):
         got = {k: fn.launches for k, fn in wrappers.items()}
         assert got == dict(zip(wrappers, k14 + (1, 1))), (mode, got)
         assert int(out[3].sum()) > 0
+
+
+# -- OV training ---------------------------------------------------------------
+
+def _ov_train_model(mode, **changes):
+    """The tiny OV model for training: a 64x64 image (at 32x32 the last
+    ResNet stage is 1x1 and its train-mode BN normalizes one value a
+    channel per scene), 2048 points, 8 GT rows."""
+    import dataclasses
+    from uni3detr_tpu_torch.models.ov_detector import OV_Uni3DETR
+    from uni3detr_tpu_torch.weights import random_state_dict
+
+    cfg = dataclasses.replace(_ov_tiny(mode).cfg, img_size=(64, 64),
+                              num_points=2048, max_gt=8, **changes)
+    model = OV_Uni3DETR(cfg)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in
+                           random_state_dict(model, 1).items()})
+    return model
+
+
+def _ov_train_batch(model, dev, B=2):
+    from uni3detr_tpu_torch.synthetic import (clustered_train_batch,
+                                              ov_train_batch)
+
+    batch, _ = ov_train_batch(3, model.cfg, B)
+    gt = clustered_train_batch(3, model.cfg, B)
+    batch.update({k: gt[k] for k in ("gt_boxes", "gt_labels", "gt_mask")})
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("mode,ri", [("mm", 0), ("mm", 1), ("mm", 2),
+                                     ("pc", None), ("rgb", None)])
+def test_ov_tiny_train_step_launches(dev, mode, ri):
+    """One train step's launches: with the point branch's backward (pc,
+    mm under ri 1 and 2) K1 4, K2 2 x 17 - 1, K3 6, K4 1, K7 17, K10 3
+    and K12 1 for the tiny encoder's 17 submanifold convs; under ri 0 the
+    forward's alone (K1 4, K2 17, K3 3, K4 1) and K12 1; camera-only K12
+    alone. The frozen ResNet stages do not move."""
+    from uni3detr_tpu_torch.train.step import make_optimizer, train_step
+
+    model = _ov_train_model(mode).to(dev)
+    opt = make_optimizer(model, 1e-4)
+    wrappers = {"K1": sc.match_positions, "K2": sc.gather_conv,
+                "K3": sc.gather_conv_ids,
+                "K4": fps.farthest_point_sample_pair,
+                "K7": sc.gather_conv_dw, "K10": sc.gather_conv_ids_dw,
+                "K12": matching.auction_lap}
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters()
+              if not p.requires_grad}
+    batch = _ov_train_batch(model, dev)
+    for fn in wrappers.values():
+        fn.launches = 0
+    logs = train_step(model, opt, batch, modality=ri)
+    torch.cuda.synchronize()
+    got = {k: fn.launches for k, fn in wrappers.items()}
+    if mode == "rgb":
+        want = (0, 0, 0, 0, 0, 0, 1)
+    elif ri == 0:
+        want = (4, 17, 3, 1, 0, 0, 1)
+    else:
+        want = (4, 33, 6, 1, 17, 3, 1)
+    assert got == dict(zip(wrappers, want)), (mode, ri, got)
+    assert all(bool(torch.isfinite(v)) for v in logs.values())
+    for n, p in model.named_parameters():
+        if n in frozen:
+            assert torch.equal(p, frozen[n]), n
+    assert (len(frozen) > 0) == (mode != "pc")
+
+
+def test_ov_tiny_train_step_card_equals_cpu(dev, no_tf32):
+    """One fp32 mm step (ri 2, dropout 0, scipy matching) on the card and
+    on the CPU: every loss term within 1e-3 relative, the gradient norm
+    within 2e-2 (the ReLU masks of the random ResNet differ at a few
+    entries between the two, see ``tests/test_torch_port_ov_train.py``),
+    the head's gradients within 1e-2 of their largest entry."""
+    from uni3detr_tpu_torch.train.step import make_optimizer, train_step
+
+    res = []
+    for where in ("cpu", dev):
+        model = _ov_train_model("mm", dropout=0.0, matcher="scipy").to(where)
+        opt = make_optimizer(model, 1e-4)
+        logs = train_step(model, opt, _ov_train_batch(model, where),
+                          modality=2)
+        mu = {n: opt.adamw.state[p]["exp_avg"].cpu()
+              for n, p in model.named_parameters()
+              if n.startswith("pts_bbox_head")}
+        res.append(({k: float(v) for k, v in logs.items()}, mu))
+    (lc, mc), (lg, mg) = res
+    for k in lc:
+        rtol = 2e-2 if k == "grad_norm" else 1e-3
+        assert abs(lg[k] - lc[k]) <= rtol * max(abs(lc[k]), 1e-3), k
+    scale = max(v.abs().max().item() for v in mc.values())
+    err = max((mg[n] - mc[n]).abs().max().item() for n in mc)
+    assert err <= 1e-2 * scale, (err, scale)
+
+
+def test_ov_tiny_backward_dw_kernels_equal_plain(dev):
+    """K7 and K10 on the features and cotangents of one bf16 train
+    step's backward (mm, ri 2), recorded at the wrappers: within 1e-3 of
+    the largest entry of the plain versions (bf16 rows and cotangents
+    widen to fp32 exactly; sums in another order)."""
+    from uni3detr_tpu_torch.geom.boxes import gravity_center_boxes
+    from uni3detr_tpu_torch.train.losses import uni3detr_loss
+
+    model = _ov_train_model("mm", compute_dtype="bfloat16").to(dev).train()
+    calls = []
+    saved = (sc.gather_conv_dw, sc.gather_conv_ids_dw)
+
+    def record(name, fn):
+        def call(*a):
+            calls.append((name, tuple(t.detach() for t in a)))
+            return fn(*a)
+        call.launches = fn.launches     # the wrapper counts by its name
+        return call
+
+    sc.gather_conv_dw = record("K7", saved[0])
+    sc.gather_conv_ids_dw = record("K10", saved[1])
+    try:
+        batch = _ov_train_batch(model, dev)
+        total, _ = uni3detr_loss(model(batch, modality=2),
+                                 gravity_center_boxes(batch["gt_boxes"]),
+                                 batch["gt_labels"], batch["gt_mask"],
+                                 model.cfg)
+        total.backward()
+    finally:
+        saved[0].launches = sc.gather_conv_dw.launches
+        saved[1].launches = sc.gather_conv_ids_dw.launches
+        sc.gather_conv_dw, sc.gather_conv_ids_dw = saved
+    assert [n for n, _ in calls].count("K7") == 17
+    assert [n for n, _ in calls].count("K10") == 3
+    for name, a in calls:
+        assert a[0].dtype == torch.bfloat16
+        kern, plain = ((sc.gather_conv_dw, sc.gather_conv_dw_plain)
+                       if name == "K7" else
+                       (sc.gather_conv_ids_dw, sc.gather_conv_ids_dw_plain))
+        got, ref = kern(*a), plain(*a)
+        assert (got - ref).abs().max().item() <= \
+            1e-3 * max(ref.abs().max().item(), 1e-6), name
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_dcn_grads_card_equals_cpu(dev, no_tf32, stride):
+    """The DCN's backward (to the input, the weight and the offset conv)
+    with offsets of several pixels: fp32, 1e-4 of each gradient's
+    largest entry."""
+    from uni3detr_tpu_torch.models.dcn import DeformConv2dV2
+
+    torch.manual_seed(10 + stride)
+    mod = DeformConv2dV2(32, 32, 3, stride)
+    torch.nn.init.normal_(mod.conv_offset.weight, std=0.1)
+    x = torch.randn(2, 32, 24, 30)
+    res = []
+    for where in ("cpu", dev):
+        mod.to(where).zero_grad()
+        xi = x.detach().to(where).requires_grad_()
+        out = mod(xi)
+        cot = torch.randn(out.shape, generator=torch.Generator().manual_seed(
+            1)).to(where)
+        (out * cot).sum().backward()
+        # copies: moving the module moves its gradients' storage too
+        res.append([t.detach().cpu().clone() for t in (
+            xi.grad, mod.weight.grad, mod.conv_offset.weight.grad,
+            mod.conv_offset.bias.grad)])
+    for c, g in zip(*res):
+        assert (g - c).abs().max().item() <= 1e-4 * c.abs().max().item()
+
+
+def test_flax_batchnorm2d_train_card_equals_cpu(dev):
+    """The ResNet's train-mode BN on a channels-last input: output and
+    running statistics (the biased variance) within 1e-5 relative."""
+    from uni3detr_tpu_torch.models.resnet import BatchNorm2d
+
+    x = torch.randn(4, 64, 30, 40) * 3 + 1
+    res = []
+    for where in ("cpu", dev):
+        bn = BatchNorm2d(64).to(where).train()
+        xi = x.to(where)
+        if xi.is_cuda:
+            xi = xi.contiguous(memory_format=torch.channels_last)
+        out = bn(xi)
+        res.append((out.cpu(), bn.running_mean.cpu(), bn.running_var.cpu()))
+    for c, g in zip(*res):
+        assert (g - c).abs().max().item() <= 1e-5 * c.abs().max().item()
+
+
+def test_ov_checkpoint_round_trip_on_card(dev, tmp_path):
+    """Train two steps on the card (ri from a generator), save, restore
+    into a fresh model, optimizer and generator: every tensor, every
+    AdamW group's state and the step equal bit for bit, and the next
+    draw of ri equal."""
+    from uni3detr_tpu_torch.presets import OV_SUNRGBD_MM_LR_MULT
+    from uni3detr_tpu_torch.train import checkpoint
+    from uni3detr_tpu_torch.train.step import make_optimizer, train_step
+
+    model = _ov_train_model("mm").to(dev)
+    opt = make_optimizer(model, 1e-4, lr_mult=OV_SUNRGBD_MM_LR_MULT)
+    gen = torch.Generator().manual_seed(3)
+    batch = _ov_train_batch(model, dev)
+    for _ in range(2):
+        train_step(model, opt, batch, modality_generator=gen)
+    checkpoint.save_checkpoint(str(tmp_path), model, opt, generator=gen)
+    tree, _ = checkpoint.load_checkpoint(str(tmp_path))
+    fresh = _ov_train_model("mm").to(dev)
+    fopt = make_optimizer(fresh, 1e-4, lr_mult=OV_SUNRGBD_MM_LR_MULT)
+    fgen = torch.Generator()
+    checkpoint.restore(fresh, tree, fopt, fgen)
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, fresh.state_dict()[k]), k
+    for p, q in zip(opt.params, fopt.params):
+        for key, v in opt.adamw.state[p].items():
+            assert torch.equal(v, fopt.adamw.state[q][key]), key
+    assert fopt.steps == opt.steps == 2
+    assert fresh.draw_modality(generator=fgen) == \
+        model.draw_modality(generator=gen)

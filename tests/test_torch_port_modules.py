@@ -7,6 +7,7 @@ JAX with ``import_torch_state_dict`` and into the port with
 boolean results (voxel coords, site sets, keep masks) must be equal.
 """
 import dataclasses
+import os
 import subprocess
 import sys
 
@@ -76,9 +77,17 @@ def test_config_fields_equal_jax_config():
 
 
 def test_port_imports_no_jax():
-    code = ("import sys, pkgutil, importlib, uni3detr_tpu_torch as p\n"
+    """Every module of the port, ``chip_smoke.py`` and the port's train
+    and inference profile tools import no JAX, flax or JAX package."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = ("import sys, pkgutil, importlib, importlib.util\n"
+            f"sys.path[:0] = [{root!r}, {os.path.join(root, 'tools')!r}]\n"
+            "import uni3detr_tpu_torch as p\n"
             "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
             "    importlib.import_module(m.name)\n"
+            "for name in ('chip_smoke', 'profile_torch_train', "
+            "'profile_torch_flagship'):\n"
+            "    importlib.import_module(name)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'uni3detr_tpu')]\n"
             "assert not bad, bad\n")

@@ -9,10 +9,12 @@ NMS, or ``eval.postprocess`` to merge boxes on the host), training
 (``train.step``: losses, one-to-many matching, the sparse-conv backward,
 clip + AdamW and the step or cyclic schedules), checkpoints
 (``train.checkpoint``) and the metrics (``eval.kitti_eval``,
-``eval.indoor_eval``); and the inference of the OV presets
+``eval.indoor_eval``); and the OV presets
 ``ov_uni3detr_sunrgbd_{mm,pc,rgb}`` (``models.ov_detector.OV_Uni3DETR``:
 points and / or one RGB image, ResNet-50 + DCNv2, the camera-to-voxel
-lift, fusion, the CLIP head). The kernels of those paths (rulebook match,
+lift, fusion, the CLIP head), inference and training (the uncertainty
+loss, the modality dropout, frozen ResNet stages, per-module lr
+multipliers, staged branch loading). The kernels of those paths (rulebook match,
 gather conv and id-matching gather conv with their weight gradients,
 paired and single-set FPS, the auction matcher, the rotated IoU as an
 NMS bitmask, a matrix or two box sets in 3D or bird's-eye view, and the

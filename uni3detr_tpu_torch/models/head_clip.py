@@ -9,7 +9,9 @@ ncls) as the reference registers it). An uncertainty branch (the LN
 form, ncls + 1 outputs) feeds the training loss. Query groups: the
 learned anchors alone in camera-only mode (no FPS seeds); with points
 the FPS-on-points and FPS-on-voxels groups share the second content
-embedding, and eval adds the random-point group (4 groups).
+embedding, and eval adds the random-point group (train 3 groups, eval
+4). In training the decoder's dropout draws from torch's global
+generator, as the Lidar head's does.
 """
 from __future__ import annotations
 

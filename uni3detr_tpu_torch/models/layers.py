@@ -10,6 +10,33 @@ import math
 
 import torch
 from torch import nn
+from torch.nn import functional as F
+
+
+class FlaxBatchNormStats:
+    """Train-mode forward of ``nn.BatchNorm{2,3}d`` with flax's running
+    statistics (put before the torch class in the bases): the running
+    variance moves towards the biased batch variance E[x^2] - E[x]^2,
+    where torch would store the unbiased one, and a batch of one value
+    per channel normalizes with variance 0 (x - mean(x) = 0, gradient 0:
+    the output is the bias), where torch refuses. Normalization, eval mode
+    and the state_dict keys are torch's."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            dims = (0,) + tuple(range(2, x.dim()))
+            mean = x.mean(dim=dims)
+            var = ((x * x).mean(dim=dims) - mean * mean).clamp(min=0.0)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked.add_(1)
+        if x.numel() == x.shape[1]:
+            shape = (1, -1) + (1,) * (x.dim() - 2)
+            return (x - x) * self.weight.view(shape) + self.bias.view(shape)
+        return F.batch_norm(x, None, None, self.weight, self.bias,
+                            training=True, eps=self.eps)
 
 
 class MaskedBatchNorm(nn.BatchNorm1d):

@@ -1,5 +1,4 @@
-"""OV-Uni3DETR detector, inference (port of
-``uni3detr_tpu/models/ov_detector.py``).
+"""OV-Uni3DETR detector (port of ``uni3detr_tpu/models/ov_detector.py``).
 
 - Point branch (``cfg.use_lidar``): the Lidar detector's voxelizer,
   sparse encoder, SECOND3D, FPN and paired FPS seeds (``pts_*``).
@@ -10,8 +9,13 @@
   (D, H, W) and runs its 3D convs.
 - With both: the volumes concatenate [points, image] on the channel axis
   and ``conv_trans_head_1`` (Conv3d 2C -> C with bias, BN, ReLU) fuses
-  them. Camera-only mode derives the grid from the encoder's paddings
-  and runs the head on the learned queries alone.
+  them. In training the pair is the modality dropout's: one draw ri a
+  step for the whole batch, [image, image] (ri 0), [points, points] (1)
+  or [points, image] (2). Both branches run forward whatever ri is, as
+  the JAX package computes both and selects, so both update their BN
+  statistics and the FPS seeds always feed the head; only the unused
+  branch gets no gradient. Camera-only mode derives the grid from the
+  encoder's paddings and runs the head on the learned queries alone.
 - ``pts_bbox_head``: the CLIP head.
 
 Dtypes are those the JAX package computes: the image is cast to the
@@ -19,8 +23,10 @@ preset's dtype, the image branch then runs in fp32 (flax promotes to its
 fp32 parameters), the lifted volume is cast to the preset's dtype, the
 fusion conv and its BN run in fp32 and return to that dtype, and the
 head samples the volume in it. The input is a batch dict with the JAX
-package's keys. Only inference is ported: the train-time modality
-dropout raises.
+package's keys. ``model.train()`` is the JAX package's ``train=True``:
+the train voxel budget, batch statistics (the frozen ResNet stages
+excepted), dropout and the train query groups. Voxelization and FPS
+never record an autograd graph.
 """
 from __future__ import annotations
 
@@ -50,6 +56,7 @@ class OV_Uni3DETR(PointBranch, nn.Module):
     def __init__(self, cfg: OVUni3DETRConfig):
         super().__init__()
         self.cfg = cfg
+        self.last_modality = None
         C = cfg.embed_dim
         if cfg.use_lidar:
             self._build_point_branch(cfg)
@@ -107,24 +114,39 @@ class OV_Uni3DETR(PointBranch, nn.Module):
             img_trans_aug=batch.get("img_trans_aug"), return_lifted=True)
 
     def forward(self, batch, random_points=None,
-                return_intermediates: bool = False):
+                return_intermediates: bool = False, modality=None,
+                generator=None):
         """batch: a dict with points (B, P, C) + pts_mask (B, P) and/or
         images (B, N, H, W, 3) + lidar2img (B, N, 4, 4) + uni_rot_aug
         (B, 3, 3) (optional img_rot_aug (B, 2, 2), img_trans_aug (B, 2),
         sweep_times (B, S)); random_points (B, nq, 3) uniform [0, 1), the
         eval query group when there are points.
 
+        In training with both branches, ``modality`` pins ri (0, 1 or 2);
+        without it ri is drawn on the host from ``generator`` (a CPU
+        ``torch.Generator``; torch's global one when None), so the draw
+        makes no device sync. The ri used is kept in ``last_modality``.
+
         Returns the head's per-layer output stacks (cls, boxes, IoU and
         uncertainty); with ``return_intermediates`` also a dict of the
         voxelization, the FPS indices, the lifted image features, the
-        image volume and the fused volume, where they exist."""
-        if self.training:
-            raise NotImplementedError("OV training (modality dropout, the "
-                                      "uncertainty loss) is not ported")
-        with torch.no_grad():
-            return self._forward(batch, random_points, return_intermediates)
+        image volume, the fused volume and ri, where they exist. In eval
+        no autograd graph is recorded."""
+        with torch.set_grad_enabled(self.training and torch.is_grad_enabled()):
+            return self._forward(batch, random_points, return_intermediates,
+                                 modality, generator)
 
-    def _forward(self, batch, random_points, return_intermediates):
+    def draw_modality(self, modality=None, generator=None) -> int:
+        """ri of this step: ``modality`` when given, else uniform over
+        {0, 1, 2} from the host generator."""
+        if modality is None:
+            modality = int(torch.randint(0, 3, (), generator=generator))
+        if modality not in (0, 1, 2):
+            raise ValueError(f"modality {modality} not in 0, 1, 2")
+        return modality
+
+    def _forward(self, batch, random_points, return_intermediates,
+                 modality=None, generator=None):
         cfg = self.cfg
         dtype = cfg.torch_dtype
         use_pts = cfg.use_lidar and "points" in batch
@@ -144,7 +166,14 @@ class OV_Uni3DETR(PointBranch, nn.Module):
             img_feat = img_vol.to(dtype)
             inter.update(lifted=lifted, image_volume=img_feat)
         if use_pts and use_img:
-            unified = torch.cat([pts_feat.to(dtype), img_feat], dim=-1)
+            pts_feat = pts_feat.to(dtype)
+            pair = (pts_feat, img_feat)
+            if self.training:
+                ri = self.draw_modality(modality, generator)
+                self.last_modality = inter["modality"] = ri
+                pair = ((img_feat, img_feat), (pts_feat, pts_feat),
+                        pair)[ri]
+            unified = torch.cat(pair, dim=-1)
             fused = self.conv_trans_head_1(            # (B, 2C, D, H, W) in
                 unified.float().permute(0, 4, 1, 2, 3))
             volume = fused.to(dtype).permute(0, 2, 3, 4, 1)

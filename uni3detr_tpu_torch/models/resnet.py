@@ -13,7 +13,8 @@ Dtypes follow what the JAX package computes: its flax convs promote a
 bf16 image and fp32 parameters to fp32, and only the stem's output is
 cast back to the image's dtype before the max-pool. So the stages run
 in fp32 on the bf16-rounded stem output, whatever the preset's dtype.
-BatchNorm is eps 1e-5, flax momentum 0.9 (torch momentum 0.1).
+BatchNorm is eps 1e-5, flax momentum 0.9 (torch momentum 0.1), and in
+training moves its running variance as flax does (:class:`BatchNorm2d`).
 """
 from __future__ import annotations
 
@@ -24,12 +25,17 @@ from torch import nn
 from torch.nn import functional as F
 
 from .dcn import DeformConv2dV2
+from .layers import FlaxBatchNormStats
 
 STAGE_BLOCKS = (3, 4, 6, 3)     # ResNet-50
 
 
-def _bn(c):
-    return nn.BatchNorm2d(c, eps=1e-5, momentum=0.1)
+class BatchNorm2d(FlaxBatchNormStats, nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` (eps 1e-5, momentum 0.1) with flax's running
+    statistics in training (:class:`FlaxBatchNormStats`)."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=1e-5, momentum=0.1)
 
 
 class Bottleneck(nn.Module):
@@ -38,15 +44,15 @@ class Bottleneck(nn.Module):
                  use_dcn: bool = False, downsample: bool = False):
         super().__init__()
         self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
-        self.bn1 = _bn(planes)
+        self.bn1 = BatchNorm2d(planes)
         self.conv2 = DeformConv2dV2(planes, planes, 3, stride) if use_dcn \
             else nn.Conv2d(planes, planes, 3, stride, padding=1, bias=False)
-        self.bn2 = _bn(planes)
+        self.bn2 = BatchNorm2d(planes)
         self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
-        self.bn3 = _bn(planes * 4)
+        self.bn3 = BatchNorm2d(planes * 4)
         self.downsample = nn.Sequential(
             nn.Conv2d(inplanes, planes * 4, 1, stride, bias=False),
-            _bn(planes * 4)) if downsample else None
+            BatchNorm2d(planes * 4)) if downsample else None
 
     def forward(self, x):
         y = F.relu(self.bn1(self.conv1(x)))
@@ -61,7 +67,9 @@ class ResNet(nn.Module):
     W / 2^(i+2)), fp32.
 
     ``frozen_stages`` k >= 0 freezes the stem and stages 1..k as mmdet's
-    ``_freeze_stages``: in training they keep eval-mode BatchNorm and
+    ``_freeze_stages``: their parameters do not require gradients (an
+    optimizer built over the trainable parameters never updates them, not
+    even by weight decay), in training they keep eval-mode BatchNorm and
     their outputs are detached (inference is unaffected)."""
 
     def __init__(self, stage_with_dcn: Sequence[bool] = (False, True, True,
@@ -70,7 +78,7 @@ class ResNet(nn.Module):
         super().__init__()
         self.frozen_stages = frozen_stages
         self.conv1 = nn.Conv2d(3, 64, 7, 2, padding=3, bias=False)
-        self.bn1 = _bn(64)
+        self.bn1 = BatchNorm2d(64)
         inplanes = 64
         for i, n in enumerate(STAGE_BLOCKS):
             planes = 64 * 2 ** i
@@ -81,6 +89,19 @@ class ResNet(nn.Module):
                     use_dcn=stage_with_dcn[i], downsample=j == 0))
                 inplanes = planes * 4
             setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
+        for m in self._frozen():
+            m.requires_grad_(False)
+
+    @staticmethod
+    def frozen_param_prefixes(frozen_stages: int,
+                              scope: str = "img_backbone"):
+        """The parameter-name prefixes that ``frozen_stages`` freezes
+        (``uni3detr_tpu/models/resnet.py::ResNet.frozen_param_prefixes``
+        under the port's keys)."""
+        if frozen_stages < 0:
+            return ()
+        return (f"{scope}.conv1.", f"{scope}.bn1.") + tuple(
+            f"{scope}.layer{i + 1}." for i in range(frozen_stages))
 
     def _frozen(self):
         if self.frozen_stages < 0:

@@ -115,7 +115,10 @@ class Uni3DViewTrans(nn.Module):
     each sweep's cameras sum into a volume, then ``sweep_fusion``
     ("sweep_sum", "sweep_cat" or "with_time") combines the sweeps;
     ``with_time`` appends each sweep's time as a channel and maps back to
-    C (``time_conv``), ``sweep_cat`` concatenates them (``trans_conv``)."""
+    C (``time_conv``), ``sweep_cat`` concatenates them (``trans_conv``).
+    Those two are the reference's Conv + BN here and a Dense in the JAX
+    package, which agree in eval only (the importer folds the BN), so
+    training them raises."""
 
     def __init__(self, voxel_shape: Tuple[int, int, int],
                  pc_range: Sequence[float], embed_dims: int = 256,
@@ -163,10 +166,16 @@ class Uni3DViewTrans(nn.Module):
                 img_trans_aug=None, return_lifted: bool = False):
         """-> (B, D, H, W, C) (and the lifted (B, N, V, C) voxel features
         with ``return_lifted``)."""
+        S = self.num_sweeps
+        if self.training and S > 1 and ("with_time" in self.sweep_fusion
+                                        or "sweep_cat" in self.sweep_fusion):
+            raise NotImplementedError(
+                f"training with {S} sweeps in {self.sweep_fusion!r}: the "
+                f"port's trans_conv / time_conv are the reference's Conv + "
+                f"BN and the JAX package's a Dense, which agree in eval only")
         per_cam = self.lift(mlvl_feats, depths, lidar2img, uni_rot_aug,
                             img_shape, img_rot_aug, img_trans_aug)
         B, _, V, C = per_cam.shape
-        S = self.num_sweeps
         feats = per_cam.reshape(B, S, -1, V, C).sum(dim=2)    # (B, S, V, C)
         if S > 1 and "with_time" in self.sweep_fusion:
             t = sweep_times if sweep_times is not None \

@@ -135,6 +135,18 @@ OV_SUNRGBD_RGB = OVUni3DETRConfig(
 OV_SUNRGBD_MM = OVUni3DETRConfig(
     **_OV_COMMON, multimodal=True, num_decoder_layers=6)
 
+# ov_uni3detr_sunrgbd_mm.py's training: per-module lr multipliers (the
+# reference's paramwise_cfg; ``train.step.make_optimizer(lr_mult=...)``)
+# and the staged init's branch prefixes (``train.checkpoint.load_branch``)
+OV_SUNRGBD_MM_LR_MULT = {
+    'img_backbone': 0.1, 'img_neck': 0.1, 'view_trans': 0.1,
+    'input_proj': 0.1, 'depth_net': 0.1, 'pts_middle_encoder': 0.1,
+    'pts_backbone': 0.1, 'pts_neck': 0.1,
+}
+OV_SUNRGBD_MM_LOAD_IMG = ('img_backbone', 'img_neck', 'view_trans',
+                          'input_proj', 'depth_net')
+OV_SUNRGBD_MM_LOAD_PTS = ('pts_middle_encoder', 'pts_backbone', 'pts_neck')
+
 # tiny OV model for tests (not a reference config)
 OV_TINY_SYNTHETIC = OVUni3DETRConfig(
     **{k: getattr(TINY_SYNTHETIC, k)

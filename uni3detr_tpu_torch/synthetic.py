@@ -155,3 +155,55 @@ def ov_scene(seed: int, cfg, distribution: str = "clustered"):
             lidar2img(cfg.img_size), (1, N, 4, 4)).copy()
         batch["uni_rot_aug"] = np.eye(3, dtype=np.float32)[None]
     return batch, rnd
+
+
+def in_camera_frame(points, l2i, img_size) -> np.ndarray:
+    """(..., 3) world points -> (...,) bool: in front of the camera of the
+    (4, 4) projection ``l2i`` and inside its (H, W) frame."""
+    hom = np.concatenate([points, np.ones_like(points[..., :1])], -1)
+    cam = hom @ l2i.T
+    depth = cam[..., 2]
+    uv = cam[..., :2] / np.maximum(depth, 1e-5)[..., None]
+    H, W = img_size
+    return (depth > 1e-5) & (uv[..., 0] >= 0) & (uv[..., 0] < W) \
+        & (uv[..., 1] >= 0) & (uv[..., 1] < H)
+
+
+def ov_train_batch(seed: int, cfg, batch: int):
+    """An OV train batch as numpy, in the layout of the JAX
+    ``make_train_step`` for OV: the scenes and GT boxes of
+    ``clustered_train_batch(seed, cfg, batch)`` (the points with
+    ``cfg.use_lidar``) and, with ``cfg.use_camera``, a uniform [0, 1) RGB
+    image of ``cfg.img_size`` per camera and sweep, the synthetic
+    camera's ``lidar2img`` and an identity ``uni_rot_aug``. Only the GT
+    boxes whose gravity centre the camera sees (in front of it, inside
+    its frame) are kept, packed to the front of their ``max_gt`` rows.
+
+    Returns (batch dict, the share of the scenes' GT boxes kept)."""
+    base = clustered_train_batch(seed, cfg, batch)
+    l2i = lidar2img(cfg.img_size)
+    out = {}
+    if cfg.use_lidar:
+        out["points"], out["pts_mask"] = base["points"], base["pts_mask"]
+    if cfg.use_camera:
+        rng = np.random.RandomState([seed, batch, 1])
+        N = cfg.num_cams * cfg.num_sweeps
+        H, W = cfg.img_size
+        out["images"] = rng.rand(batch, N, H, W, 3).astype(np.float32)
+        out["lidar2img"] = np.broadcast_to(l2i, (batch, N, 4, 4)).copy()
+        out["uni_rot_aug"] = np.broadcast_to(
+            np.eye(3, dtype=np.float32), (batch, 3, 3)).copy()
+    boxes, labels, gmask = base["gt_boxes"], base["gt_labels"], \
+        base["gt_mask"]
+    centre = boxes[..., :3].copy()          # bottom -> gravity centre
+    centre[..., 2] += boxes[..., 5] / 2
+    seen = gmask & in_camera_frame(centre, l2i, cfg.img_size)
+    out["gt_boxes"] = np.zeros_like(boxes)
+    out["gt_labels"] = np.zeros_like(labels)
+    out["gt_mask"] = np.zeros_like(gmask)
+    for b in range(batch):
+        n = int(seen[b].sum())
+        out["gt_boxes"][b, :n] = boxes[b, seen[b]]
+        out["gt_labels"][b, :n] = labels[b, seen[b]]
+        out["gt_mask"][b, :n] = True
+    return out, float(seen.sum()) / max(int(gmask.sum()), 1)

@@ -9,16 +9,21 @@ rotated 3D IoU; the costs of all layers are matched in one call), then:
   (nearest-BEV IoU + z-IoU) / 2;
 - L1 on the normalized code, weighted by ``code_weights``;
 - IoU loss (1 - nearest-BEV IoU, or 1 - rotated 3D IoU) plus 1 - z-IoU;
-- BCE of the IoU branch against the detached rotated 3D IoU, x 1.2.
+- BCE of the IoU branch against the detached rotated 3D IoU, x 1.2;
+- with the OV head's uncertainty stack: each query's sigma (its label's
+  column, background the last; at least 0.01, with no gradient below)
+  weights its L1 term by sqrt(2) exp(-sigma), and ``loss_consistency``
+  is the mean sigma. As in the JAX package the term has weight 1:
+  ``uncertainty_consistency_weight`` is not read.
 
 Each sum is divided by the batch's positive count (at least 1), the
 cross-rank ``reduce_mean`` of the reference on one device. Batched over
 B; padded GT rows (``gt_mask`` False) never match. The ``rdiou`` and
-``axis_aligned_iou3d`` cost/loss types and the open-vocabulary
-uncertainty loss are not ported.
+``axis_aligned_iou3d`` cost/loss types are not ported.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Tuple
 
 import torch
@@ -142,9 +147,10 @@ def hungarian_assign(cls_scores, bbox_preds, gt_boxes, gt_labels, gt_mask,
 
 
 def _layer_loss(cls_scores, bbox_preds, iou_preds, gt_boxes, gt_labels,
-                assigned, cfg: Uni3DETRConfig) -> Dict[str, torch.Tensor]:
+                assigned, cfg: Uni3DETRConfig, unc_preds=None
+                ) -> Dict[str, torch.Tensor]:
     """Loss of one decoder layer over the batch given its assignment
-    (B, Q); shapes (B, Q, .)."""
+    (B, Q); shapes (B, Q, .), ``unc_preds`` (B, Q, ncls + 1) or None."""
     B, Q, ncls = cls_scores.shape
     pos = assigned >= 0
     safe = assigned.clamp(min=0)
@@ -170,6 +176,12 @@ def _layer_loss(cls_scores, bbox_preds, iou_preds, gt_boxes, gt_labels,
                       device=bbox_preds.device)
     l1 = (bbox_preds - encode_boxes(tgt)).abs() * cw * posf[..., None]
     l1 = torch.where(torch.isfinite(l1), l1, torch.zeros_like(l1))
+    loss_consistency = None
+    if unc_preds is not None:
+        sigma = torch.gather(unc_preds, -1, labels[..., None])[..., 0]
+        sigma = sigma.clamp(min=0.01)                       # (B, Q)
+        l1 = l1 * (math.sqrt(2.0) * torch.exp(-sigma))[..., None]
+        loss_consistency = sigma.mean()
     loss_bbox = l1.sum() / num_pos * cfg.loss_bbox_weight
 
     t = cfg.iou_loss_type
@@ -195,13 +207,17 @@ def _layer_loss(cls_scores, bbox_preds, iou_preds, gt_boxes, gt_labels,
     bce = iou_preds.clamp(min=0) - iou_preds * iou_true + torch.log1p(
         torch.exp(-iou_preds.abs()))
     loss_iou_pred = (bce * posf).sum() / num_pos * 1.2 * cw0
-    return {"loss_cls": loss_cls, "loss_bbox": loss_bbox,
-            "loss_iou": loss_iou, "loss_iou_pred": loss_iou_pred}
+    out = {"loss_cls": loss_cls, "loss_bbox": loss_bbox,
+           "loss_iou": loss_iou, "loss_iou_pred": loss_iou_pred}
+    if loss_consistency is not None:
+        out["loss_consistency"] = loss_consistency
+    return out
 
 
 def uni3detr_loss(outs, gt_boxes, gt_labels, gt_mask, cfg: Uni3DETRConfig
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Total loss over the decoder layers: outs the head's stacks,
+    """Total loss over the decoder layers: outs the head's stacks (with
+    the OV head's ``all_uncertainty_preds``, the uncertainty terms),
     gt_boxes (B, Gt, 7|9) gravity-centred, gt_labels (B, Gt), gt_mask
     (B, Gt). Returns (total, per-layer terms; the last layer's unprefixed,
     the others as ``d{i}.loss_*``). The costs of all layers are built
@@ -210,11 +226,13 @@ def uni3detr_loss(outs, gt_boxes, gt_labels, gt_mask, cfg: Uni3DETRConfig
     L = outs["all_cls_scores"].shape[0]
     assigned = assign_layers(all_layer_costs(outs, gt_boxes, gt_labels, cfg),
                              gt_mask, cfg)
+    unc = outs.get("all_uncertainty_preds")
     logs, total = {}, 0.0
     for l in range(L):
         d = _layer_loss(outs["all_cls_scores"][l], outs["all_bbox_preds"][l],
                         outs["all_iou_preds"][l], gt_boxes, gt_labels,
-                        assigned[l], cfg)
+                        assigned[l], cfg,
+                        unc_preds=None if unc is None else unc[l])
         prefix = "" if l == L - 1 else f"d{l}."
         for k, v in d.items():
             logs[prefix + k] = v

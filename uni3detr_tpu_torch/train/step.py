@@ -2,21 +2,28 @@
 
 One step: forward in train mode -> matching -> set losses -> backward ->
 global-norm clip -> AdamW, as the JAX package's ``make_train_step`` with
-``make_optimizer`` (optax ``chain(clip_by_global_norm, adamw)`` over all
-parameters, no mask). The lr follows a schedule of the step count, as
-optax's ``scale_by_schedule`` does; an optional momentum schedule sets
-AdamW's beta1 each step, as ``inject_hyperparams(adamw)(b1=...)`` does
-for the nuScenes cyclic policy.
+``make_optimizer`` (optax ``chain(clip_by_global_norm, adamw)``). The lr
+follows a schedule of the step count, as optax's ``scale_by_schedule``
+does; an optional momentum schedule sets AdamW's beta1 each step, as
+``inject_hyperparams(adamw)(b1=...)`` does for the nuScenes cyclic
+policy. Per-module lr multipliers (the OV configs' ``lr_mult``) are
+AdamW parameter groups whose lr is the schedule's times the multiplier,
+so the decoupled weight decay scales with them, as under the JAX
+package's per-leaf scale after AdamW. Parameters that do not require
+gradients (the frozen ResNet stages) stay out of the optimizer: never
+updated, not even by weight decay (the reference's ``requires_grad =
+False``; see ROADMAP Queue 3 for the JAX CLI's mask).
 """
 from __future__ import annotations
 
 import bisect
 import math
-from typing import Callable, Dict, Iterable, Optional, Union
+from typing import Callable, Dict, Iterable, Mapping, Optional, Union
 
 import torch
 from torch import nn
 
+from ..config import OVUni3DETRConfig
 from ..geom.boxes import gravity_center_boxes
 from .losses import uni3detr_loss
 
@@ -25,24 +32,40 @@ Schedule = Callable[[int], float]
 
 class Optimizer:
     """Global-norm clip to ``clip_norm``, then AdamW (beta2 0.999, eps
-    1e-8, decoupled weight decay) with the lr of ``lr_schedule`` and the
-    beta1 of ``momentum_schedule`` (0.9 without one) at the number of
-    steps taken so far."""
+    1e-8, decoupled weight decay) with the lr of ``lr_schedule`` (times
+    each group's ``lr_mult``) and the beta1 of ``momentum_schedule`` (0.9
+    without one) at the number of steps taken so far.
 
-    def __init__(self, params: Iterable[nn.Parameter],
+    ``params``: parameters, or groups ``{"params": [...], "lr_mult": m}``;
+    those that do not require gradients are left out."""
+
+    def __init__(self, params: Iterable,
                  lr_schedule: Union[float, Schedule],
                  weight_decay: float = 0.01, clip_norm: float = 10.0,
                  momentum_schedule: Optional[Schedule] = None):
-        self.params = [p for p in params if p.requires_grad]
+        groups = list(params)
+        if not groups or not isinstance(groups[0], dict):
+            groups = [{"params": groups}]
+        groups = [{"params": [p for p in g["params"] if p.requires_grad],
+                   "lr_mult": float(g.get("lr_mult", 1.0))} for g in groups]
+        groups = [g for g in groups if g["params"]]
+        self.params = [p for g in groups for p in g["params"]]
         self.schedule = lr_schedule if callable(lr_schedule) \
             else (lambda step: lr_schedule)
         self.momentum = momentum_schedule or (lambda step: 0.9)
         self.clip_norm = clip_norm
         self.steps = 0
         self.adamw = torch.optim.AdamW(
-            self.params, lr=float(self.schedule(0)),
+            groups, lr=float(self.schedule(0)),
             betas=(float(self.momentum(0)), 0.999), eps=1e-8,
             weight_decay=weight_decay)
+
+    def _set_hyperparams(self) -> None:
+        lr = float(self.schedule(self.steps))
+        beta1 = float(self.momentum(self.steps))
+        for group in self.adamw.param_groups:
+            group["lr"] = lr * group["lr_mult"]
+            group["betas"] = (beta1, group["betas"][1])
 
     def zero_grad(self) -> None:
         for p in self.params:
@@ -63,10 +86,7 @@ class Optimizer:
         scale = torch.where(norm < self.clip_norm, torch.ones_like(norm),
                             self.clip_norm / norm)
         torch._foreach_mul_(grads, scale)
-        for group in self.adamw.param_groups:
-            group["lr"] = float(self.schedule(self.steps))
-            group["betas"] = (float(self.momentum(self.steps)),
-                              group["betas"][1])
+        self._set_hyperparams()
         self.adamw.step()
         self.steps += 1
         return norm
@@ -80,14 +100,33 @@ class Optimizer:
         self.steps = int(state["steps"])
 
 
+def lr_mult_groups(model: nn.Module, lr_mult: Mapping[str, float]):
+    """``model``'s trainable parameters grouped by multiplier: each takes
+    the first prefix of ``lr_mult`` (in its order) that is its module
+    path or a parent of it, else 1; one group a multiplier, in the order
+    of the parameters."""
+    groups: Dict[float, list] = {}
+    for name, p in model.named_parameters():
+        if not p.requires_grad:
+            continue
+        mult = next((m for prefix, m in lr_mult.items()
+                     if name == prefix or name.startswith(prefix + ".")),
+                    1.0)
+        groups.setdefault(float(mult), []).append(p)
+    return [{"params": ps, "lr_mult": m} for m, ps in groups.items()]
+
+
 def make_optimizer(model: nn.Module, lr_schedule: Union[float, Schedule],
                    weight_decay: float = 0.01, clip_norm: float = 10.0,
-                   momentum_schedule: Optional[Schedule] = None
+                   momentum_schedule: Optional[Schedule] = None,
+                   lr_mult: Optional[Mapping[str, float]] = None
                    ) -> Optimizer:
-    """AdamW + global-norm clip over all of ``model``'s parameters (the
-    reference's optimizer_config, uni3detr_sunrgbd.py)."""
-    return Optimizer(model.parameters(), lr_schedule, weight_decay,
-                     clip_norm, momentum_schedule)
+    """AdamW + global-norm clip over ``model``'s trainable parameters
+    (the reference's optimizer_config, uni3detr_sunrgbd.py), with the
+    per-module multipliers of ``lr_mult`` (module-path prefix ->
+    multiplier, e.g. the OV configs' ``lr_mult``) when given."""
+    return Optimizer(lr_mult_groups(model, lr_mult or {}), lr_schedule,
+                     weight_decay, clip_norm, momentum_schedule)
 
 
 def _linear(init: float, end: float, steps: int) -> Schedule:
@@ -163,17 +202,26 @@ def cyclic_momentum_schedule(base_m: float, total_steps: int,
 
 
 def train_step(model: nn.Module, opt: Optimizer,
-               batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+               batch: Dict[str, torch.Tensor],
+               modality_generator: Optional[torch.Generator] = None,
+               modality: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """One step on ``batch``: points (B, P, C), pts_mask (B, P), gt_boxes
     (B, G, 7|9) in the bottom-z storage layout, gt_labels (B, G), gt_mask
-    (B, G). Dropout draws from torch's global generator.
+    (B, G); for OV-Uni3DETR the batch dict its forward reads (images,
+    lidar2img, uni_rot_aug and / or the points), whose modality dropout
+    draws ri from ``modality_generator`` (a CPU generator: no device
+    sync) or takes ``modality``. Dropout draws from torch's global
+    generator.
 
     Returns detached logs: ``total_loss``, ``grad_norm`` (before the
     clip) and the per-layer loss terms of :func:`uni3detr_loss`."""
     cfg = model.cfg
     model.train()
     opt.zero_grad()
-    outs = model(batch["points"], batch["pts_mask"])
+    if isinstance(cfg, OVUni3DETRConfig):
+        outs = model(batch, modality=modality, generator=modality_generator)
+    else:
+        outs = model(batch["points"], batch["pts_mask"])
     gt = gravity_center_boxes(batch["gt_boxes"])
     total, logs = uni3detr_loss(outs, gt, batch["gt_labels"],
                                 batch["gt_mask"], cfg)
