@@ -176,10 +176,43 @@ sizes:
 48/49. pc at B=8 and rgb at B=2 (K12 alone): seven steps each, launches
     asserted.
 
+Then the evaluation entry point (``cli``), on a SUN RGB-D data root
+written under ``build/`` (CLI_SCENES scenes of CLI_POINTS points from
+``synthetic.clustered_scene`` with their GT) and a seed-0 checkpoint of
+``uni3detr_sunrgbd``:
+
+50. the BEV bitmask (N1's BEV form, the TTA merge's NMS) on the
+    flagship's own detections of the CLI's first batch in two views
+    (flip False / True, mapped back; B=4, 2000 boxes a scene, 10
+    classes): equal to the plain BEV IoU thresholded (but for pairs
+    within NMS_IOU_ATOL of it), ``nms_bev_keep`` equal to the serial
+    pass per class, one bitmask and one scan launch; times and bound
+    (``bev_nms_phase``);
+51. ``cli.test`` on ``configs/uni3detr/uni3detr_sunrgbd.py`` (two
+    batches of 4; decoding, post-processing and the output copy under
+    ``torch.cuda.set_sync_debug_mode("error")``): launches asserted a batch (K1 4, K2
+    17, K3 3, K4 1, N1 1, N2 1; N1's two-set form once a scene in the
+    metric), the detections equal to a direct model + coder call on the
+    same collated batches and random points, ``cli.eval_metric`` on the
+    written pkl equal to the CLI's metric; scenes/s, the host's load and
+    collate ms a scene, stream ms a batch and the stream share (the
+    stream ms over the wall time: functional timings of two batches, the
+    first of them the warm-up; ``tools/profile_torch_eval.py`` measures
+    the throughput);
+52. the same with ``--tta`` (flips: two forwards a batch, then the BEV
+    bitmask once and N2 three times a batch), at most 500 finite
+    detections a scene, those of the first batch equal to phase 50's
+    (its keep set, cut and ordered per scene by ``tta.select_merged``,
+    then ``postprocess_sample``);
+53. ``configs/ov_uni3detr/ov_uni3detr_sunrgbd_mm.py`` on a root with a
+    480x640 PNG and ``calib.K`` / ``calib.Rt`` a scene (one batch of 4:
+    the image loading, normalising and padding on the path), launches as
+    phase 51, the metric's seen / unseen split.
+
 Then one JSON line of the kernels (launches summed over every path's
 run: the inference and train runs of all six Lidar presets, the three
-OV presets' inference and train runs and K11's own call, each read
-right after its run; times, errors, ``bound_ms`` with
+OV presets' inference and train runs, K11's own call and the three CLI
+runs, each read right after its run; times, errors, ``bound_ms`` with
 ``bound_by``, ``library_ms`` (null where no single PyTorch call
 computes the kernel's function) and, for the convs, ``gemm_ms``, at the
 nuScenes shapes for K1-K12, summed per scene for K1-K4, per train step
@@ -187,12 +220,16 @@ for K7/K10/K12, per call for K11; N1 and N2 at ``uni3detr_scannet``'s
 5000 boxes, per scene, N1's bitmask launch with its matrix launch's
 ``matrix_ms`` and ``matrix_bound_ms`` beside it; N1's matrix form at the
 KITTI merge's 150 boxes and its two-set forms at the largest KITTI eval
-scene, per call), the card line, and the
+scene, per call; its BEV bitmask at phase 50's batch, per call), the
+card line, and the
 result line ``{"ok": true, "device": {...}}``. The smoke's wall time is
 printed before them. There is no CPU fallback: without a CUDA device the
-script fails before any phase.
+script fails before any phase, as it does without cv2 and PIL (the test
+pipeline's image loading and resizing).
 """
+import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -310,6 +347,24 @@ def device_ms_by_name(torch, fn, name, reps=20):
             else:
                 other += e.self_device_time_total
     return mine / 1e3 / reps, other / 1e3 / reps
+
+
+def back_to_back_ms(torch, fn, calls=50):
+    """Stream ms a call of ``fn`` (one kernel launch and no host sync),
+    from two CUDA events around ``calls`` calls queued back to back after
+    a warm-up call: while each kernel outlasts its call's host cost the
+    stream never waits for the host, so this is the kernel's device time
+    (it needs no profiler, which can miss launches)."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(calls):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / calls
 
 
 def conv_cases(cfg):
@@ -672,7 +727,8 @@ def kernel_wrappers():
     training. N1 on the NMS path is ``ops.nms.overlap_mask`` (the IoU
     kernel writing NMS's bitmask); on the box-merging path its matrix
     form ``geom.iou.iou3d_rotated_pairwise``, and in the metrics its
-    two-set 3D and BEV forms."""
+    two-set 3D and BEV forms; on the TTA merge its BEV bitmask,
+    ``ops.nms.overlap_mask_bev``."""
     from uni3detr_tpu_torch.geom import iou
     from uni3detr_tpu_torch.ops import (fps, matching, nms,
                                         sparse_conv_cuda as sc)
@@ -681,6 +737,7 @@ def kernel_wrappers():
             "gather_conv_ids": sc.gather_conv_ids,
             "fps_pair": fps.farthest_point_sample_pair,
             "iou3d_rotated": nms.overlap_mask,
+            "iou_bev_rotated_mask": nms.overlap_mask_bev,
             "nms_greedy": nms.greedy_scan,
             "iou3d_rotated_matrix": iou.iou3d_rotated_pairwise,
             "iou3d_rotated_sets": iou.iou3d_rotated_sets,
@@ -2228,12 +2285,364 @@ def ov(torch, dev):
     return launches
 
 
+# -- the evaluation entry point: cli.test from a config and a data root ------
+_ROOT = os.path.dirname(os.path.abspath(__file__))
+CLI_DIR = os.path.join(_ROOT, "build", "chip_smoke_cli")
+SUNRGBD_CONFIG = os.path.join(_ROOT, "configs/uni3detr/uni3detr_sunrgbd.py")
+OV_MM_CONFIG = os.path.join(_ROOT,
+                            "configs/ov_uni3detr/ov_uni3detr_sunrgbd_mm.py")
+CLI_SCENES = 8        # phases 51-52: two batches of the config's 4
+CLI_OV_SCENES = 4     # phase 53: one batch of the mm config's 4
+CLI_POINTS = 120000   # points a scene on disk, PointSample keeps 100000
+TTA_NMS_THR = 0.1     # train/tta.py's merge
+
+
+def cli_dataset(config, root):
+    """(config, model config, val dataset) of ``config`` on ``root``, as
+    ``cli.test`` builds them."""
+    from uni3detr_tpu_torch.config_file import (build_model_config,
+                                                load_config,
+                                                merge_cfg_options)
+    from uni3detr_tpu_torch.data.datasets import build_dataset
+
+    cfg = merge_cfg_options(load_config(config),
+                            [f"data.data_root={root}"])
+    mc = build_model_config(cfg)
+    return cfg, mc, build_dataset(cfg.data, cfg.class_names, mc.pc_range,
+                                  "val")
+
+
+def collated(torch, ds, mc, start, bs, dev, aug=None):
+    """Scenes start .. start + bs of ``ds`` collated as ``run_inference``
+    collates them (the tail padded with its last scene; ``aug`` applied
+    to the points), the model's inputs on ``dev``; (batch, real)."""
+    from uni3detr_tpu_torch.data.datasets import collate_batch
+    from uni3detr_tpu_torch.train.evaluator import MODEL_KEYS
+    from uni3detr_tpu_torch.train.tta import apply_aug_points
+
+    samples = [ds[i] for i in range(start, min(start + bs, len(ds)))]
+    real = len(samples)
+    samples += [samples[-1]] * (bs - real)
+    if aug is not None:
+        samples = [dict(s, points=apply_aug_points(s["points"], aug))
+                   for s in samples]
+    batch, _ = collate_batch(samples, mc.num_points, mc.max_gt,
+                             mc.in_point_features, mc.code_size)
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()
+            if k in MODEL_KEYS}, real
+
+
+def plain_bev_mask(torch, boxes, labels, thr, rows=500):
+    """The plain BEV bitmask of scan-ordered (B, N, 7) boxes on their
+    device: the plain BEV IoU in row blocks, thresholded, packed as
+    ``ops.nms.overlap_mask_plain`` packs it; (bits, the IoU)."""
+    from uni3detr_tpu_torch.geom.iou import iou_bev_rotated
+    from uni3detr_tpu_torch.ops import nms
+
+    N = boxes.shape[1]
+    iou = torch.cat([iou_bev_rotated(boxes[:, r:r + rows], boxes)
+                     for r in range(0, N, rows)], dim=1)
+    above = torch.ones((N, N), dtype=torch.bool,
+                       device=boxes.device).triu(1)
+    same = (labels[..., :, None] == labels[..., None, :]) & \
+        (labels[..., :, None] >= 0)
+    return nms._pack_bits(above & same & (iou > thr)).transpose(1, 2) \
+        .contiguous(), iou
+
+
+def bev_nms_phase(torch, model, mc, ds, dev, report):
+    """Phase 50: the BEV bitmask (N1's BEV form, ``ops.nms.overlap_mask_bev``)
+    and N2 on the flagship's own detections of the CLI's first batch
+    (B=4) in two views, flip False / True, the second mapped back, as the
+    TTA merge sees them (2 x ``max_num`` boxes a scene, 10 classes):
+
+    - the bitmask against the plain BEV IoU thresholded at TTA_NMS_THR,
+      differing only on pairs within NMS_IOU_ATOL of it, and N1's BEV
+      matrix within NMS_IOU_ATOL of the plain IoU;
+    - ``nms_bev_keep`` (one bitmask and one scan launch) equal to
+      ``_greedy_suppress_serial`` per class on N1's BEV matrix, every
+      scene;
+    - kernel (event a call, and device: 50 calls back to back) and plain
+      times, and the bound from this
+      batch's pairs (every same-class pair above the diagonal is clipped:
+      no z test in BEV); added to ``report``.
+
+    Returns the batch's merged detections a scene (the valid rows, the
+    keep set cut and ordered by ``tta.select_merged``, then
+    ``postprocess_sample``), which phase 52's CLI run must equal: the
+    random points are drawn from a generator on the card seeded 0,
+    batch 0's view 0 then view 1, as ``run_inference`` draws them."""
+    from uni3detr_tpu_torch.geom.iou import iou_bev_rotated_sets
+    from uni3detr_tpu_torch.ops import nms
+    from uni3detr_tpu_torch.train.coder import decode_predictions, post_process
+    from uni3detr_tpu_torch.train.evaluator import forward
+    from uni3detr_tpu_torch.eval.postprocess import postprocess_sample
+    from uni3detr_tpu_torch.train.tta import (make_aug_grid, map_boxes_back,
+                                              select_merged)
+
+    bs = 4
+    gen = torch.Generator(device=dev).manual_seed(0)
+    views = []
+    for aug in make_aug_grid(flips=(False, True)):
+        batch, _ = collated(torch, ds, mc, 0, bs, dev, aug)
+        rp = torch.rand((bs, mc.num_query, 3), generator=gen, device=dev)
+        boxes, scores, labels, valid = post_process(
+            *decode_predictions(forward(model, mc, batch, rp), mc), mc)
+        views.append((map_boxes_back(boxes, aug), scores, labels, valid))
+    boxes, scores, labels, valid = (torch.cat(t, dim=1) for t in zip(*views))
+    bx = boxes[..., :7].contiguous()
+    B, N = scores.shape
+    thr = TTA_NMS_THR
+    n1, n2 = nms.overlap_mask_bev.launches, nms.greedy_scan.launches
+    keep = nms.nms_bev_keep(bx, scores, labels, valid, thr, mc.num_classes)
+    if (nms.overlap_mask_bev.launches - n1, nms.greedy_scan.launches - n2) \
+            != (1, 1):
+        fail("nms_bev_keep: not one bitmask and one scan launch")
+    iou_k = iou_bev_rotated_sets(bx, bx)
+    order, lab = nms.nms_order(scores, labels, valid)
+    sbx = torch.gather(bx, 1, order[..., None].expand(-1, -1, 7))
+    bits = nms.overlap_mask_bev(sbx, lab, thr)
+    want_bits, iou_p = plain_bev_mask(torch, sbx, lab, thr)
+    err = (iou_bev_rotated_sets(sbx, sbx) - iou_p).abs().max().item()
+    differ = nms._unpack_bits((bits ^ want_bits).transpose(1, 2), N)
+    near = ((iou_p - thr).abs() <= NMS_IOU_ATOL)
+    n_differ, n_far = int(differ.sum()), int((differ & ~near).sum())
+    for b in range(B):
+        want = serial_per_class(torch, iou_k[b].cpu(), scores[b].cpu(),
+                                labels[b].cpu(), valid[b].cpu(), thr)
+        if not torch.equal(keep[b].cpu(), want):
+            fail(f"nms_bev_keep differs from the serial pass on scene {b}")
+    print(f"[bev-nms] B={B} N={N} (2 views x {N // 2}) valid="
+          f"{int(valid.sum())} kept={int(keep.sum())}; N1 BEV matrix vs "
+          f"plain IoU max_abs_err={err:.3g} (atol {NMS_IOU_ATOL}); bitmask "
+          f"bits differing from the plain one: {n_differ}, {n_far} of them "
+          f"farther than {NMS_IOU_ATOL} from thr {thr}; keep equal to the "
+          f"serial pass per class on N1's matrix: True")
+    if not err <= NMS_IOU_ATOL or n_far:
+        fail("N1 BEV differs from the plain BEV IoU")
+    W = bits.shape[1]
+    cand = torch.ones((N, N), dtype=torch.bool, device=dev).triu(1) & \
+        (lab[:, :, None] == lab[:, None, :]) & (lab[:, :, None] >= 0)
+    n_cand = int(cand.sum())
+    bound = iou_roofline(n_cand, n_cand, 32 * B * N + 8 * B * N * W)
+    ms = median_ms(torch, lambda: nms.overlap_mask_bev(sbx, lab, thr), 20)
+    before = nms.overlap_mask_bev.launches
+    dev_ms = back_to_back_ms(
+        torch, lambda: nms.overlap_mask_bev(sbx, lab, thr), 50)
+    if nms.overlap_mask_bev.launches - before != 51:
+        fail("the BEV bitmask's timing: not one launch a call")
+    pms = median_ms(torch, lambda: plain_bev_mask(torch, sbx, lab, thr),
+                    3, 1)
+    print(f"[bev-nms] N1 BEV bitmask B={B} N={N}: ms={ms:.4f} device_ms="
+          f"{dev_ms:.4f} (50 calls back to back) bound_ms={bound['bound_ms']:.5f} "
+          f"({bound['bound_by']}; {n_cand} same-class pairs above the "
+          f"diagonal) plain (row-block IoU + pack) ms={pms:.4f}")
+    _report_add(report, "iou_bev_rotated_mask", err, ms, pms, 1, bound)
+    report["iou_bev_rotated_mask"]["device_ms"] = dev_ms
+    merged = []
+    for b in range(B):
+        m = valid[b]
+        det = {"boxes": boxes[b][m].float().cpu().numpy(),
+               "scores": scores[b][m].float().cpu().numpy(),
+               "labels": labels[b][m].to(torch.int32).cpu().numpy(),
+               "keep": keep[b][m].cpu().numpy()}
+        merged.append(postprocess_sample(select_merged(det, 500), mc,
+                                         device=dev))
+    del cand, iou_k, iou_p, bits, want_bits, differ, near
+    torch.cuda.empty_cache()
+    return merged
+
+
+@contextlib.contextmanager
+def sync_debug_inference(mode):
+    """``train.evaluator.run_inference`` called with ``sync_debug_mode=mode``
+    inside the block (``cli.test`` looks it up when it runs)."""
+    from uni3detr_tpu_torch.train import evaluator
+
+    run = evaluator.run_inference
+    evaluator.run_inference = functools.partial(run, sync_debug_mode=mode)
+    try:
+        yield
+    finally:
+        evaluator.run_inference = run
+
+
+def cli_run(torch, tag, config, root, n_scenes, per_batch, ckpt=None,
+            tta=False):
+    """``cli.test CONFIG [CKPT] --cfg-options data.data_root=ROOT --eval
+    bbox --out ROOT/TAG.pkl`` (with ``--tta`` if asked) in this process,
+    decoding, post-processing and the merge under
+    ``torch.cuda.set_sync_debug_mode("error")`` (``run_inference``'s
+    ``sync_debug_mode``, set by :func:`sync_debug_inference`): the launches of every kernel wrapper over
+    the run asserted (``per_batch`` a batch, N1's two-set form once a
+    scene with GT and detections in the indoor metric), every detection
+    finite, at most 500 a scene with TTA, and ``cli.eval_metric`` on the
+    written pkl giving the CLI's metric. Prints scenes/s, the host's load
+    and collate ms a scene, the stream ms a batch and the stream share.
+    Returns (launches, the CLI's result)."""
+    import numpy as np
+    from uni3detr_tpu_torch.cli import eval_metric, test as cli_test
+
+    out = os.path.join(root, f"{tag}.pkl")
+    argv = [config] + ([ckpt] if ckpt else []) + [
+        "--cfg-options", f"data.data_root={root}", "--eval", "bbox",
+        "--out", out] + (["--tta"] if tta else [])
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    with sync_debug_inference("error"):
+        r = cli_test.main(argv)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    dets, gts, stats = r["dets"], r["gts"], r["stats"]
+    n_batches = stats["batches"]
+    want = dict.fromkeys(wrappers, 0)
+    for k, v in per_batch.items():
+        want[k] = v * n_batches
+    want["iou3d_rotated_sets"] = sum(
+        bool(len(g["boxes"]) and len(d["boxes"])) for g, d in zip(gts, dets))
+    print(f"[{tag}] launches={launches} expected={want}")
+    if launches != want:
+        fail(f"{tag}: kernel launch counts {launches} != {want}")
+    if len(dets) != n_scenes:
+        fail(f"{tag}: {len(dets)} detections for {n_scenes} scenes")
+    counts = [len(d["scores"]) for d in dets]
+    if not all(np.isfinite(d["boxes"]).all() and np.isfinite(
+            d["scores"]).all() for d in dets) or not all(counts) or (
+            tta and max(counts) > 500):
+        fail(f"{tag}: non-finite detections or counts {counts}")
+    metric = eval_metric.main([config, out, "--cfg-options",
+                               f"data.data_root={root}"])
+    same = metric.keys() == r["metrics"].keys() and all(
+        metric[k] == v or (math.isnan(metric[k]) and math.isnan(v))
+        for k, v in r["metrics"].items())
+    if not same:
+        fail(f"{tag}: cli.eval_metric {metric} != cli.test {r['metrics']}")
+    wall, stream = stats["wall_s"], stats["stream_ms"]
+    print(f"[{tag}] {n_scenes} scenes, {n_batches} batches: "
+          f"{n_scenes / wall:.3f} scenes/s ({wall:.3f} s), host load + "
+          f"collate {sum(stats['load_ms']) / n_scenes:.3f} ms a scene, "
+          f"stream ms a batch {[round(s, 3) for s in stream]}, stream "
+          f"share {sum(stream) / 1e3 / wall:.3f}; detections a scene "
+          f"{counts}; "
+          f"{_metric_summary(r['metrics'])}; cli.eval_metric equal")
+    return launches, r
+
+
+def same_dets(tag, got, want, what):
+    """Fail unless the detections ``got`` equal ``want`` scene by scene,
+    bit for bit."""
+    import numpy as np
+
+    for i, (a, b) in enumerate(zip(got, want)):
+        for k in ("boxes", "scores", "labels"):
+            if not np.array_equal(a[k], b[k]):
+                fail(f"{tag} scene {i} {k} differs from {what}")
+    print(f"[{tag}] the detections of {len(want)} scenes equal {what}")
+
+
+def cli_direct_check(torch, model, mc, ds, dev, dets):
+    """The CLI's detections (phase 51) against a direct model + coder call
+    (the model, ``train.coder``, ``eval.postprocess.postprocess_batch``)
+    on the same collated batches with the same random points (a
+    generator on the card seeded 0, one draw a batch): equal."""
+    from uni3detr_tpu_torch.eval.postprocess import postprocess_batch
+    from uni3detr_tpu_torch.train.coder import decode_predictions, post_process
+    from uni3detr_tpu_torch.train.evaluator import forward
+
+    bs = 4
+    gen = torch.Generator(device=dev).manual_seed(0)
+    direct = []
+    with torch.inference_mode():
+        for start in range(0, len(dets), bs):
+            batch, real = collated(torch, ds, mc, start, bs, dev)
+            rp = torch.rand((bs, mc.num_query, 3), generator=gen,
+                            device=dev)
+            out = post_process(*decode_predictions(
+                forward(model, mc, batch, rp), mc), mc)
+            direct += postprocess_batch(*out, mc)[:real]
+    if len(direct) != len(dets):
+        fail(f"cli: {len(dets)} detections, {len(direct)} direct")
+    same_dets("cli", dets, direct, "the direct model + coder call's on "
+              "the same batches and random points")
+
+
+def cli(torch, dev):
+    """Phases 50-53: the evaluation entry point on the card. A SUN RGB-D
+    data root of CLI_SCENES scenes and a seed-0 checkpoint of
+    ``uni3detr_sunrgbd``; phase 50 the BEV bitmask on the flagship's own
+    two-view detections; 51 ``cli.test`` on ``uni3detr_sunrgbd.py`` (two
+    batches of 4) held to a direct model + coder call; 52 the same with
+    ``--tta`` (flips: two forwards a batch, then the BEV bitmask and N2
+    once a batch); 53 ``ov_uni3detr_sunrgbd_mm.py`` on a root with images
+    and calib (one batch of 4: LoadImageFromFile, NormalizeImage and
+    PadImage on the path; the metric's seen / unseen split). Returns
+    (kernel report, the launches of the three CLI runs)."""
+    from uni3detr_tpu_torch.cli import test as cli_test
+    from uni3detr_tpu_torch.models.detector import Uni3DETR
+    from uni3detr_tpu_torch.presets import PRESETS, SUNRGBD
+    from uni3detr_tpu_torch.synthetic import write_sunrgbd_root
+    from uni3detr_tpu_torch.train.checkpoint import save_checkpoint
+
+    from uni3detr_tpu_torch.config_file import load_config
+
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    root, ov_root = (os.path.join(CLI_DIR, d) for d in ("sunrgbd", "ov"))
+    t0 = time.perf_counter()
+    write_sunrgbd_root(root, SUNRGBD, load_config(SUNRGBD_CONFIG).class_names,
+                       CLI_SCENES, num_points=CLI_POINTS)
+    ckpt = os.path.join(CLI_DIR, "checkpoint")
+    model = Uni3DETR(SUNRGBD)
+    model.load_state_dict(_state_dict(torch, model), strict=True)
+    save_checkpoint(ckpt, model)
+    print(f"[cli] wrote {CLI_SCENES} scenes of {CLI_POINTS} points and a "
+          f"seed-0 checkpoint under {CLI_DIR} "
+          f"({time.perf_counter() - t0:.2f}s)")
+    cfg, mc, ds = cli_dataset(SUNRGBD_CONFIG, root)
+    model = cli_test.build_model(mc, ckpt, dev)
+    report = {}
+    with torch.inference_mode():
+        merged = bev_nms_phase(torch, model, mc, ds, dev, report)
+    subm, strided = conv_cases(mc)
+    per_batch = {"match_positions": len(mc.encoder_channels),
+                 "gather_conv": sum(c[-1] for c in subm),
+                 "gather_conv_ids": len(strided), "fps_pair": 1,
+                 "iou3d_rotated": 1, "nms_greedy": 1}
+    runs = []
+    run, r = cli_run(torch, "cli", SUNRGBD_CONFIG, root, CLI_SCENES,
+                     per_batch, ckpt)
+    runs.append(run)
+    cli_direct_check(torch, model, mc, ds, dev, r["dets"])
+    del model
+    tta = {k: 2 * v for k, v in per_batch.items()}
+    tta.update(iou_bev_rotated_mask=1, nms_greedy=3)
+    run, r = cli_run(torch, "cli-tta", SUNRGBD_CONFIG, root, CLI_SCENES,
+                     tta, ckpt, tta=True)
+    runs.append(run)
+    same_dets("cli-tta", r["dets"][:len(merged)], merged,
+              "phase 50's merge of the first batch's two views")
+    write_sunrgbd_root(ov_root, PRESETS["ov_uni3detr_sunrgbd_mm"],
+                       load_config(OV_MM_CONFIG).class_names, CLI_OV_SCENES,
+                       camera=True, num_points=CLI_POINTS)
+    run, r = cli_run(torch, "cli-ov-mm", OV_MM_CONFIG, ov_root,
+                     CLI_OV_SCENES, per_batch)
+    runs.append(run)
+    if not any("seen" in k for k in r["metrics"]):
+        fail(f"cli-ov-mm: no seen / unseen split in {sorted(r['metrics'])}")
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return report, runs
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         fail("no CUDA device: chip_smoke.py runs the port on an NVIDIA GPU")
     dev = torch.device("cuda", 0)
+    # the test pipeline's image loading and resizing
+    import cv2  # noqa: F401
+    import PIL  # noqa: F401
     card = card_line()
     print(f"[card] {card} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}")
@@ -2266,6 +2675,10 @@ def main():
             report.update(kitti_report)
     runs += ov(torch, dev)
     t.append(time.perf_counter())
+    cli_report, more = cli(torch, dev)
+    report.update(cli_report)
+    runs += more
+    t.append(time.perf_counter())
     # the NMS kernels' numbers at uni3detr_scannet's 5000 boxes
     for name in ("iou3d_rotated", "nms_greedy"):
         report[name] = scan_reports[0][name]
@@ -2274,7 +2687,7 @@ def main():
         for k, v in run.items():
             launches[k] = launches.get(k, 0) + v
     names = ("flagship", "nuscenes", "scannet", "scannet_large", "kitti_car",
-             "kitti_3classes", "ov")
+             "kitti_3classes", "ov", "cli")
     print("[time] " + ", ".join(f"{n} {t[i + 1] - t[i]:.1f}s"
                                 for i, n in enumerate(names))
           + f"; the whole smoke {time.perf_counter() - T_START:.1f}s")
@@ -2295,6 +2708,7 @@ def main():
         "iou3d_rotated_matrix": ("nms.cu", "uni3detr_tpu/geom/iou.py:120"),
         "iou3d_rotated_sets": ("nms.cu", "uni3detr_tpu/geom/iou.py:120"),
         "iou_bev_rotated_sets": ("nms.cu", "uni3detr_tpu/geom/iou.py:107"),
+        "iou_bev_rotated_mask": ("nms.cu", "uni3detr_tpu/geom/iou.py:107"),
     }
     kernels = [dict(name=name, route="cuda",
                     source=f"uni3detr_tpu_torch/csrc/{src}", replaces=rep,

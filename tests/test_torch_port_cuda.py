@@ -1421,3 +1421,97 @@ def test_ov_checkpoint_round_trip_on_card(dev, tmp_path):
     assert fopt.steps == opt.steps == 2
     assert fresh.draw_modality(generator=fgen) == \
         model.draw_modality(generator=gen)
+
+
+def _two_views(B, N, seed):
+    """B scenes of N clustered boxes (18 labels) and their copies 5 m
+    higher with the same scores: in bird's-eye view each copy lies on its
+    box (IoU 1, a tie broken by index), in 3D the two never overlap, as
+    two TTA views of one object at different heights."""
+    boxes, scores, labels, valid = _nms_scenes(B, N, seed=seed)
+    up = boxes.clone()
+    up[..., 2] += 5.0
+    return (torch.cat([boxes, up], 1), torch.cat([scores, scores], 1),
+            torch.cat([labels, labels], 1), torch.cat([valid, valid], 1))
+
+
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("N", [1, 32, 33, 500, 1000])
+def test_nms_bev_kernels_equal_serial(dev, N, B):
+    """N1's BEV bitmask + N2 (``nms_bev_keep``, one launch each) keep
+    what the serial greedy pass keeps per class on the BEV matrix
+    kernel's own IoU; the bitmask equals the plain BEV IoU thresholded at
+    0.1 except on pairs within IOU_ATOL of it; the 3D NMS of the same
+    boxes keeps both views."""
+    from uni3detr_tpu_torch.geom.iou import iou_bev_rotated_sets
+    from uni3detr_tpu_torch.ops import nms
+
+    boxes, scores, labels, valid = _two_views(B, N, seed=N + B)
+    args = [t.to(dev) for t in (boxes, scores, labels, valid)]
+    n1, n2 = nms.overlap_mask_bev.launches, nms.greedy_scan.launches
+    keep = nms.nms_bev_keep(*args, 0.1, 18)
+    torch.cuda.synchronize()
+    assert (nms.overlap_mask_bev.launches, nms.greedy_scan.launches) == \
+        (n1 + 1, n2 + 1)
+    iou = iou_bev_rotated_sets(args[0], args[0]).cpu()
+    want = _serial_per_class(iou, scores, labels, valid, 0.1)
+    assert torch.equal(keep.cpu(), want)
+    # no box and its copy both kept; the 3D NMS keeps both of each pair
+    assert not (keep[:, :N] & keep[:, N:]).any()
+    keep3d = nms.nms_keep(*args, 0.1, 18).cpu()
+    assert torch.equal(keep3d[:, :N], keep3d[:, N:])
+    order, lab = nms.nms_order(scores, labels, valid)
+    bx = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 7))
+    bits = nms.overlap_mask_bev(bx.to(dev), lab.to(dev), 0.1).cpu()
+    plain = nms.overlap_mask_plain(bx, lab, 0.1, bev=True)
+    differ = nms._unpack_bits((bits ^ plain).transpose(1, 2), 2 * N)
+    if differ.any():
+        from uni3detr_tpu_torch.geom.iou import iou_bev_rotated
+        ref = iou_bev_rotated(bx, bx)
+        assert ((ref[differ] - 0.1).abs() <= IOU_ATOL).all()
+
+
+def test_nms_bev_plain_on_card_equals_cpu(dev):
+    """``nms_bev_keep``'s plain version (the CPU path) and the kernels
+    keep the same boxes on the same scenes."""
+    from uni3detr_tpu_torch.ops import nms
+
+    boxes, scores, labels, valid = _two_views(2, 300, seed=7)
+    want = nms.nms_bev_keep(boxes, scores, labels, valid, 0.1, 18)
+    got = nms.nms_bev_keep(*[t.to(dev) for t in (boxes, scores, labels,
+                                                 valid)], 0.1, 18)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("tta", [False, True])
+def test_tiny_cli_on_card(dev, tmp_path, tta, monkeypatch):
+    """``cli.test`` on the synthetic tiny config on the card (5 scenes
+    at batch 2, decoding, post-processing and the TTA merge under
+    ``set_sync_debug_mode("error")``): finite detections, N1 (3D
+    bitmask) and N2 once a batch and view, with TTA the BEV bitmask and
+    one more N2 once a batch; ``cli.eval_metric`` on the written pkl
+    gives the CLI's metric."""
+    import functools
+    import os
+    from uni3detr_tpu_torch.cli import eval_metric, test as cli_test
+    from uni3detr_tpu_torch.ops import nms
+    from uni3detr_tpu_torch.train import evaluator
+
+    monkeypatch.setattr(evaluator, "run_inference", functools.partial(
+        evaluator.run_inference, sync_debug_mode="error"))
+    cfg = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                       "configs", "uni3detr", "uni3detr_synthetic_tiny.py")
+    out = str(tmp_path / "dets.pkl")
+    counters = (nms.overlap_mask, nms.overlap_mask_bev, nms.greedy_scan)
+    before = [f.launches for f in counters]
+    r = cli_test.main([cfg, "--eval", "bbox", "--max-samples", "5",
+                       "--out", out]
+                      + (["--tta"] if tta else []))
+    views = 2 if tta else 1
+    assert [f.launches - b for f, b in zip(counters, before)] == \
+        [3 * views, 3 * tta, 3 * views + 3 * tta]
+    assert len(r["dets"]) == 5
+    for d in r["dets"]:
+        assert len(d["scores"]) > 0 and np.isfinite(d["boxes"]).all()
+        assert len(d["scores"]) <= (500 if tta else 32)
+    assert eval_metric.main([cfg, out]) == r["metrics"]

@@ -21,7 +21,13 @@ NMS bitmask, a matrix or two box sets in 3D or bird's-eye view, and the
 greedy NMS scan) are hand-written CUDA in ``csrc/``, built on first use;
 CPU tensors take their plain PyTorch versions. The metric and
 box-merging entry points take numpy boxes and a ``device`` (the card
-unless the caller asks for the CPU).
+unless the caller asks for the CPU). The evaluation entry point
+(``cli.test``, ``cli.eval_metric``) runs a config file under
+``configs/`` (``config_file``) on its data root (``data``: the info
+pkls, the test pipeline, batching) through the pipelined loop of
+``train.evaluator`` (with ``train.tta``: the views merged by a BEV NMS
+on the IoU kernel's BEV bitmask) to indoor, KITTI or nuScenes metrics
+and submission files.
 
 Tests: ``python -m pytest tests/test_torch_port_*.py`` on the CPU (the
 port against the JAX package), and on a machine with an NVIDIA GPU

@@ -28,7 +28,9 @@
 //
 // u3d_iou3d_rotated_mask is the same kernel writing NMS's overlap bitmask
 // instead of the matrix: bit c of row r set when r < c, both boxes valid
-// with one label, and IoU(r, c) > thr. Greedy NMS per class on boxes that
+// with one label, and IoU(r, c) > thr, the 3D IoU or, with the BEV flag,
+// the bird's-eye one (ops/nms.py::nms_bev_rotated :96, the per-class NMS
+// of the test-time augmentation merge, train/tta.py:75-84). Greedy NMS per class on boxes that
 // carry one label each keeps what one greedy pass keeps whose overlap
 // test also asks for equal labels, so one bitmask serves every class; the
 // pass may visit the classes in any order, so the caller orders the boxes
@@ -44,7 +46,11 @@
 // 4 bytes (100 MB at N = 5000, 0.03 ms at 3.35 TB/s) against ~270 fp32
 // operations a clipped pair (chip_smoke.IOU_OPS_PER_PAIR; ~18M of the 25M
 // pairs of a ScanNet scene overlap in z: 0.07 ms at 67 TFLOP/s); the clip
-// is branchy scalar code, so the card runs far below its fp32 peak.
+// is branchy scalar code, so the card runs far below its fp32 peak. The
+// BEV bitmask has no z test to skip a pair: on the TTA merge's two views
+// of the flagship's detections (B=4, 2000 boxes a scene, 10 classes)
+// 3.3M same-class pairs clip, 0.28 ms device against a 0.013 ms bound on
+// an H100 80GB HBM3 at 700 W (chip_smoke.py phase 50).
 //
 // N2 u3d_nms_greedy replaces uni3detr_tpu/ops/nms.py::_greedy_suppress
 // (:45-82), XLA's wavefront over the (N, N) suppression DAG per class.
@@ -267,7 +273,8 @@ __global__ void __launch_bounds__(IOU_THREADS) u3d_iou3d_rotated_kernel(
 // column, which N2 reads in coalesced loads. Blocks left of the diagonal
 // write 0.
 // Warp w of the block holds 32 columns of one row per step, so one ballot
-// is half of the row's word.
+// is half of the row's word. BEV selects the bird's-eye IoU (z ignored).
+template <bool BEV>
 __global__ void __launch_bounds__(IOU_THREADS) u3d_iou3d_rotated_mask_kernel(
     const float* __restrict__ boxes, const int* __restrict__ labels, int N,
     int W, float thr, int bottom, u64* __restrict__ mask) {
@@ -311,7 +318,8 @@ __global__ void __launch_bounds__(IOU_THREADS) u3d_iou3d_rotated_mask_kernel(
     const int lr = s_lrow[rr];
     bool bit = false;
     if (r < c && c < N && lr >= 0 && lr == s_lcol[col])
-      bit = pair_iou(s_row[rr], s_col[col]) > thr;
+      bit = (BEV ? pair_iou_bev(s_row[rr], s_col[col])
+                 : pair_iou(s_row[rr], s_col[col])) > thr;
     const unsigned word = __ballot_sync(0xffffffffu, bit);
     if (lane == 0) s_half[rr][half] = word;
   }
@@ -407,17 +415,25 @@ int u3d_iou_rotated_sets(const void* a, const void* b, void* out, int B,
   return (int)cudaGetLastError();
 }
 
+// bev != 0: the bird's-eye IoU (z ignored), else 3D with bottom != 0 for
+// bottom z.
 int u3d_iou3d_rotated_mask(const void* boxes, const void* labels, void* mask,
-                           int B, int N, float thr, int bottom,
+                           int B, int N, float thr, int bev, int bottom,
                            void* stream) {
   if (B == 0 || N == 0) return (int)cudaSuccess;
   const int W = (N + 63) / 64;
   if (W > 65535 || B > 65535) return (int)cudaErrorInvalidValue;
   dim3 grid(W, W, B);
-  u3d_iou3d_rotated_mask_kernel<<<grid, IOU_THREADS, 0,
-                                  (cudaStream_t)stream>>>(
-      (const float*)boxes, (const int*)labels, N, W, thr, bottom,
-      (u64*)mask);
+  if (bev)
+    u3d_iou3d_rotated_mask_kernel<true><<<grid, IOU_THREADS, 0,
+                                          (cudaStream_t)stream>>>(
+        (const float*)boxes, (const int*)labels, N, W, thr, bottom,
+        (u64*)mask);
+  else
+    u3d_iou3d_rotated_mask_kernel<false><<<grid, IOU_THREADS, 0,
+                                           (cudaStream_t)stream>>>(
+        (const float*)boxes, (const int*)labels, N, W, thr, bottom,
+        (u64*)mask);
   return (int)cudaGetLastError();
 }
 

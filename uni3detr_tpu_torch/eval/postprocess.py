@@ -7,7 +7,9 @@ the batch's fixed-size outputs come to the host in one copy, split into
 per-scene dicts of the valid rows, and each scene is post-processed by
 :func:`postprocess_sample`. With ``post_processing="box_merging"`` the
 IoU matrices of all scenes come from one N1 launch (the matrix form) in
-that same copy.
+that same copy. ``train.evaluator.run_inference`` packs a batch on the
+device (:func:`pack_batch`), copies it without waiting and splits it on
+the host (:func:`unpack_batch`) while the next batch runs.
 """
 from __future__ import annotations
 
@@ -21,30 +23,51 @@ from ..geom.iou import iou3d_rotated_pairwise
 from .box_merging import merge_boxes_3d
 
 
+def pack_batch(boxes, scores, labels, valid, with_iou: bool = False,
+               keep=None) -> torch.Tensor:
+    """(B, K, D) boxes, (B, K) scores, labels and valid -> one float32
+    tensor on their device, (B, K, D + 3 [+ 1] [+ K]): the boxes, score,
+    label (small integers, exact in float32) and valid columns, then with
+    ``keep`` (B, K) bool its column, then with ``with_iou`` the (K, K)
+    rotated 3D IoU (bottom z) of each scene's boxes, from N1's matrix form
+    over the batch in one launch. One copy brings it to the host."""
+    cols = [boxes.float(), scores.float()[..., None],
+            labels.float()[..., None], valid.float()[..., None]]
+    if keep is not None:
+        cols.append(keep.float()[..., None])
+    if with_iou:
+        cols.append(iou3d_rotated_pairwise(boxes[..., :7]))
+    return torch.cat(cols, dim=-1)
+
+
+def unpack_batch(host: np.ndarray, D: int, with_iou: bool = False,
+                 with_keep: bool = False) -> List[dict]:
+    """:func:`pack_batch`'s array on the host -> B dicts of the valid
+    rows: 'boxes' (n, D) float32, 'scores' (n,) float32, 'labels' (n,)
+    int32, and 'keep' (n,) bool or 'iou' (n, n) where packed."""
+    out = []
+    for b in range(host.shape[0]):
+        v = host[b, :, D + 2] > 0.5
+        det = {"boxes": host[b, v, :D], "scores": host[b, v, D],
+               "labels": host[b, v, D + 1].astype(np.int32)}
+        if with_keep:
+            det["keep"] = host[b, v, D + 3] > 0.5
+        if with_iou:
+            det["iou"] = host[b, v][:, D + 3 + with_keep:][:, v]
+        out.append(det)
+    return out
+
+
 def split_batch(boxes, scores, labels, valid,
                 with_iou: bool = False) -> List[dict]:
     """(B, K, D) boxes, (B, K) scores, labels and valid -> B dicts of the
     valid rows: 'boxes' (n, D) float32, 'scores' (n,) float32, 'labels'
     (n,) int32. With ``with_iou`` each dict also holds 'iou', the (n, n)
     rotated 3D IoU (bottom z) of its boxes, from N1's matrix form over
-    the batch in one launch. One device-to-host copy for the batch: the
-    columns are packed into one float32 tensor (labels are small
-    integers, exact in float32)."""
-    B, K, D = boxes.shape
-    cols = [boxes.float(), scores.float()[..., None],
-            labels.float()[..., None], valid.float()[..., None]]
-    if with_iou:
-        cols.append(iou3d_rotated_pairwise(boxes[..., :7]))
-    host = torch.cat(cols, dim=-1).cpu().numpy()
-    out = []
-    for b in range(B):
-        v = host[b, :, D + 2] > 0.5
-        det = {"boxes": host[b, v, :D], "scores": host[b, v, D],
-               "labels": host[b, v, D + 1].astype(np.int32)}
-        if with_iou:
-            det["iou"] = host[b, v][:, D + 3:][:, v]
-        out.append(det)
-    return out
+    the batch in one launch. One device-to-host copy for the batch
+    (:func:`pack_batch`, :func:`unpack_batch`)."""
+    host = pack_batch(boxes, scores, labels, valid, with_iou).cpu().numpy()
+    return unpack_batch(host, boxes.shape[-1], with_iou)
 
 
 def postprocess_sample(det: dict, cfg: Uni3DETRConfig,

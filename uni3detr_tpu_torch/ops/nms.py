@@ -1,5 +1,6 @@
-"""Per-class rotated 3D NMS (port of ``uni3detr_tpu/ops/nms.py`` and of
-the NMS of ``uni3detr_tpu/train/coder.py::post_process``).
+"""Per-class rotated 3D and BEV NMS (port of ``uni3detr_tpu/ops/nms.py``,
+of the NMS of ``uni3detr_tpu/train/coder.py::post_process`` and of the
+per-class ``nms_bev_rotated`` loop of ``train/tta.py``).
 
 :func:`nms_keep` runs the greedy per-class NMS of a batch of scenes. For
 CUDA tensors it makes two launches for all scenes and no host round
@@ -14,7 +15,10 @@ serves every class. For CPU tensors :func:`nms_keep` runs
 wavefront :func:`_greedy_suppress`. The wrappers' plain versions
 (:func:`overlap_mask_plain`, :func:`greedy_scan_plain`) model the
 kernels' algorithm; each wrapper's ``launches`` attribute counts kernel
-launches.
+launches. :func:`nms_bev_keep` is the same with the bird's-eye IoU
+(:func:`overlap_mask_bev`, the bitmask kernel's BEV form): the merge of
+test-time augmentations, one launch of each kernel for every class and
+scene of a batch.
 
 :func:`_greedy_suppress` decides in each round every box whose
 higher-ranked overlapping boxes are all decided, so the number of rounds
@@ -27,7 +31,7 @@ from __future__ import annotations
 
 import torch
 
-from ..geom.iou import iou3d_rotated
+from ..geom.iou import iou3d_rotated, iou_bev_rotated
 from . import cuda_lib
 
 WORD = 64   # boxes per bitmask word
@@ -92,16 +96,19 @@ def _greedy_suppress(iou, scores, valid, iou_thr):
 
 
 def nms_keep_plain(boxes, scores, labels, valid, iou_thr: float,
-                   num_classes: int, z_origin: str = "bottom", iou=None):
+                   num_classes: int, z_origin: str = "bottom", iou=None,
+                   bev: bool = False):
     """The plain per-class NMS of B scenes, as the JAX coder runs it:
-    the IoU matrix of each scene (or ``iou`` (B, N, N) if given), then
-    :func:`_greedy_suppress` with one problem per class. Shapes as
-    :func:`nms_keep`."""
+    the IoU matrix of each scene (3D, or with ``bev`` bird's-eye; or
+    ``iou`` (B, N, N) if given), then :func:`_greedy_suppress` with one
+    problem per class. Shapes as :func:`nms_keep`."""
     cls_ids = torch.arange(num_classes, device=labels.device)
     out = []
     for b in range(boxes.shape[0]):
-        m = iou[b] if iou is not None else iou3d_rotated(
-            boxes[b, :, :7], boxes[b, :, :7], z_origin)
+        bx = boxes[b, :, :7]
+        m = iou[b] if iou is not None else (
+            iou_bev_rotated(bx, bx) if bev
+            else iou3d_rotated(bx, bx, z_origin))
         per_cls = valid[b][None, :] & (labels[b][None, :] == cls_ids[:, None])
         out.append(_greedy_suppress(m, scores[b], per_cls,
                                     iou_thr).any(dim=0))
@@ -129,15 +136,17 @@ def _unpack_bits(words: torch.Tensor, M: int) -> torch.Tensor:
 
 
 def overlap_mask_plain(boxes, labels, iou_thr: float,
-                       z_origin: str = "bottom"):
+                       z_origin: str = "bottom", bev: bool = False):
     """boxes (B, N, >=7) and labels (B, N) int32 (-1 for an invalid box)
     in scan order (:func:`nms_order`) -> (B, ceil(N/64), N) int64 bitmask
     in column words:
     bit j of ``mask[b, w, r]`` is pair (r, c = 64 w + j), set when r < c,
     both labels equal and valid, and IoU(r, c) > ``iou_thr`` (box r
-    clipped by box c)."""
+    clipped by box c; the 3D IoU, or with ``bev`` the bird's-eye one)."""
     N = boxes.shape[1]
-    iou = iou3d_rotated(boxes[..., :7], boxes[..., :7], z_origin)
+    bx = boxes[..., :7]
+    iou = iou_bev_rotated(bx, bx) if bev else iou3d_rotated(bx, bx,
+                                                            z_origin)
     above = torch.ones((N, N), dtype=torch.bool,
                        device=boxes.device).triu(1)
     same = ((labels[..., :, None] == labels[..., None, :])
@@ -146,31 +155,48 @@ def overlap_mask_plain(boxes, labels, iou_thr: float,
         .contiguous()
 
 
-def overlap_mask(boxes, labels, iou_thr: float, z_origin: str = "bottom"):
-    """N1 writing the NMS bitmask. See :func:`overlap_mask_plain`."""
+def _overlap_mask(fn, boxes, labels, iou_thr, bev, z_origin):
+    """N1 writing the NMS bitmask, 3D or BEV; ``fn`` is the public
+    wrapper whose launches it counts."""
+    name = fn.__name__
     if boxes.dim() != 3 or boxes.shape[-1] < 7 or \
             labels.shape != boxes.shape[:2]:
-        raise ValueError("overlap_mask: boxes (B, N, >=7), labels (B, N)")
+        raise ValueError(f"{name}: boxes (B, N, >=7), labels (B, N)")
     if boxes.device.type == "cpu" and labels.device.type == "cpu":
-        return overlap_mask_plain(boxes, labels, iou_thr, z_origin)
+        return overlap_mask_plain(boxes, labels, iou_thr, z_origin, bev)
     bx = boxes[..., :7].float().contiguous()
     lab = labels.to(torch.int32).contiguous()
     if not (bx.is_cuda and lab.device == bx.device):
-        raise ValueError("overlap_mask: boxes and labels on one CUDA device")
+        raise ValueError(f"{name}: boxes and labels on one CUDA device")
     B, N = lab.shape
     mask = torch.empty((B, -(-N // WORD), N), dtype=torch.int64,
                        device=bx.device)
     with torch.cuda.device(bx.device):
         status = cuda_lib.library().u3d_iou3d_rotated_mask(
             bx.data_ptr(), lab.data_ptr(), mask.data_ptr(), B, N,
-            float(iou_thr), int(z_origin == "bottom"),
+            float(iou_thr), int(bev), int(z_origin == "bottom"),
             torch.cuda.current_stream(bx.device).cuda_stream)
     cuda_lib.check(status, "u3d_iou3d_rotated_mask")
-    overlap_mask.launches += 1
+    fn.launches += 1
     return mask
 
 
+def overlap_mask(boxes, labels, iou_thr: float, z_origin: str = "bottom"):
+    """N1 writing the NMS bitmask of the 3D IoU. See
+    :func:`overlap_mask_plain`."""
+    return _overlap_mask(overlap_mask, boxes, labels, iou_thr, False,
+                         z_origin)
+
+
+def overlap_mask_bev(boxes, labels, iou_thr: float):
+    """N1 writing the NMS bitmask of the bird's-eye IoU (z ignored). See
+    :func:`overlap_mask_plain` with ``bev``."""
+    return _overlap_mask(overlap_mask_bev, boxes, labels, iou_thr, True,
+                         "bottom")
+
+
 overlap_mask.launches = 0
+overlap_mask_bev.launches = 0
 
 
 def greedy_scan_plain(mask, labels, order):
@@ -238,3 +264,19 @@ def nms_keep(boxes, scores, labels, valid, iou_thr: float,
     bx = torch.gather(boxes[..., :7], 1, order[..., None].expand(-1, -1, 7))
     mask = overlap_mask(bx, lab, iou_thr, z_origin)
     return greedy_scan(mask, lab, order)
+
+
+def nms_bev_keep(boxes, scores, labels, valid, iou_thr: float,
+                 num_classes: int):
+    """Per-class rotated BEV NMS of B scenes: the JAX package's
+    ``nms_bev_rotated`` (``ops/nms.py:96``) once a class, as
+    ``train/tta.py:75-84`` merges augmentations, for all classes and
+    scenes at once. Shapes as :func:`nms_keep`. CUDA tensors: one
+    :func:`overlap_mask_bev` and one :func:`greedy_scan` launch; CPU
+    tensors: :func:`nms_keep_plain` with the bird's-eye IoU."""
+    if boxes.device.type == "cpu":
+        return nms_keep_plain(boxes, scores, labels, valid, iou_thr,
+                              num_classes, bev=True)
+    order, lab = nms_order(scores, labels, valid)
+    bx = torch.gather(boxes[..., :7], 1, order[..., None].expand(-1, -1, 7))
+    return greedy_scan(overlap_mask_bev(bx, lab, iou_thr), lab, order)

@@ -2,6 +2,10 @@
 profiles and tests."""
 from __future__ import annotations
 
+import dataclasses
+import os
+import pickle
+
 import numpy as np
 
 from .config import Uni3DETRConfig
@@ -207,3 +211,43 @@ def ov_train_batch(seed: int, cfg, batch: int):
         out["gt_labels"][b, :n] = labels[b, seen[b]]
         out["gt_mask"][b, :n] = True
     return out, float(seen.sum()) / max(int(gmask.sum()), 1)
+
+
+def write_sunrgbd_root(root: str, cfg, class_names, n: int,
+                       camera: bool = False, num_points: int = 120000):
+    """A SUN RGB-D data root on disk (the JAX package's ``datasets.py:87-111``
+    layout) for ``cli.test``: ``sunrgbd_infos_val.pkl`` with
+    ``point_cloud.pts_path`` and ``annos.gt_boxes_upright_depth`` /
+    ``annos.name``, and ``n`` scenes of ``num_points`` float32 points of 6
+    channels (``load_dim=6``) from :func:`clustered_scene` with their GT
+    boxes (:func:`clustered_scene_gt`); with ``camera`` a uniform random
+    PNG of ``cfg.img_size`` a scene and ``calib.K`` / ``calib.Rt`` of the
+    synthetic camera."""
+    disk = dataclasses.replace(cfg, num_points=num_points,
+                               in_point_features=6)
+    for sub in ("points", "image"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    infos = []
+    for i in range(n):
+        pts, _ = clustered_scene(i, disk)
+        pts[0].tofile(os.path.join(root, f"points/{i:06d}.bin"))
+        gt = clustered_scene_gt(i, disk)
+        info = {"point_cloud": {"pts_path": f"points/{i:06d}.bin"},
+                "annos": {"gt_boxes_upright_depth": gt["boxes"],
+                          "name": [class_names[c] for c in gt["labels"]]}}
+        if camera:
+            from PIL import Image
+            H, W = cfg.img_size
+            img = np.random.RandomState([i, 2]).randint(0, 256, (H, W, 3))
+            Image.fromarray(img.astype(np.uint8)).save(
+                os.path.join(root, f"image/{i:06d}.png"))
+            f = CAMERA_FOCAL * W / 640
+            info["image"] = {"image_path": f"image/{i:06d}.png",
+                             "image_shape": (H, W)}
+            info["calib"] = {
+                "K": np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]],
+                              np.float32),
+                "Rt": LIDAR_TO_CAMERA[:3, :3].copy()}
+        infos.append(info)
+    with open(os.path.join(root, "sunrgbd_infos_val.pkl"), "wb") as f:
+        pickle.dump(infos, f)
