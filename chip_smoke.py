@@ -209,10 +209,50 @@ written under ``build/`` (CLI_SCENES scenes of CLI_POINTS points from
     the image loading, normalising and padding on the path), launches as
     phase 51, the metric's seen / unseen split.
 
+Then the train entry point (``train_cli``), ``cli.train`` in this
+process on data roots written under ``build/``, each step's and each
+eval's kernel launches asserted (``CliWatch``: the CLI looks up
+``train.step.train_step`` and ``train.evaluator`` when it runs):
+
+54. ``configs/uni3detr/uni3detr_sunrgbd.py`` on a SUN RGB-D root of 8
+    train scenes (``repeat=2``) and 4 val scenes at B=4: two epochs of 4
+    steps, an eval of 4 scenes after each, a log line every step; steps
+    K1 4, K2 33, K3 6, K4 1, K7 17, K10 3, K12 1, evals as phase 51 a
+    batch (N1's two-set form once a scene in the metric); finite losses
+    and both eval lines in ``train.log``; ``epoch_1``, ``epoch_2`` and
+    ``latest`` with the config's classes in ``meta.json``; the first
+    step's loss within CKPT_LOSS_RTOL of a direct ``train_step`` on the
+    recorded batch, weights and generator states; host ms/step between
+    log lines after the first, the loader's ms a batch and the peak
+    memory beside phase 7's;
+55. ``--resume-from`` its ``epoch_1``: at the first resumed step the
+    model and the AdamW state equal the checkpoint's, the step is the
+    stored one (4) and the lr the schedule's; 4 steps and one eval,
+    launches as phase 54;
+56. ``cli.test`` on phase 54's ``latest`` (``--batch-size 4
+    --max-samples 4``): launches as phase 51, the metric equal to phase
+    54's eval at epoch 2;
+57. ``configs/uni3detr/uni3detr_kitti_car.py`` on a KITTI root with a
+    GT database (``synthetic.write_kitti_root``, 3 cars a scene): the
+    native box ops built by g++ at first use (time printed), a forced
+    horizontal flip of a seeded sample keeping every point in
+    ``pc_range`` (``box_type_3d``'s LiDAR frame), ObjectSample's and
+    ObjectNoise's host ms a sample, then 3 steps at B=1, launches as
+    phase 33's, more GT boxes in every sample than its scene has;
+58. ``ov_uni3detr_sunrgbd_pc.py`` (B=8) and ``_rgb.py`` (B=2: image
+    loading, PhotoMetricDistortion, normalising, padding and GridMask on
+    the path) one step each on a root with 480x640 PNGs, then ``_mm.py``
+    two steps staged from their ``latest``: the tensors loaded per
+    prefix counted and equal to their sources at the first step, the
+    config's lr multipliers, the frozen ResNet stages bit-equal after
+    the steps, launches as phases 45, 48 and 49 by ri.
+
 Then one JSON line of the kernels (launches summed over every path's
 run: the inference and train runs of all six Lidar presets, the three
-OV presets' inference and train runs, K11's own call and the three CLI
-runs, each read right after its run; times, errors, ``bound_ms`` with
+OV presets' inference and train runs, K11's own call, the three
+``cli.test`` runs and the train CLI's runs (phases 54, 55, 57 and 58:
+their steps and evals; phase 56's ``cli.test``), each read right after
+its run; times, errors, ``bound_ms`` with
 ``bound_by``, ``library_ms`` (null where no single PyTorch call
 computes the kernel's function) and, for the convs, ``gemm_ms``, at the
 nuScenes shapes for K1-K12, summed per scene for K1-K4, per train step
@@ -233,6 +273,7 @@ import functools
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -298,6 +339,9 @@ OV_MODALITY_SEED = 0
 OV_LR, OV_MILESTONES, OV_EPOCHS = 2e-5 * 2 / 8 * 20, (32, 38), 40
 CKPT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "build", "chip_smoke_checkpoint")
+# train_phase's median ms/step and peak bytes by tag (phase 54 prints
+# phase 7's beside the CLI's)
+DIRECT_TRAIN = {}
 
 
 def fail(msg):
@@ -1639,6 +1683,8 @@ def train_phase(torch, cfg, sd, batch, dev, tag, warmup, steps,
     if not all(bool(torch.isfinite(p).all()) for p in model.parameters()):
         fail("train: non-finite parameters after the run")
     timed = times[warmup:]
+    DIRECT_TRAIN[tag] = (statistics.median(timed),
+                         torch.cuda.max_memory_allocated(dev))
     print(f"[{tag}] ms/step median of {steps} after {warmup} "
           f"warm-up={statistics.median(timed):.3f} min={min(timed):.3f} "
           f"max={max(timed):.3f} peak_mem_bytes="
@@ -2467,10 +2513,21 @@ def sync_debug_inference(mode):
         evaluator.run_inference = run
 
 
+def infer_per_batch(mc):
+    """Kernel launches of one eval batch of a Lidar-point model through
+    ``run_inference``: the forward's K1-K4, N1's NMS bitmask and N2."""
+    subm, strided = conv_cases(mc)
+    return {"match_positions": len(mc.encoder_channels),
+            "gather_conv": sum(c[-1] for c in subm),
+            "gather_conv_ids": len(strided), "fps_pair": 1,
+            "iou3d_rotated": 1, "nms_greedy": 1}
+
+
 def cli_run(torch, tag, config, root, n_scenes, per_batch, ckpt=None,
-            tta=False):
+            tta=False, extra=()):
     """``cli.test CONFIG [CKPT] --cfg-options data.data_root=ROOT --eval
-    bbox --out ROOT/TAG.pkl`` (with ``--tta`` if asked) in this process,
+    bbox --out ROOT/TAG.pkl`` (with ``--tta`` if asked, then ``extra``)
+    in this process,
     decoding, post-processing and the merge under
     ``torch.cuda.set_sync_debug_mode("error")`` (``run_inference``'s
     ``sync_debug_mode``, set by :func:`sync_debug_inference`): the launches of every kernel wrapper over
@@ -2486,7 +2543,7 @@ def cli_run(torch, tag, config, root, n_scenes, per_batch, ckpt=None,
     out = os.path.join(root, f"{tag}.pkl")
     argv = [config] + ([ckpt] if ckpt else []) + [
         "--cfg-options", f"data.data_root={root}", "--eval", "bbox",
-        "--out", out] + (["--tta"] if tta else [])
+        "--out", out] + (["--tta"] if tta else []) + list(extra)
     wrappers = kernel_wrappers()
     for fn in wrappers.values():
         fn.launches = 0
@@ -2513,10 +2570,7 @@ def cli_run(torch, tag, config, root, n_scenes, per_batch, ckpt=None,
         fail(f"{tag}: non-finite detections or counts {counts}")
     metric = eval_metric.main([config, out, "--cfg-options",
                                f"data.data_root={root}"])
-    same = metric.keys() == r["metrics"].keys() and all(
-        metric[k] == v or (math.isnan(metric[k]) and math.isnan(v))
-        for k, v in r["metrics"].items())
-    if not same:
+    if not same_metric(metric, r["metrics"]):
         fail(f"{tag}: cli.eval_metric {metric} != cli.test {r['metrics']}")
     wall, stream = stats["wall_s"], stats["stream_ms"]
     print(f"[{tag}] {n_scenes} scenes, {n_batches} batches: "
@@ -2527,6 +2581,13 @@ def cli_run(torch, tag, config, root, n_scenes, per_batch, ckpt=None,
           f"{counts}; "
           f"{_metric_summary(r['metrics'])}; cli.eval_metric equal")
     return launches, r
+
+
+def same_metric(a, b):
+    """Two metric dicts equal key by key (NaN equal to NaN)."""
+    return a.keys() == b.keys() and all(
+        a[k] == v or (math.isnan(a[k]) and math.isnan(v))
+        for k, v in b.items())
 
 
 def same_dets(tag, got, want, what):
@@ -2603,11 +2664,7 @@ def cli(torch, dev):
     report = {}
     with torch.inference_mode():
         merged = bev_nms_phase(torch, model, mc, ds, dev, report)
-    subm, strided = conv_cases(mc)
-    per_batch = {"match_positions": len(mc.encoder_channels),
-                 "gather_conv": sum(c[-1] for c in subm),
-                 "gather_conv_ids": len(strided), "fps_pair": 1,
-                 "iou3d_rotated": 1, "nms_greedy": 1}
+    per_batch = infer_per_batch(mc)
     runs = []
     run, r = cli_run(torch, "cli", SUNRGBD_CONFIG, root, CLI_SCENES,
                      per_batch, ckpt)
@@ -2632,6 +2689,465 @@ def cli(torch, dev):
     shutil.rmtree(CLI_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
     return report, runs
+
+
+# -- the train entry point: cli.train from a config and a data root ----------
+TRAIN_CLI_DIR = os.path.join(_ROOT, "build", "chip_smoke_train_cli")
+KITTI_CAR_CONFIG = os.path.join(_ROOT, "configs/uni3detr/uni3detr_kitti_car.py")
+OV_PC_CONFIG = os.path.join(_ROOT, "configs/ov_uni3detr/ov_uni3detr_sunrgbd_pc.py")
+OV_RGB_CONFIG = os.path.join(_ROOT,
+                             "configs/ov_uni3detr/ov_uni3detr_sunrgbd_rgb.py")
+TRAIN_CLI_SCENES, TRAIN_CLI_VAL = 8, 4   # phase 54: x2 repeat, B=4, 4 steps
+# phase 54's options: two epochs, an eval after each on 4 val scenes, a
+# log line (the losses on the host) every step
+TRAIN_CLI_OPTS = ["total_epochs=2", "evaluation.interval=1",
+                  "evaluation.max_samples=4", "log_config.interval=1"]
+KITTI_CLI_SCENES, KITTI_CLI_STEPS, KITTI_CLI_GT = 4, 3, 3   # phase 57
+OV_CLI_SCENES = 8     # phase 58: one batch of the pc config's 8
+
+
+class CliWatch:
+    """One ``cli.train`` run watched from inside this process: replaces
+    ``train.step.train_step`` and ``train.evaluator.run_inference`` /
+    ``evaluate``, which the CLI looks up when it runs. Each step's kernel
+    launches must be ``train_per_step(cfg, ri)`` (ri: the OV modality
+    draw), each eval's (``run_inference`` through ``evaluate``) those of
+    ``infer_per_batch`` a batch and N1's two-set form once a scene with
+    GT and detections in the indoor metric. Records the first step's
+    batch, model state and generator states (and calls ``on_first(model,
+    opt)`` there), per step the step count before it, ri, its lr and,
+    with ``gt_counts``, the batch's GT boxes a sample (a host sync)."""
+
+    def __init__(self, torch, cfg, tag, on_first=None, gt_counts=False):
+        self.torch, self.cfg, self.tag = torch, cfg, tag
+        self.on_first, self.gt_counts = on_first, gt_counts
+        self.steps, self.evals, self.first = [], [], None
+        self.model = self.opt = None
+
+    def _counts(self):
+        return {k: fn.launches for k, fn in self.counters.items()}
+
+    def _delta(self, before):
+        return {k: fn.launches - before[k] for k, fn in self.counters.items()}
+
+    def __enter__(self):
+        from uni3detr_tpu_torch.train import evaluator, step
+
+        torch = self.torch
+        self.counters = kernel_wrappers()
+        self.saved = (step.train_step, evaluator.run_inference,
+                      evaluator.evaluate)
+        real_step, real_run, real_eval = self.saved
+        mm = is_ov(self.cfg) and self.cfg.use_lidar and self.cfg.use_camera
+
+        def train_step(model, opt, batch, **kw):
+            if self.first is None:
+                self.first = dict(
+                    batch={k: v.clone() for k, v in batch.items()},
+                    state={k: v.detach().clone()
+                           for k, v in model.state_dict().items()},
+                    rng=(torch.get_rng_state(), torch.cuda.get_rng_state()),
+                    step=opt.steps)
+                if self.on_first is not None:
+                    self.on_first(model, opt)
+            self.model, self.opt = model, opt
+            before, step_before = self._counts(), opt.steps
+            logs = real_step(model, opt, batch, **kw)
+            if "loss" not in self.first:
+                self.first["loss"] = float(logs["total_loss"])
+            ri = model.last_modality if mm else None
+            got, want = self._delta(before), train_per_step(self.cfg, ri)
+            if got != want:
+                fail(f"{self.tag} step {step_before} (ri {ri}): launches "
+                     f"{got} != {want}")
+            group = opt.adamw.param_groups[0]
+            rec = dict(step=step_before, ri=ri, launches=got,
+                       lr=group["lr"] / group["lr_mult"])
+            if self.gt_counts:
+                rec["gt"] = batch["gt_mask"].sum(1).tolist()
+            self.steps.append(rec)
+            return logs
+
+        def run_inference(*args, **kw):
+            self.eval_before = self._counts()
+            self.eval_stats = kw.setdefault("stats", {})
+            return real_run(*args, **kw)
+
+        def evaluate(dets, gts, *args, **kw):
+            res = real_eval(dets, gts, *args, **kw)
+            got = self._delta(self.eval_before)
+            want = dict.fromkeys(self.counters, 0)
+            for k, v in infer_per_batch(self.cfg).items():
+                want[k] = v * self.eval_stats["batches"]
+            want["iou3d_rotated_sets"] = sum(
+                bool(len(g["boxes"]) and len(d["boxes"]))
+                for g, d in zip(gts, dets))
+            if got != want:
+                fail(f"{self.tag} eval {len(self.evals)}: launches {got} != "
+                     f"{want}")
+            self.evals.append(got)
+            return res
+
+        step.train_step = train_step
+        evaluator.run_inference = run_inference
+        evaluator.evaluate = evaluate
+        return self
+
+    def __exit__(self, *exc):
+        from uni3detr_tpu_torch.train import evaluator, step
+        step.train_step, evaluator.run_inference, evaluator.evaluate = \
+            self.saved
+
+    def launches(self):
+        """The run's launches, its steps and evals summed."""
+        total = dict.fromkeys(self.counters, 0)
+        for d in [s["launches"] for s in self.steps] + self.evals:
+            for k, v in d.items():
+                total[k] += v
+        return total
+
+
+def train_cli_run(torch, tag, config, root, argv, cfg, **watch):
+    """``cli.train CONFIG --cfg-options data.data_root=ROOT ...`` in this
+    process under a :class:`CliWatch`; prints the run's steps, evals,
+    host ms/step between log lines of one epoch and the loader's ms a
+    batch. Returns (the CLI's result, the watch)."""
+    from uni3detr_tpu_torch.cli import train as cli_train
+
+    t0 = time.perf_counter()
+    full = [config] + argv[:argv.index("--cfg-options") + 1] \
+        + [f"data.data_root={root}"] + argv[argv.index("--cfg-options") + 1:]
+    with CliWatch(torch, cfg, tag, **watch) as w:
+        r = cli_train.main(full)
+    torch.cuda.synchronize()
+    log_s = r["stats"]["log_s"]
+    gaps = [(b[2] - a[2]) * 1e3 for a, b in zip(log_s, log_s[1:])
+            if a[0] == b[0]]
+    load = r["stats"]["load_ms"]
+    print(f"[{tag}] {len(w.steps)} steps (first at step {w.steps[0]['step']}"
+          f"), {len(w.evals)} evals, {time.perf_counter() - t0:.2f}s; host "
+          f"ms/step after the first (between log lines, synchronised by the "
+          f"loss read) "
+          + (f"median {statistics.median(gaps):.3f} min {min(gaps):.3f} max "
+             f"{max(gaps):.3f} over {len(gaps)}" if gaps else "none")
+          + f"; loader (load + augment + collate + pin) ms a batch median "
+            f"{statistics.median(load):.3f} over {len(load)}; launches "
+            f"{w.launches()}")
+    return r, w
+
+
+def train_log_check(tag, work_dir, epochs):
+    """``train.log``: finite losses on every step line and an eval line
+    for each of ``epochs``."""
+    with open(os.path.join(work_dir, "train.log")) as f:
+        text = f.read()
+    totals = [float(t) for t in re.findall(r"\| total (\S+) ", text)]
+    if not totals or not all(math.isfinite(t) for t in totals):
+        fail(f"{tag}: losses in train.log {totals}")
+    for e in epochs:
+        if f"eval epoch {e} | " not in text:
+            fail(f"{tag}: no 'eval epoch {e}' line in train.log")
+    print(f"[{tag}] train.log: {len(totals)} finite losses "
+          f"({totals[0]:.4f} .. {totals[-1]:.4f}), eval lines for epochs "
+          f"{list(epochs)}")
+
+
+def checkpoints_check(tag, work_dir, names, classes):
+    """Each checkpoint directory of ``names`` with ``meta.json`` naming
+    ``classes``; returns the metas."""
+    metas = {}
+    for name in names:
+        path = os.path.join(work_dir, name, "meta.json")
+        if not os.path.exists(path):
+            fail(f"{tag}: no {name}/meta.json")
+        with open(path) as f:
+            metas[name] = json.load(f)
+        if metas[name]["classes"] != list(classes):
+            fail(f"{tag}: {name} classes {metas[name]['classes']}")
+    print(f"[{tag}] checkpoints " + ", ".join(
+        f"{n} (epoch {m['epoch']}, step {m['step']})"
+        for n, m in metas.items()) + " with the config's classes")
+    return metas
+
+
+def first_step_check(torch, cfg, mc, watch, dev, steps_per_epoch):
+    """The CLI's first step against a direct ``train_step`` on the same
+    collated batch, initial weights and generator states: losses within
+    CKPT_LOSS_RTOL (the card's atomics may order sums differently)."""
+    from uni3detr_tpu_torch.cli import train as cli_train
+    from uni3detr_tpu_torch.train.step import train_step
+
+    model = build_model(mc).to(dev)
+    model.load_state_dict(watch.first["state"], strict=True)
+    opt = cli_train.build_optimizer(cfg, model, steps_per_epoch)
+    torch.set_rng_state(watch.first["rng"][0])
+    torch.cuda.set_rng_state(watch.first["rng"][1])
+    logs = train_step(model, opt, watch.first["batch"])
+    direct, cli_loss = float(logs["total_loss"]), watch.first["loss"]
+    rel = abs(direct - cli_loss) / max(abs(direct), 1e-6)
+    print(f"[{watch.tag}] first step total_loss: CLI {cli_loss:.6f}, direct "
+          f"train_step on the recorded batch, weights and generator states "
+          f"{direct:.6f}, relative {rel:.3g} (rtol {CKPT_LOSS_RTOL})")
+    if not rel <= CKPT_LOSS_RTOL:
+        fail(f"{watch.tag}: the CLI's first loss {cli_loss} vs direct "
+             f"{direct}")
+    del model, opt
+
+
+
+
+def lr_mult_check(tag, model, opt, lr_mult):
+    """Every trainable parameter in the optimizer group of the first
+    ``lr_mult`` prefix of its name (else 1), the frozen ones in none."""
+    group_of = {id(p): g["lr_mult"] for g in opt.adamw.param_groups
+                for p in g["params"]}
+    n_frozen = 0
+    for name, p in model.named_parameters():
+        if not p.requires_grad:
+            n_frozen += 1
+            if id(p) in group_of:
+                fail(f"{tag}: frozen {name} in the optimizer")
+            continue
+        want = next((m for pre, m in lr_mult.items()
+                     if name == pre or name.startswith(pre + ".")), 1.0)
+        if group_of.get(id(p)) != want:
+            fail(f"{tag}: {name} in group {group_of.get(id(p))} != {want}")
+    mults = sorted({g["lr_mult"] for g in opt.adamw.param_groups})
+    print(f"[{tag}] lr multipliers {mults} as the config's lr_mult by "
+          f"prefix; {n_frozen} frozen tensors out of the optimizer")
+
+
+def train_cli(torch, dev):
+    """Phases 54-58: the train entry point on the card, on data roots
+    written under ``build/``. 54 ``uni3detr_sunrgbd.py`` (8 train scenes
+    x ``repeat=2`` at B=4, two epochs, an eval after each); 55 a resume
+    from its ``epoch_1``; 56 ``cli.test`` on its ``latest`` against its
+    last eval; 57 ``uni3detr_kitti_car.py`` (ObjectSample on a GT
+    database, ObjectNoise, the LiDAR flip); 58 ``ov_uni3detr_sunrgbd_pc``
+    and ``_rgb`` one step each, then ``_mm`` staged from their
+    ``latest``. Returns the launches of every run."""
+    import numpy as np
+    from uni3detr_tpu_torch import native
+    from uni3detr_tpu_torch.cli import train as cli_train
+    from uni3detr_tpu_torch.config_file import (build_model_config,
+                                                load_config,
+                                                merge_cfg_options)
+    from uni3detr_tpu_torch.data.datasets import build_dataset
+    from uni3detr_tpu_torch.presets import PRESETS, SUNRGBD
+    from uni3detr_tpu_torch.synthetic import (write_kitti_root,
+                                              write_sunrgbd_root)
+    from uni3detr_tpu_torch.train.checkpoint import load_checkpoint
+
+    def config(path, root, opts=()):
+        cfg = merge_cfg_options(load_config(path),
+                                [f"data.data_root={root}", *opts])
+        return cfg, build_model_config(cfg)
+
+    shutil.rmtree(TRAIN_CLI_DIR, ignore_errors=True)
+    runs = []
+    # -- 54: the flagship config, two epochs with an eval after each
+    root = os.path.join(TRAIN_CLI_DIR, "sunrgbd")
+    t0 = time.perf_counter()
+    classes = load_config(SUNRGBD_CONFIG).class_names
+    write_sunrgbd_root(root, SUNRGBD, classes, TRAIN_CLI_SCENES,
+                       num_points=CLI_POINTS, split="train")
+    write_sunrgbd_root(root, SUNRGBD, classes, TRAIN_CLI_VAL,
+                       num_points=CLI_POINTS)
+    print(f"[train-cli] wrote {TRAIN_CLI_SCENES} train and {TRAIN_CLI_VAL} "
+          f"val scenes of {CLI_POINTS} points under {root} "
+          f"({time.perf_counter() - t0:.2f}s)")
+    cfg, mc = config(SUNRGBD_CONFIG, root, TRAIN_CLI_OPTS)
+    spe = TRAIN_CLI_SCENES * cfg.data["repeat"] // cfg.data["samples_per_gpu"]
+    wd = os.path.join(TRAIN_CLI_DIR, "flagship")
+    torch.cuda.synchronize(dev)     # initialises CUDA in a partial run
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    r, w = train_cli_run(torch, "train-cli", SUNRGBD_CONFIG, root,
+                         ["--work-dir", wd, "--cfg-options",
+                          *TRAIN_CLI_OPTS], mc)
+    peak = torch.cuda.max_memory_allocated(dev)
+    runs.append(w.launches())
+    if len(w.steps) != 2 * spe or len(w.evals) != 2 or sorted(
+            r["evals"]) != [1, 2]:
+        fail(f"train-cli: {len(w.steps)} steps, evals {sorted(r['evals'])}")
+    train_log_check("train-cli", wd, (1, 2))
+    checkpoints_check("train-cli", wd, ("epoch_1", "epoch_2", "latest"),
+                      classes)
+    direct_ms, direct_peak = DIRECT_TRAIN["train"]
+    print(f"[train-cli] peak_mem_bytes={peak} over the run (phase 7, direct "
+          f"steps at B=4 on one batch: {direct_peak}); phase 7's direct "
+          f"ms/step median {direct_ms:.3f}; eval epoch 2 "
+          f"{_metric_summary(r['evals'][2])}")
+    first_step_check(torch, cfg, mc, w, dev, spe)
+    del w
+    torch.cuda.empty_cache()
+
+    # -- 55: resume from epoch_1 at its step, optimizer state as stored
+    ckpt = os.path.join(wd, "epoch_1")
+    tree, meta = load_checkpoint(ckpt)
+
+    def resumed(model, opt):
+        if opt.steps != tree["step"] or meta["epoch"] != 1:
+            fail(f"train-cli-resume: step {opt.steps} != {tree['step']}")
+        for k, v in model.state_dict().items():
+            if not torch.equal(v.cpu(), tree["model"][k]):
+                fail(f"train-cli-resume: {k} differs from the checkpoint")
+        state = opt.adamw.state_dict()["state"]
+        for i, st in tree["optimizer"]["adamw"]["state"].items():
+            for k, v in st.items():
+                if not torch.equal(state[i][k].cpu(), v):
+                    fail(f"train-cli-resume: optimizer {i}.{k} differs")
+        print(f"[train-cli-resume] at the first resumed step: model and "
+              f"{len(state)} parameters' AdamW state equal to {ckpt}'s, "
+              f"step {opt.steps}")
+
+    r2, w2 = train_cli_run(
+        torch, "train-cli-resume", SUNRGBD_CONFIG, root,
+        ["--work-dir", os.path.join(TRAIN_CLI_DIR, "resumed"),
+         "--resume-from", ckpt, "--cfg-options", *TRAIN_CLI_OPTS], mc,
+        on_first=resumed)
+    runs.append(w2.launches())
+    sched = cli_train.build_schedules(cfg, spe)[0]
+    lr0 = w2.steps[0]["lr"]
+    print(f"[train-cli-resume] started at epoch {meta['epoch']}, step "
+          f"{w2.steps[0]['step']} (stored {meta['step']}); lr at the first "
+          f"resumed step {lr0} (schedule {sched(meta['step'])}); "
+          f"{len(w2.steps)} steps, evals {sorted(r2['evals'])}")
+    if (w2.steps[0]["step"], len(w2.steps), sorted(r2["evals"])) != (
+            spe, spe, [2]) or lr0 != sched(meta["step"]):
+        fail("train-cli-resume: wrong start, steps, evals or lr")
+    del w2, tree
+    torch.cuda.empty_cache()
+
+    # -- 56: cli.test on phase 54's latest = phase 54's last eval
+    run, rt = cli_run(torch, "train-cli-test", SUNRGBD_CONFIG, root,
+                      TRAIN_CLI_VAL, infer_per_batch(mc),
+                      os.path.join(wd, "latest"),
+                      extra=("--batch-size", "4", "--max-samples", "4"))
+    runs.append(run)
+    if not same_metric(rt["metrics"], r["evals"][2]):
+        fail(f"train-cli-test: {rt['metrics']} != the eval hook's "
+             f"{r['evals'][2]}")
+    print("[train-cli-test] cli.test's metric on latest equals the eval "
+          "hook's at epoch 2")
+
+    # -- 57: KITTI car: ObjectSample, ObjectNoise, the LiDAR flip
+    kroot = os.path.join(TRAIN_CLI_DIR, "kitti")
+    kmc0 = PRESETS["uni3detr_kitti_car"]
+    write_kitti_root(kroot, kmc0, KITTI_CLI_SCENES, 1, n_gt=KITTI_CLI_GT)
+    built_before = any(native.BUILD_DIR.glob("_data_ops_*.so"))
+    t0 = time.perf_counter()
+    native.library()
+    print(f"[train-cli-kitti] native data ops (g++) loaded at first use in "
+          f"{time.perf_counter() - t0:.3f}s from {native.build()} "
+          f"({'a library was there' if built_before else 'built now'})")
+    kcfg, kmc = config(KITTI_CAR_CONFIG, kroot)
+    flip = dict(kcfg.data, train_pipeline=[
+        dict(type="RandomFlip3D", flip_ratio_bev_horizontal=1.0),
+        dict(type="PointsRangeFilter")])
+    fds = build_dataset(flip, kcfg.class_names, kmc.pc_range, "train",
+                        sample_rng=lambda i: np.random.default_rng(0))
+    raw, s = fds.load_sample(0), fds[0]
+    if len(s["points"]) != len(raw["points"]) or not np.array_equal(
+            s["points"][:, 1], -raw["points"][:, 1]):
+        fail("train-cli-kitti: the forced horizontal flip lost points or "
+             "did not flip y")
+    print(f"[train-cli-kitti] box frame {fds.pipeline.transforms[0].box_type}"
+          f": a forced horizontal flip of a seeded sample keeps all "
+          f"{len(raw['points'])} points in pc_range (y negated)")
+    ds = build_dataset(kcfg.data, kcfg.class_names, kmc.pc_range, "train",
+                       sample_rng=lambda i: np.random.default_rng(i))
+    tr = {type(t).__name__: t for t in ds.pipeline.transforms}
+    t_os, t_on, gts = [], [], []
+    for i in range(len(ds)):
+        sample, rng = ds.load_sample(i), np.random.default_rng(i)
+        t0 = time.perf_counter()
+        sample = tr["ObjectSample"](sample, rng)
+        t1 = time.perf_counter()
+        sample = tr["ObjectNoise"](sample, rng)
+        t_on.append((time.perf_counter() - t1) * 1e3)
+        t_os.append((t1 - t0) * 1e3)
+        gts.append(len(sample["gt_boxes"]))
+    print(f"[train-cli-kitti] host ms a sample over {len(ds)} samples of "
+          f"{len(raw['points'])} points: ObjectSample {statistics.mean(t_os):.3f}"
+          f" (median {statistics.median(t_os):.3f}), ObjectNoise "
+          f"{statistics.mean(t_on):.3f} (median {statistics.median(t_on):.3f})"
+          f"; GT boxes after the paste {gts} (scene {KITTI_CLI_GT})")
+    r, w = train_cli_run(torch, "train-cli-kitti", KITTI_CAR_CONFIG, kroot,
+                         ["--work-dir", os.path.join(TRAIN_CLI_DIR, "kwd"),
+                          "--max-steps", str(KITTI_CLI_STEPS),
+                          "--cfg-options", "log_config.interval=1"], kmc,
+                         gt_counts=True)
+    runs.append(w.launches())
+    pasted = [g for st in w.steps for g in st["gt"]]
+    print(f"[train-cli-kitti] GT boxes a sample in the CLI's batches "
+          f"{pasted} (each scene has {KITTI_CLI_GT})")
+    if len(w.steps) != KITTI_CLI_STEPS or not all(
+            g > KITTI_CLI_GT for g in pasted):
+        fail("train-cli-kitti: wrong step count or no paste")
+    del w
+    torch.cuda.empty_cache()
+
+    # -- 58: OV pc and rgb one step each, then mm staged from them
+    oroot = os.path.join(TRAIN_CLI_DIR, "ov")
+    mm0 = PRESETS["ov_uni3detr_sunrgbd_mm"]
+    ov_classes = load_config(OV_PC_CONFIG).class_names
+    write_sunrgbd_root(oroot, mm0, ov_classes, OV_CLI_SCENES, camera=True,
+                       num_points=CLI_POINTS, split="train")
+    write_sunrgbd_root(oroot, mm0, ov_classes, 2, camera=True,
+                       num_points=CLI_POINTS)
+    latest = {}
+    for mode, path in (("pc", OV_PC_CONFIG), ("rgb", OV_RGB_CONFIG)):
+        owd = os.path.join(TRAIN_CLI_DIR, f"ov_{mode}")
+        _, omc = config(path, oroot)
+        r, w = train_cli_run(torch, f"train-cli-ov-{mode}", path, oroot,
+                             ["--work-dir", owd, "--max-steps", "1",
+                              "--cfg-options"], omc)
+        runs.append(w.launches())
+        if len(w.steps) != 1:
+            fail(f"train-cli-ov-{mode}: {len(w.steps)} steps")
+        latest[mode] = os.path.join(owd, "latest")
+        del w
+        torch.cuda.empty_cache()
+    opts = [f"pretrained_pts={latest['pc']}",
+            f"pretrained_img={latest['rgb']}"]
+    mcfg, mmc = config(OV_MM_CONFIG, oroot, opts)
+    sources = [(mcfg.load_pts, load_checkpoint(latest["pc"])[0]["model"]),
+               (mcfg.load_img, load_checkpoint(latest["rgb"])[0]["model"])]
+    counted = {}
+
+    def staged(model, opt):
+        sd = model.state_dict()
+        for prefixes, src in sources:
+            for pre in prefixes:
+                keys = [k for k in sd if k.startswith(pre) and k in src
+                        and src[k].shape == sd[k].shape]
+                for k in keys:
+                    if not torch.equal(sd[k].cpu(), src[k]):
+                        fail(f"train-cli-ov-mm: {k} differs from its source")
+                counted[pre] = len(keys)
+        lr_mult_check("train-cli-ov-mm", model, opt, dict(mcfg.lr_mult))
+
+    r, w = train_cli_run(torch, "train-cli-ov-mm", OV_MM_CONFIG, oroot,
+                         ["--work-dir", os.path.join(TRAIN_CLI_DIR, "ov_mm"),
+                          "--max-steps", "2", "--cfg-options", *opts], mmc,
+                         on_first=staged)
+    runs.append(w.launches())
+    frozen = [n for n, p in w.model.named_parameters() if not p.requires_grad]
+    moved = [n for n in frozen if not torch.equal(
+        dict(w.model.named_parameters())[n], w.first["state"][n])]
+    print(f"[train-cli-ov-mm] staged tensors by prefix {r['staged']} (equal "
+          f"to their sources at the first step: {counted}); ri by step "
+          f"{[st['ri'] for st in w.steps]}; frozen ResNet tensors "
+          f"{len(frozen)}, bit-equal after {len(w.steps)} steps: "
+          f"{not moved}")
+    if r["staged"] != counted or not all(counted.values()) or moved \
+            or not frozen or len(w.steps) != 2:
+        fail("train-cli-ov-mm: staged loading, frozen stages or steps")
+    del w
+    shutil.rmtree(TRAIN_CLI_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return runs
 
 
 def main():
@@ -2679,6 +3195,8 @@ def main():
     report.update(cli_report)
     runs += more
     t.append(time.perf_counter())
+    runs += train_cli(torch, dev)
+    t.append(time.perf_counter())
     # the NMS kernels' numbers at uni3detr_scannet's 5000 boxes
     for name in ("iou3d_rotated", "nms_greedy"):
         report[name] = scan_reports[0][name]
@@ -2687,7 +3205,7 @@ def main():
         for k, v in run.items():
             launches[k] = launches.get(k, 0) + v
     names = ("flagship", "nuscenes", "scannet", "scannet_large", "kitti_car",
-             "kitti_3classes", "ov", "cli")
+             "kitti_3classes", "ov", "cli", "train_cli")
     print("[time] " + ", ".join(f"{n} {t[i + 1] - t[i]:.1f}s"
                                 for i, n in enumerate(names))
           + f"; the whole smoke {time.perf_counter() - T_START:.1f}s")

@@ -1515,3 +1515,45 @@ def test_tiny_cli_on_card(dev, tmp_path, tta, monkeypatch):
         assert len(d["scores"]) > 0 and np.isfinite(d["boxes"]).all()
         assert len(d["scores"]) <= (500 if tta else 32)
     assert eval_metric.main([cfg, out]) == r["metrics"]
+
+
+def test_tiny_train_cli_on_card(dev, tmp_path, monkeypatch):
+    """``cli.train`` on the synthetic tiny config on the card (4 scenes
+    at batch 2, an eval after each epoch, ``--max-steps 3``, then a
+    resume from ``latest``): K12 once and K7 in every step, N1's NMS
+    bitmask once an eval batch, finite losses, the eval lines in
+    ``train.log`` and the steps counted on across the resume."""
+    import os
+    from uni3detr_tpu_torch.cli import train as cli_train
+    from uni3detr_tpu_torch.ops import nms
+    from uni3detr_tpu_torch.train import step
+
+    cfg = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                       "configs", "uni3detr", "uni3detr_synthetic_tiny.py")
+    wd = str(tmp_path / "wd")
+    opts = ["--cfg-options", "data.length=4", "evaluation.interval=1",
+            "evaluation.max_samples=2", "log_config.interval=1"]
+    per_step, real = [], step.train_step
+
+    def watched(model, opt, batch, **kw):
+        before = (matching.auction_lap.launches, sc.gather_conv_dw.launches)
+        logs = real(model, opt, batch, **kw)
+        per_step.append((matching.auction_lap.launches - before[0],
+                         sc.gather_conv_dw.launches - before[1],
+                         float(logs["total_loss"])))
+        return logs
+
+    monkeypatch.setattr(step, "train_step", watched)
+    masks = nms.overlap_mask.launches
+    r1 = cli_train.main([cfg, "--work-dir", wd, "--max-steps", "3", *opts])
+    r2 = cli_train.main([cfg, "--work-dir", wd, "--resume-from",
+                         os.path.join(wd, "latest"), *opts])
+    assert (r1["step"], r2["step"]) == (3, 5)
+    assert sorted(r1["evals"]) == [1] and sorted(r2["evals"]) == [2]
+    assert nms.overlap_mask.launches - masks == 2
+    assert len(per_step) == 5
+    for k12, k7, loss in per_step:
+        assert k12 == 1 and k7 > 0 and np.isfinite(loss)
+    with open(os.path.join(wd, "train.log")) as f:
+        text = f.read()
+    assert "eval epoch 1 | " in text and "eval epoch 2 | " in text

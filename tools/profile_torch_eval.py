@@ -50,7 +50,8 @@ sys.path.insert(0, str(ROOT))
 from uni3detr_tpu_torch.cli import test as cli_test  # noqa: E402
 from uni3detr_tpu_torch.config_file import (  # noqa: E402
     build_model_config, load_config, merge_cfg_options)
-from uni3detr_tpu_torch.data.datasets import build_dataset  # noqa: E402
+from uni3detr_tpu_torch.data.datasets import (box_type_of,  # noqa: E402
+                                             build_dataset)
 from uni3detr_tpu_torch.models.detector import Uni3DETR  # noqa: E402
 from uni3detr_tpu_torch.presets import PRESETS, SUNRGBD  # noqa: E402
 from uni3detr_tpu_torch.synthetic import write_sunrgbd_root  # noqa: E402
@@ -110,7 +111,7 @@ def preloaded_run(config, root, ckpt, tta, n, dev):
     bs = cfg.data.get("samples_per_gpu", 1)
     stats = {}
     run_inference(ds, model, mc, device=dev, batch_size=bs, tta_grid=grid,
-                  box_type=cfg.data.get("box_type", "Depth"), stats=stats)
+                  box_type=box_type_of(cfg.data), stats=stats)
     del model
     torch.cuda.empty_cache()
     return summary(stats, bs)

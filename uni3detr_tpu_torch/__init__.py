@@ -27,7 +27,11 @@ unless the caller asks for the CPU). The evaluation entry point
 pkls, the test pipeline, batching) through the pipelined loop of
 ``train.evaluator`` (with ``train.tta``: the views merged by a BEV NMS
 on the IoU kernel's BEV bitmask) to indoor, KITTI or nuScenes metrics
-and submission files.
+and submission files. The train entry point (``cli.train``) runs a
+config's train split (the train-time augmentations, ObjectSample and
+ObjectNoise on the C++ box ops of ``native``, built by g++ on first use,
+``RepeatDataset`` / ``CBGSDataset``) through ``train.step`` with
+checkpoints, periodic evaluation, resume and the OV staged loading.
 
 Tests: ``python -m pytest tests/test_torch_port_*.py`` on the CPU (the
 port against the JAX package), and on a machine with an NVIDIA GPU

@@ -58,10 +58,12 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def build_model(model_cfg, checkpoint=None, device="cuda", log=print):
+def build_model(model_cfg, checkpoint=None, device="cuda", log=print,
+                seed=0):
     """The config's model in eval mode on ``device``: a checkpoint's
-    weights, or random ones (seed 0); the CLIP text embeddings from
-    ``zeroshot_path`` where the config names one."""
+    weights, or random ones (``weights.random_state_dict`` of ``seed``);
+    the CLIP text embeddings from ``zeroshot_path`` where the config
+    names one."""
     from ..models.detector import Uni3DETR
     from ..models.ov_detector import OV_Uni3DETR
     from ..train.checkpoint import load_checkpoint, restore
@@ -75,7 +77,7 @@ def build_model(model_cfg, checkpoint=None, device="cuda", log=print):
         log(f"loaded checkpoint {checkpoint}")
     else:
         model.load_state_dict({k: torch.from_numpy(v) for k, v in
-                               random_state_dict(model, 0).items()},
+                               random_state_dict(model, seed).items()},
                               strict=True)
     zs_path = getattr(model_cfg, "zeroshot_path", None)
     if zs_path:
@@ -98,7 +100,7 @@ def main(argv=None):
                  "plain versions of the kernels on the CPU")
     from ..config_file import build_model_config, load_config, \
         merge_cfg_options
-    from ..data.datasets import build_dataset
+    from ..data.datasets import box_type_of, build_dataset
     from ..train.evaluator import evaluate, run_inference
 
     device = torch.device(args.device)
@@ -124,7 +126,7 @@ def main(argv=None):
     dets, gts = run_inference(
         dataset, model, model_cfg, device=device, batch_size=bs,
         max_samples=args.max_samples, tta_grid=tta_grid,
-        box_type=cfg.data.get("box_type", "Depth"), log=print, stats=stats)
+        box_type=box_type_of(cfg.data), log=print, stats=stats)
     n, wall = stats["scenes"], stats["wall_s"]
     line = (f"{n} scenes in {wall:.3f} s ({n / wall:.3f} scenes/s) at "
             f"batch {bs}: load + collate "

@@ -1,13 +1,18 @@
 """Datasets over the reference's info pkls, and batching (jax-free copy of
 ``uni3detr_tpu/data/datasets.py``: SUN RGB-D / ScanNet with the
 single-view camera, KITTI, nuScenes with sweeps, attributes and
-multi-view cameras, and a synthetic dataset that needs no data on disk).
+multi-view cameras, a synthetic dataset that needs no data on disk, and
+the train split's ``RepeatDataset`` and ``CBGSDataset``).
 
 Samples feed the numpy pipeline (``data.pipeline``), then
 :func:`collate_batch` pads them to the model's static budgets. In test
 mode sample ``idx`` draws from ``np.random.default_rng(idx)``, as the JAX
-package does, so both give equal arrays. The train split
-(``RepeatDataset``, ``CBGSDataset``) is not ported yet.
+package does, so both give equal arrays. In train mode each sample draws
+from a fresh unseeded ``np.random.default_rng(None)`` and a sample left
+without GT is redrawn at ``np.random.randint`` (the global generator), as
+in the JAX package; ``DetDataset(sample_rng=fn)`` replaces the fresh
+generator by ``fn(idx)``, the seam through which the tests and the smoke
+run seed the draws.
 """
 from __future__ import annotations
 
@@ -55,8 +60,10 @@ class DetDataset:
     def __init__(self, data_root, ann_file, pipeline_cfg, class_names,
                  pc_range, dataset_type="sunrgbd", box_type="Depth",
                  load_dim=6, use_dim=(0, 1, 2), shift_height=False,
-                 test_mode=False, filter_empty_gt=True, use_camera=False):
+                 test_mode=False, filter_empty_gt=True, use_camera=False,
+                 sample_rng=None):
         self.data_root = data_root
+        self.sample_rng = sample_rng
         self.use_camera = use_camera
         self.dataset_type = dataset_type
         self.class_names = list(class_names)
@@ -180,21 +187,30 @@ class DetDataset:
             raise KeyError(t)
         return dict(path=path, gt_boxes=boxes, gt_labels=labels, meta=meta)
 
-    def __getitem__(self, idx):
-        rng = np.random.default_rng(
-            None if not self.test_mode else idx)
+    def get_cat_ids(self, idx):
+        """The sample's set of labels (the CBGS resampling's input)."""
+        return set(self._parse(self.infos[idx])["gt_labels"].tolist())
+
+    def load_sample(self, idx) -> dict:
+        """Sample ``idx`` as loaded, before the pipeline."""
         rec = self._parse(self.infos[idx])
         pts = _load_points(rec["path"], self.load_dim, self.use_dim)
         if self.shift_height:
             pts = _shift_height(pts)
-        sample = {
+        return {
             "points": pts.astype(np.float32),
             "gt_boxes": rec["gt_boxes"],
             "gt_labels": rec["gt_labels"],
             "uni_rot_aug": np.eye(3, dtype=np.float32),
             "meta": dict(rec["meta"], index=idx),
         }
-        sample = self.pipeline(sample, rng)
+
+    def __getitem__(self, idx):
+        if self.sample_rng is not None:
+            rng = self.sample_rng(idx)
+        else:
+            rng = np.random.default_rng(None if not self.test_mode else idx)
+        sample = self.pipeline(self.load_sample(idx), rng)
         if (sample is None or (self.filter_empty_gt and not self.test_mode
                                and len(sample["gt_labels"]) == 0)):
             return self[np.random.randint(len(self))]
@@ -266,32 +282,91 @@ class SyntheticDataset:
         return self.pipeline(sample, rng)
 
 
-def build_dataset(data_cfg: dict, class_names, pc_range, split="val"):
-    """The val split of a config's ``data`` dict. The train split
-    (augmentations, ``RepeatDataset``, ``CBGSDataset``) is not ported
-    yet and raises NotImplementedError."""
-    if split == "train":
-        raise NotImplementedError(
-            "the train split (its augmentations, RepeatDataset and "
-            "CBGSDataset) is not ported yet")
+class RepeatDataset:
+    def __init__(self, ds, times):
+        self.ds, self.times = ds, times
+
+    def __len__(self):
+        return len(self.ds) * self.times
+
+    def __getitem__(self, i):
+        return self.ds[i % len(self.ds)]
+
+
+class CBGSDataset:
+    """Class-balanced resampling (mmdet3d's CBGSDataset, which the
+    reference's nuScenes config uses): each class's samples drawn with
+    replacement, by ``RandomState(class).choice``, to an equal share."""
+
+    def __init__(self, ds):
+        self.ds = ds
+        ncls = len(ds.class_names)
+        cat_to_idx = {c: [] for c in range(ncls)}
+        for i in range(len(ds)):
+            for c in ds.get_cat_ids(i):
+                cat_to_idx[c].append(i)
+        frac = 1.0 / ncls
+        total = sum(len(v) for v in cat_to_idx.values())
+        self.indices = []
+        for c, idxs in cat_to_idx.items():
+            if not idxs:
+                continue
+            ratio = frac / (len(idxs) / max(total, 1))
+            reps = int(np.round(ratio * len(idxs)))
+            self.indices += list(np.random.RandomState(c).choice(
+                idxs, max(reps, 1)))
+        if not self.indices:
+            self.indices = list(range(len(ds)))
+
+    def __len__(self):
+        return len(self.indices)
+
+    def __getitem__(self, i):
+        return self.ds[self.indices[i]]
+
+
+def box_type_of(data_cfg: dict) -> str:
+    """The box frame of a config's ``data`` dict: ``box_type_3d`` (the
+    key the shipped configs set, as mmdet3d names it), else ``box_type``,
+    else "Depth". The JAX package reads ``box_type`` alone, so its KITTI
+    and nuScenes runs flip and map boxes as Depth (ROADMAP Queue 3)."""
+    return data_cfg.get("box_type_3d", data_cfg.get("box_type", "Depth"))
+
+
+def build_dataset(data_cfg: dict, class_names, pc_range, split="train",
+                  sample_rng=None):
+    """A config's ``data`` split: "train" runs ``train_pipeline`` with
+    ``cbgs`` and ``repeat``, any other split ``ann_val`` with
+    ``test_pipeline`` in test mode. ``sample_rng``: see
+    :class:`DetDataset` (the synthetic dataset seeds itself)."""
     t = data_cfg["dataset_type"]
-    pipeline = data_cfg["test_pipeline"]
+    pipeline = data_cfg["train_pipeline"] if split == "train" \
+        else data_cfg["test_pipeline"]
     if t == "synthetic":
-        return SyntheticDataset(pipeline, class_names, pc_range,
-                                length=data_cfg.get("length", 64),
-                                n_points=data_cfg.get("n_points", 20000),
-                                with_camera=data_cfg.get("with_camera",
-                                                         False),
-                                img_size=data_cfg.get("img_size", (32, 32)),
-                                box_size_m=data_cfg.get("box_size_m"))
-    return DetDataset(
-        data_cfg["data_root"], data_cfg["ann_val"], pipeline, class_names,
-        pc_range, dataset_type=t, box_type=data_cfg.get("box_type", "Depth"),
-        load_dim=data_cfg.get("load_dim", 6),
-        use_dim=tuple(data_cfg.get("use_dim", (0, 1, 2))),
-        shift_height=data_cfg.get("shift_height", False),
-        use_camera=data_cfg.get("use_camera", False),
-        test_mode=True)
+        ds = SyntheticDataset(pipeline, class_names, pc_range,
+                              length=data_cfg.get("length", 64),
+                              n_points=data_cfg.get("n_points", 20000),
+                              with_camera=data_cfg.get("with_camera",
+                                                       False),
+                              img_size=data_cfg.get("img_size", (32, 32)),
+                              box_size_m=data_cfg.get("box_size_m"))
+    else:
+        ann = data_cfg["ann_train"] if split == "train" \
+            else data_cfg["ann_val"]
+        ds = DetDataset(
+            data_cfg["data_root"], ann, pipeline, class_names, pc_range,
+            dataset_type=t, box_type=box_type_of(data_cfg),
+            load_dim=data_cfg.get("load_dim", 6),
+            use_dim=tuple(data_cfg.get("use_dim", (0, 1, 2))),
+            shift_height=data_cfg.get("shift_height", False),
+            use_camera=data_cfg.get("use_camera", False),
+            test_mode=(split != "train"), sample_rng=sample_rng)
+    if split == "train":
+        if data_cfg.get("cbgs") and t != "synthetic":
+            ds = CBGSDataset(ds)
+        if data_cfg.get("repeat", 1) > 1:
+            ds = RepeatDataset(ds, data_cfg["repeat"])
+    return ds
 
 
 def collate_batch(samples: List[dict], num_points: int, max_gt: int,

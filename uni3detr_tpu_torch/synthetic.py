@@ -214,40 +214,125 @@ def ov_train_batch(seed: int, cfg, batch: int):
 
 
 def write_sunrgbd_root(root: str, cfg, class_names, n: int,
-                       camera: bool = False, num_points: int = 120000):
+                       camera: bool = False, num_points: int = 120000,
+                       split: str = "val"):
     """A SUN RGB-D data root on disk (the JAX package's ``datasets.py:87-111``
-    layout) for ``cli.test``: ``sunrgbd_infos_val.pkl`` with
+    layout) for the CLIs: ``sunrgbd_infos_<split>.pkl`` with
     ``point_cloud.pts_path`` and ``annos.gt_boxes_upright_depth`` /
     ``annos.name``, and ``n`` scenes of ``num_points`` float32 points of 6
     channels (``load_dim=6``) from :func:`clustered_scene` with their GT
     boxes (:func:`clustered_scene_gt`); with ``camera`` a uniform random
     PNG of ``cfg.img_size`` a scene and ``calib.K`` / ``calib.Rt`` of the
-    synthetic camera."""
+    synthetic camera. The val split's scenes are seeds 0 .. n-1 under
+    ``points/`` and ``image/``; the train split's are seeds
+    ``TRAIN_SEED0 + i`` under ``points/train_`` and ``image/train_``, so
+    both splits can share a root."""
     disk = dataclasses.replace(cfg, num_points=num_points,
                                in_point_features=6)
     for sub in ("points", "image"):
         os.makedirs(os.path.join(root, sub), exist_ok=True)
+    prefix, seed0 = ("", 0) if split == "val" else ("train_", TRAIN_SEED0)
     infos = []
     for i in range(n):
-        pts, _ = clustered_scene(i, disk)
-        pts[0].tofile(os.path.join(root, f"points/{i:06d}.bin"))
-        gt = clustered_scene_gt(i, disk)
-        info = {"point_cloud": {"pts_path": f"points/{i:06d}.bin"},
+        name = f"{prefix}{i:06d}"
+        pts, _ = clustered_scene(seed0 + i, disk)
+        pts[0].tofile(os.path.join(root, f"points/{name}.bin"))
+        gt = clustered_scene_gt(seed0 + i, disk)
+        info = {"point_cloud": {"pts_path": f"points/{name}.bin"},
                 "annos": {"gt_boxes_upright_depth": gt["boxes"],
                           "name": [class_names[c] for c in gt["labels"]]}}
         if camera:
             from PIL import Image
             H, W = cfg.img_size
-            img = np.random.RandomState([i, 2]).randint(0, 256, (H, W, 3))
+            img = np.random.RandomState([seed0 + i, 2]).randint(
+                0, 256, (H, W, 3))
             Image.fromarray(img.astype(np.uint8)).save(
-                os.path.join(root, f"image/{i:06d}.png"))
+                os.path.join(root, f"image/{name}.png"))
             f = CAMERA_FOCAL * W / 640
-            info["image"] = {"image_path": f"image/{i:06d}.png",
+            info["image"] = {"image_path": f"image/{name}.png",
                              "image_shape": (H, W)}
             info["calib"] = {
                 "K": np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]],
                               np.float32),
                 "Rt": LIDAR_TO_CAMERA[:3, :3].copy()}
         infos.append(info)
-    with open(os.path.join(root, "sunrgbd_infos_val.pkl"), "wb") as f:
+    with open(os.path.join(root, f"sunrgbd_infos_{split}.pkl"), "wb") as f:
         pickle.dump(infos, f)
+
+
+# the first seed of a written root's train scenes (val: 0 .. n-1)
+TRAIN_SEED0 = 10000
+# a KITTI car (dx, dy, dz in metres) and the GT database's entries
+KITTI_CAR = (3.9, 1.6, 1.56)
+KITTI_DB_POINTS = 40
+
+
+def _kitti_car_boxes(rng, cfg, n):
+    """``n`` car-sized boxes (n, 7), bottom-z storage layout, inside the
+    x / y range of ``cfg.pc_range`` with a margin of 5 m, z bottom at
+    -1.7 m (a KITTI lidar's road height), yaw uniform."""
+    lo, hi = np.asarray(cfg.pc_range[:2]), np.asarray(cfg.pc_range[3:5])
+    xy = rng.uniform(lo + 5, hi - 5, (n, 2))
+    size = np.asarray(KITTI_CAR) * rng.uniform(0.9, 1.1, (n, 3))
+    yaw = rng.uniform(-np.pi, np.pi, (n, 1))
+    return np.concatenate([xy, np.full((n, 1), -1.7), size, yaw],
+                          1).astype(np.float32)
+
+
+def _points_in_box(rng, box, n, channels):
+    """``n`` points uniform inside a storage-layout box, relative to its
+    (cx, cy, z bottom), with extra channels uniform in [0, 1)."""
+    local = rng.uniform(-0.5, 0.5, (n, 3)) * box[3:6]
+    local[:, 2] += 0.5 * box[5]
+    c, s = np.cos(box[6]), np.sin(box[6])
+    xy = local[:, :2] @ np.array([[c, s], [-s, c]])
+    xyz = np.concatenate([xy, local[:, 2:]], 1)
+    extra = rng.rand(n, channels - 3)
+    return np.concatenate([xyz, extra], 1).astype(np.float32)
+
+
+def write_kitti_root(root: str, cfg, n_train: int, n_val: int,
+                     n_gt: int = 3, n_db: int = 40):
+    """A KITTI data root on disk for the CLIs, in the layout the port's
+    and the JAX package's ``DetDataset`` read for ``kitti``:
+    ``kitti_infos_{train,val}.pkl`` with ``point_cloud.velodyne_path``
+    and ``annos.gt_boxes_lidar`` / ``annos.name``, and 4-channel float32
+    points under ``points/`` (:func:`clustered_scene`'s uniform scenes of
+    ``cfg``, seeds as in :func:`write_sunrgbd_root`), each scene with
+    ``n_gt`` cars (:func:`_kitti_car_boxes`) and ``KITTI_DB_POINTS``
+    points inside each. Also the GT database of ``ObjectSample``:
+    ``kitti_dbinfos_train.pkl``, ``{"Car": [{"path", "box3d_lidar",
+    "num_points_in_gt", "difficulty"}, ...]}`` with ``n_db`` cars, each
+    object's points under ``gt_database/`` relative to its box's (cx,
+    cy, z bottom), as ``ObjectSample`` adds ``box[:3]`` back."""
+    C = cfg.in_point_features
+    for sub in ("points", "gt_database"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    for split, n, seed0 in (("train", n_train, TRAIN_SEED0),
+                            ("val", n_val, 0)):
+        prefix = "train_" if split == "train" else ""
+        infos = []
+        for i in range(n):
+            name = f"points/{prefix}{i:06d}.bin"
+            pts, _ = clustered_scene(seed0 + i, cfg, "uniform")
+            rng = np.random.RandomState([seed0 + i, 3])
+            boxes = _kitti_car_boxes(rng, cfg, n_gt)
+            objs = [_points_in_box(rng, b, KITTI_DB_POINTS, C) + np.r_[
+                b[:3], np.zeros(C - 3)].astype(np.float32) for b in boxes]
+            np.concatenate([pts[0]] + objs).tofile(os.path.join(root, name))
+            infos.append({"point_cloud": {"velodyne_path": name},
+                          "annos": {"gt_boxes_lidar": boxes,
+                                    "name": ["Car"] * n_gt}})
+        with open(os.path.join(root, f"kitti_infos_{split}.pkl"), "wb") as f:
+            pickle.dump(infos, f)
+    rng = np.random.RandomState(4)
+    db = {"Car": []}
+    for j, box in enumerate(_kitti_car_boxes(rng, cfg, n_db)):
+        path = f"gt_database/{j}_Car_0.bin"
+        _points_in_box(rng, box, KITTI_DB_POINTS, C).tofile(
+            os.path.join(root, path))
+        db["Car"].append({"name": "Car", "path": path, "box3d_lidar": box,
+                          "num_points_in_gt": KITTI_DB_POINTS,
+                          "difficulty": 0})
+    with open(os.path.join(root, "kitti_dbinfos_train.pkl"), "wb") as f:
+        pickle.dump(db, f)
