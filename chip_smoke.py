@@ -247,12 +247,51 @@ eval's kernel launches asserted (``CliWatch``: the CLI looks up
     config's lr multipliers, the frozen ResNet stages bit-equal after
     the steps, launches as phases 45, 48 and 49 by ri.
 
+Then data parallelism (``ddp``; ranks started by
+``uni3detr_tpu_torch.parallel.launch.spawn``, each rank's launches
+counted in its process and asserted against one step's or one eval
+batch's counts):
+
+59. one rank over NCCL through ``cli.train`` in this process, with the
+    environment torchrun gives a rank: ``uni3detr_sunrgbd.py`` at full
+    width on a written SUN RGB-D root (8 train and 8 val scenes), 2 steps
+    at B=4, launches as phase 54's steps, the group NCCL during the steps
+    and torn down after;
+60. two ranks sharing the card over gloo on CUDA tensors: one fp32
+    flagship step at B=2 a rank (TF32 off, dropout 0) against one
+    process at B=4 on the same weights and batch (DDP_BATCH_SEED), run
+    twice, every run after the first one process's on its matching (the
+    matcher still runs: at random weights a last-bit change flips
+    assignments): the loss within the larger of JAX's DP rtol 1e-5 and
+    twice the two one-process runs' spread (at most 1e-4), the same step
+    with each rank's own BN statistics (a planted fault) outside that
+    tolerance, the grad norm within twice the two one-process runs'
+    spread (at least JAX's DP 1e-3, at most 1e-2); launches K1 4, K2 33,
+    K3 6, K4 1, K7 17, K10 3, K12 1 a step; each rank's ms/step over
+    DDP_TIMED steps, then as many with every all-reduce timed between
+    synchronisations (its calls a step and its share of the step); then
+    ``run_inference_distributed`` at B=1 on the val split with draws
+    keyed by scene (launches as phase 51 a batch) equal on rank 0 to
+    ``run_inference``'s detections bit for bit, the GT in dataset order;
+61. ``cli.train --num-processes 2`` (2 steps at 4 a rank), a resume to
+    step 4 and ``cli.test --num-processes 2`` on the 8 val scenes, each
+    with ``--process-id`` and a ``--coordinator host:port`` of its own
+    on the loopback: each rank's launches as its steps and
+    its batch (and N1's two-set form once a scene in rank 0's metric),
+    rank 0 alone holding the gathered detections (the val split's GT in
+    order) and the metric, ``train.log``, ``train.rank1.log``,
+    ``latest`` and the pkl written;
+62. ``graft_entry.dryrun_multichip(2)``: the tiny model's step and its
+    eval over 5 scenes, launches a rank as one step and its shard's
+    batches.
+
 Then one JSON line of the kernels (launches summed over every path's
 run: the inference and train runs of all six Lidar presets, the three
 OV presets' inference and train runs, K11's own call, the three
 ``cli.test`` runs and the train CLI's runs (phases 54, 55, 57 and 58:
-their steps and evals; phase 56's ``cli.test``), each read right after
-its run; times, errors, ``bound_ms`` with
+their steps and evals; phase 56's ``cli.test``) and every rank's runs
+of phases 59-62, each read right after its run; times, errors,
+``bound_ms`` with
 ``bound_by``, ``library_ms`` (null where no single PyTorch call
 computes the kernel's function) and, for the convs, ``gemm_ms``, at the
 nuScenes shapes for K1-K12, summed per scene for K1-K4, per train step
@@ -767,28 +806,15 @@ def kernel_phase(torch, model, pts, dev, tag):
 
 def kernel_wrappers():
     """Every model-path kernel's wrapper by the name the JSON line
-    reports: K1-K4 and N1/N2 run in inference, K1-K4 and K7/K10/K12 in
-    training. N1 on the NMS path is ``ops.nms.overlap_mask`` (the IoU
-    kernel writing NMS's bitmask); on the box-merging path its matrix
-    form ``geom.iou.iou3d_rotated_pairwise``, and in the metrics its
-    two-set 3D and BEV forms; on the TTA merge its BEV bitmask,
+    reports (``uni3detr_tpu_torch.ops.kernel_wrappers``): K1-K4 and N1/N2
+    run in inference, K1-K4 and K7/K10/K12 in training. N1 on the NMS
+    path is ``ops.nms.overlap_mask`` (the IoU kernel writing NMS's
+    bitmask); on the box-merging path its matrix form
+    ``geom.iou.iou3d_rotated_pairwise``, and in the metrics its two-set 3D
+    and BEV forms; on the TTA merge its BEV bitmask,
     ``ops.nms.overlap_mask_bev``."""
-    from uni3detr_tpu_torch.geom import iou
-    from uni3detr_tpu_torch.ops import (fps, matching, nms,
-                                        sparse_conv_cuda as sc)
-    return {"match_positions": sc.match_positions,
-            "gather_conv": sc.gather_conv,
-            "gather_conv_ids": sc.gather_conv_ids,
-            "fps_pair": fps.farthest_point_sample_pair,
-            "iou3d_rotated": nms.overlap_mask,
-            "iou_bev_rotated_mask": nms.overlap_mask_bev,
-            "nms_greedy": nms.greedy_scan,
-            "iou3d_rotated_matrix": iou.iou3d_rotated_pairwise,
-            "iou3d_rotated_sets": iou.iou3d_rotated_sets,
-            "iou_bev_rotated_sets": iou.iou_bev_rotated_sets,
-            "gather_conv_dw": sc.gather_conv_dw,
-            "gather_conv_ids_dw": sc.gather_conv_ids_dw,
-            "auction_lap": matching.auction_lap}
+    from uni3detr_tpu_torch.ops import kernel_wrappers as wrappers
+    return wrappers()
 
 
 def scene_inputs(torch, scene, dev):
@@ -3150,6 +3176,538 @@ def train_cli(torch, dev):
     return runs
 
 
+DDP_DIR = os.path.join(_ROOT, "build", "chip_smoke_ddp")
+DDP_RANKS = 2         # phases 60-61: two ranks share the one card (gloo)
+DDP_B = 4             # phase 60: the global batch, 2 scenes a rank
+DDP_TIMED = 3         # phase 60: timed steps a rank, and again with the
+                      # all-reduce timed
+DDP_SCENES = 8        # phases 59-60: train and val scenes of the root
+# phase 60's loss tolerance: tests/test_parallel.py's DP rtol 1e-5, or
+# twice the spread of two identical one-process runs on one matching
+# measured in the phase where that is larger (two card runs need not
+# agree bit for bit), never looser than 1e-4
+DDP_LOSS_RTOL = (1e-5, 1e-4)
+DDP_BATCH_SEED = 2    # phase 60's batch: clustered_train_batch's seed
+# phase 60's grad-norm tolerance: twice the spread of two one-process
+# runs, at least JAX's DP tolerance (the reduction order alone,
+# tests/test_parallel.py), never looser than 1e-2
+DDP_GNORM_RTOL = (1e-3, 1e-2)
+DDP_TIMEOUT = 600     # seconds a group of ranks may take
+
+
+def free_port():
+    """A free TCP port on this host's loopback."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def scene_points(scenes, view, nq=None):
+    """A batch's random query group keyed by its scenes' dataset indices
+    (scene i's points from ``RandomState(1000 + i)``, a view apart by
+    ``7919 * view``): the same draws for any number of ranks."""
+    import numpy as np
+    from uni3detr_tpu_torch.presets import SUNRGBD
+    nq = nq or SUNRGBD.num_query
+    return np.stack([np.random.RandomState(1000 + i + 7919 * view)
+                     .uniform(size=(nq, 3)).astype(np.float32)
+                     for i in scenes])
+
+
+def ddp_step_rank(cfg, sd, batch_np, assigned, config, root, timed,
+                  device="cuda"):
+    """Phase 60, one rank (in the process group): the step of ``cfg``
+    (fp32) on this rank's slice of ``batch_np`` (TF32 off), its launches,
+    its loss taking this rank's slice of ``assigned`` (one process's
+    matching of the global batch, (L, B, Q): ``pinned_matching``);
+    ``timed`` steps timed, then ``timed`` with each
+    ``torch.distributed.all_reduce`` timed between two synchronisations;
+    then ``run_inference_distributed`` at B=1 on the val split of
+    ``root`` (``config``'s model, seed-0 weights) with ``scene_points``,
+    and on rank 0 ``run_inference`` over the whole split with the same
+    draws; last the first step again from ``sd`` (the matching pinned
+    likewise) with a planted fault, each rank's own BN statistics
+    (``dist.batch_sum`` the identity).
+    ``device="cpu"`` runs it on the CPU (a rehearsal). Returns host
+    objects."""
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+    from uni3detr_tpu_torch.cli.test import build_model as cli_model
+    from uni3detr_tpu_torch.config_file import (build_model_config,
+                                                load_config,
+                                                merge_cfg_options)
+    from uni3detr_tpu_torch.data.datasets import build_dataset
+    from uni3detr_tpu_torch.ops import launch_counts
+    from uni3detr_tpu_torch.parallel import dist
+    from uni3detr_tpu_torch.train import evaluator
+    from uni3detr_tpu_torch.train.step import make_optimizer, train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cuda = device == "cuda"
+    dev = torch.device("cuda", torch.cuda.current_device()) if cuda \
+        else torch.device("cpu")
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    model = build_model(cfg)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
+    model.to(dev)
+    opt = make_optimizer(model, TRAIN_LR)
+    sl = dist.local_slice(len(batch_np["points"]))
+    batch = {k: torch.from_numpy(v[sl]).to(dev) for k, v in batch_np.items()}
+    mine = torch.from_numpy(assigned[:, sl])
+    out = {"rank": dist.rank(), "backend": tdist.get_backend(),
+           "device": str(dev)}
+    start = launch_counts()
+    with pinned_matching(mine):
+        logs = train_step(model, opt, batch)
+    sync()
+    first = launch_counts()
+    out["logs"] = {k: float(v) for k, v in logs.items()}
+    out["first"] = {k: first[k] - start[k] for k in first}
+    ms = []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        train_step(model, opt, batch)
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    real, calls = tdist.all_reduce, []
+
+    def timed_all_reduce(t, *a, **k):
+        sync()
+        t0 = time.perf_counter()
+        r = real(t, *a, **k)
+        sync()
+        calls.append((t.numel() * t.element_size(),
+                      time.perf_counter() - t0))
+        return r
+
+    tdist.all_reduce = timed_all_reduce
+    ms_timed = []
+    try:
+        for _ in range(timed):
+            t0 = time.perf_counter()
+            train_step(model, opt, batch)
+            sync()
+            ms_timed.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        tdist.all_reduce = real
+    big = max(c[0] for c in calls)
+    out.update(ms=ms, ms_with_timers=ms_timed,
+               all_reduce_s=sum(c[1] for c in calls),
+               all_reduce_calls=len(calls) // timed,
+               grad_bytes=big,
+               grad_s=sum(c[1] for c in calls if c[0] == big),
+               steps=1 + 2 * timed,
+               peak=torch.cuda.max_memory_allocated(dev) if cuda else 0)
+    del model, opt, batch
+
+    ecfg = merge_cfg_options(load_config(config), [f"data.data_root={root}"])
+    mc = build_model_config(ecfg)
+    ds = build_dataset(ecfg.data, ecfg.class_names, mc.pc_range, "val")
+    emodel = cli_model(mc, None, dev, log=lambda *a: None)
+    rp = functools.partial(scene_points, nq=mc.num_query)
+    stats = {}
+    dets, gts = evaluator.run_inference_distributed(
+        ds, emodel, mc, device=dev, batch_size=1, random_points=rp,
+        stats=stats)
+    after = launch_counts()
+    out["launches"] = {k: after[k] - start[k] for k in after}
+    out["eval_batches"] = stats["batches"]
+    out["n_dets"] = len(dets)
+    if dist.rank() == 0:
+        ref, ref_gts = evaluator.run_inference(
+            ds, emodel, mc, device=dev, batch_size=1,
+            random_points=lambda k, a: rp([k], a))
+        out["same"] = len(dets) == len(ref) and all(
+            np.array_equal(a[k], b[k]) for a, b in zip(dets, ref)
+            for k in ("boxes", "scores", "labels"))
+        out["same_gts"] = all(np.array_equal(a[k], b[k])
+                              for a, b in zip(gts, ref_gts) for k in b)
+        out["n_boxes"] = sum(len(d["scores"]) for d in dets)
+    del emodel
+
+    model = build_model(cfg)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
+    model.to(dev)
+    opt = make_optimizer(model, TRAIN_LR)
+    batch = {k: torch.from_numpy(v[sl]).to(dev) for k, v in batch_np.items()}
+    real_sum = dist.batch_sum
+    dist.batch_sum = lambda *ts: ts
+    try:
+        with pinned_matching(mine):
+            logs = train_step(model, opt, batch)
+    finally:
+        dist.batch_sum = real_sum
+    out["local_bn"] = {k: float(v) for k, v in logs.items()}
+    return out
+
+
+def ddp_cli_rank(config, root, work_dir, coordinators):
+    """Phase 61, one rank: ``cli.train --num-processes 2`` for 2 steps,
+    its resume from ``latest`` for 2 more, then ``cli.test
+    --num-processes 2`` on ``latest`` (the val split), each with the JAX
+    CLI's flags and a ``host:port`` of ``coordinators`` (train, resume,
+    test); returns each run's summary with this rank's launches."""
+    from uni3detr_tpu_torch.cli import test as cli_test
+    from uni3detr_tpu_torch.cli import train as cli_train
+    from uni3detr_tpu_torch.ops import launch_counts
+
+    r, W = os.environ["RANK"], os.environ["WORLD_SIZE"]
+
+    def flags(tag):
+        return ["--num-processes", W, "--process-id", r, "--coordinator",
+                coordinators[tag]]
+
+    opts = ["--cfg-options", f"data.data_root={root}",
+            "evaluation.interval=0", "log_config.interval=1"]
+    latest = os.path.join(work_dir, "latest")
+    keep = ("epoch", "step", "rank", "world_size", "launches")
+    first = cli_train.main([config, "--work-dir", work_dir, "--max-steps",
+                            "2", *flags("train"), *opts])
+    resumed = cli_train.main([config, "--work-dir", work_dir, "--resume-from",
+                              latest, "--max-steps", "4", *flags("resume"),
+                              *opts])
+    before = launch_counts()
+    test = cli_test.main([config, latest, "--eval", "bbox", "--out",
+                          os.path.join(work_dir, "dets.pkl"),
+                          "--cfg-options", f"data.data_root={root}",
+                          *flags("test")])
+    after = launch_counts()
+    return ({k: first[k] for k in keep}, {k: resumed[k] for k in keep},
+            dict({k: test[k] for k in ("dets", "gts", "metrics", "rank",
+                                       "world_size")},
+                 batches=test["stats"]["batches"],
+                 launches={k: after[k] - before[k] for k in after}))
+
+
+def _sum_launches(*runs):
+    total = {}
+    for run in runs:
+        for k, v in run.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def _times(per_step, n):
+    return {k: v * n for k, v in per_step.items()}
+
+
+def ddp_root(root, n_scenes):
+    """A SUN RGB-D root of ``n_scenes`` train and as many val scenes of
+    CLI_POINTS points (``synthetic.write_sunrgbd_root``); returns it."""
+    from uni3detr_tpu_torch.config_file import load_config
+    from uni3detr_tpu_torch.presets import SUNRGBD
+    from uni3detr_tpu_torch.synthetic import write_sunrgbd_root
+
+    classes = load_config(SUNRGBD_CONFIG).class_names
+    for split in ("train", "val"):
+        write_sunrgbd_root(root, SUNRGBD, classes, n_scenes,
+                           num_points=CLI_POINTS, split=split)
+    return root
+
+
+@contextlib.contextmanager
+def pinned_matching(fixed=None, seen=None):
+    """Within: the train loss's matching (``losses.assign_layers``) runs
+    and its launches count, but the loss takes ``fixed`` ((L, B, Q), a
+    CPU tensor) where given; ``seen`` collects what the matcher returned
+    (on the CPU)."""
+    from uni3detr_tpu_torch.train import losses
+    real = losses.assign_layers
+
+    def assign(costs, gt_mask, cfg):
+        got = real(costs, gt_mask, cfg)
+        if seen is not None:
+            seen.append(got.cpu())
+        return got if fixed is None else fixed.to(got.device)
+
+    losses.assign_layers = assign
+    try:
+        yield
+    finally:
+        losses.assign_layers = real
+
+
+def one_process_steps(torch, dev, cfg, sd, batch_np, nudges=(), pin=True):
+    """The first step of ``cfg`` from ``sd`` on ``batch_np`` in this
+    process, twice, then once with the points x (1 + nudge) for each of
+    ``nudges``: the runs' logs as floats, and the first run's matching
+    ((L, B, Q) on the CPU). With ``pin`` the later runs take the first
+    run's matching (``pinned_matching``)."""
+    from uni3detr_tpu_torch.train.step import make_optimizer, train_step
+
+    runs, seen = [], []
+    for i, nudge in enumerate((0.0, 0.0) + tuple(nudges)):
+        model = build_model(cfg)
+        model.load_state_dict(sd, strict=True)
+        model.to(dev)
+        opt = make_optimizer(model, TRAIN_LR)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
+        batch["points"] = batch["points"] * (1 + nudge)
+        with pinned_matching(seen[0] if i and pin else None,
+                             None if i else seen):
+            logs = train_step(model, opt, batch)
+        runs.append({k: float(v) for k, v in logs.items()})
+        del model, opt, batch
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return runs, seen[0]
+
+
+def ddp_step_phase(torch, dev, n, B, backend, root, config, tag, cfg=None):
+    """Phase 60 on ``n`` ranks (``backend`` expected): the fp32 step of
+    ``cfg`` (default the flagship; TF32 off, dropout 0) on ``n`` ranks
+    (``ddp_step_rank``) against one process on the same global batch of
+    ``B`` scenes (batch seed DDP_BATCH_SEED) and weights (``one_process_steps``: run
+    twice; the second run and every rank on the first run's matching),
+    the loss within the larger of DDP_LOSS_RTOL[0] and twice the two
+    runs' spread (at most DDP_LOSS_RTOL[1]), each rank's step with its
+    own BN statistics outside it (a planted fault), the grad norm as
+    DDP_GNORM_RTOL says; each rank's launches (on the card),
+    ms/step and all-reduce share printed; ``run_inference_distributed``
+    equal to ``run_inference`` on rank 0. Returns each rank's launches."""
+    from uni3detr_tpu_torch.config_file import (build_model_config,
+                                                load_config,
+                                                merge_cfg_options)
+    from uni3detr_tpu_torch.parallel.launch import spawn
+    from uni3detr_tpu_torch.presets import SUNRGBD
+    from uni3detr_tpu_torch.synthetic import clustered_train_batch
+
+    cuda = dev.type == "cuda"
+    mc = build_model_config(merge_cfg_options(load_config(config),
+                                              [f"data.data_root={root}"]))
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(cfg or SUNRGBD, compute_dtype="float32",
+                              dropout=0.0)
+    sd = _state_dict(torch, build_model(cfg))
+    batch_np = clustered_train_batch(DDP_BATCH_SEED, cfg, B)
+    one, assigned = one_process_steps(torch, dev, cfg, sd, batch_np)
+    spread = abs(one[0]["grad_norm"] - one[1]["grad_norm"]) \
+        / one[0]["grad_norm"]
+    loss1, gn1 = one[0]["total_loss"], one[0]["grad_norm"]
+    again = abs(one[1]["total_loss"] - loss1) / abs(loss1)
+    t0 = time.perf_counter()
+    ranks = spawn("chip_smoke:ddp_step_rank", n,
+                  (cfg, {k: v.numpy() for k, v in sd.items()}, batch_np,
+                   assigned.numpy(), config, root, DDP_TIMED),
+                  {"device": dev.type}, device=dev.type, timeout=DDP_TIMEOUT)
+    wall = time.perf_counter() - t0
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 \
+        = tf32
+    per_step, per_batch = train_per_step(cfg), infer_per_batch(mc)
+    gtol = min(max(2 * spread, DDP_GNORM_RTOL[0]), DDP_GNORM_RTOL[1])
+    ltol = min(max(2 * again, DDP_LOSS_RTOL[0]), DDP_LOSS_RTOL[1])
+    card = card_line() if cuda else "CPU"
+    print(f"[{tag}] one process at B={B} (batch seed {DDP_BATCH_SEED}), "
+          f"fp32, TF32 off: total_loss {[o['total_loss'] for o in one]} "
+          f"(again on the first run's matching): {again:.3g} between the "
+          f"two runs, loss "
+          f"rtol {ltol:.3g} (twice that, within {DDP_LOSS_RTOL})")
+    runs = []
+    for rk in ranks:
+        logs = rk["logs"]
+        el = abs(logs["total_loss"] - loss1) / abs(loss1)
+        eg = abs(logs["grad_norm"] - gn1) / gn1
+        want = _sum_launches(_times(per_step, rk["steps"]),
+                             _times(per_batch, rk["eval_batches"]))
+        ar = rk["all_reduce_s"] / (sum(rk["ms_with_timers"]) / 1e3)
+        print(f"[{tag}] rank {rk['rank']} of {n} ({rk['backend']}, "
+              f"{rk['device']}): step 1 total_loss={logs['total_loss']:.6f} "
+              f"(one process at B={B}: {loss1:.6f}, relative {el:.3g}, "
+              f"rtol {ltol:.3g}), grad_norm={logs['grad_norm']:.6f} "
+              f"(one process: {gn1:.6f}, relative {eg:.3g}, rtol {gtol:.3g}: "
+              f"twice the spread {spread:.3g} of two one-process runs, within "
+              f"{DDP_GNORM_RTOL}); ms/step median "
+              f"{statistics.median(rk['ms']):.3f} over {DDP_TIMED} "
+              f"({[round(t, 3) for t in rk['ms']]}); with the all-reduce "
+              f"timed: {rk['all_reduce_calls']} all-reduces a step, "
+              f"{rk['all_reduce_s'] * 1e3 / DDP_TIMED:.3f} ms a step (the "
+              f"gradients' {rk['grad_bytes']} B "
+              f"{rk['grad_s'] * 1e3 / DDP_TIMED:.3f} ms), share "
+              f"{ar:.3f} of {statistics.median(rk['ms_with_timers']):.3f} "
+              f"ms/step ({card}); peak_mem_bytes={rk['peak']}; launches "
+              f"step 1 {rk['first']}, over {rk['steps']} steps and "
+              f"{rk['eval_batches']} eval batches {rk['launches']}")
+        fl = abs(rk["local_bn"]["total_loss"] - loss1) / abs(loss1)
+        print(f"[{tag}] rank {rk['rank']}, the planted fault (each rank's "
+              f"own BN statistics): total_loss "
+              f"{rk['local_bn']['total_loss']:.6f}, relative {fl:.3g} "
+              f"outside rtol {ltol:.3g}: {fl > ltol}")
+        if rk["backend"] != backend or not el <= ltol or not eg <= gtol:
+            fail(f"{tag} rank {rk['rank']}: backend, loss or grad norm")
+        if not fl > ltol:
+            fail(f"{tag} rank {rk['rank']}: the loss tolerance {ltol:.3g} "
+                 f"passes a step with per-rank BN statistics ({fl:.3g})")
+        if cuda and (rk["first"] != per_step or rk["launches"] != want):
+            fail(f"{tag} rank {rk['rank']}: launches {rk['launches']} != "
+                 f"{want} (step 1 {rk['first']} != {per_step})")
+        runs.append(rk["launches"])
+    r0 = ranks[0]
+    print(f"[{tag}] {n} ranks in {wall:.1f}s; run_inference_distributed at "
+          f"B=1 over {r0['n_dets']} scenes ({r0['n_boxes']} boxes) with draws "
+          f"keyed by scene: rank 0 holds them all, equal to run_inference "
+          f"bit for bit: {r0['same']}, GT in dataset order: "
+          f"{r0['same_gts']}")
+    if not (r0["same"] and r0["same_gts"] and r0["n_dets"]
+            and not any(rk["n_dets"] for rk in ranks[1:])):
+        fail(f"{tag}: run_inference_distributed != run_inference")
+    return runs
+
+
+def ddp_cli_phase(torch, n, root, wd, tag):
+    """Phase 61 on ``n`` ranks on the card (``ddp_cli_rank``: ``cli.train``
+    2 steps, a resume to step 4, ``cli.test`` on ``root``'s val split,
+    the JAX CLI's flags with loopback ``host:port`` coordinators): each
+    rank's launches as its steps and batches (and N1's two-set form once
+    a scene in rank 0's metric), rank 0 alone holding the gathered
+    detections (the val split's GT in order) and the metric, the files
+    of rank 0 and of the other ranks' logs. Returns the launches."""
+    import numpy as np
+    from uni3detr_tpu_torch.config_file import (build_model_config,
+                                                load_config,
+                                                merge_cfg_options)
+    from uni3detr_tpu_torch.data.datasets import build_dataset
+    from uni3detr_tpu_torch.parallel.launch import spawn
+
+    cfg = merge_cfg_options(load_config(SUNRGBD_CONFIG),
+                            [f"data.data_root={root}"])
+    mc = build_model_config(cfg)
+    per_step, per_batch = train_per_step(mc), infer_per_batch(mc)
+    t0 = time.perf_counter()
+    ranks = spawn("chip_smoke:ddp_cli_rank", n,
+                  (SUNRGBD_CONFIG, root, wd,
+                   {k: f"127.0.0.1:{free_port()}"
+                    for k in ("train", "resume", "test")}),
+                  device="cuda", init=False, timeout=DDP_TIMEOUT)
+    wall = time.perf_counter() - t0
+    ds = build_dataset(cfg.data, cfg.class_names, mc.pc_range, "val")
+    runs = []
+    for rk, (first, resumed, test) in enumerate(ranks):
+        want_test = _times(per_batch, test["batches"])
+        if rk == 0:
+            want_test["iou3d_rotated_sets"] = sum(
+                bool(len(g["boxes"]) and len(d["boxes"]))
+                for g, d in zip(test["gts"], test["dets"]))
+        got = [first["launches"], resumed["launches"], test["launches"]]
+        want = [_times(per_step, 2), _times(per_step, 2),
+                _sum_launches(dict.fromkeys(per_step, 0), want_test)]
+        print(f"[{tag}] rank {rk}: train to step {first['step']}, resumed "
+              f"to step {resumed['step']}, world size {first['world_size']}; "
+              f"cli.test {test['batches']} batch(es), "
+              f"{len(test['dets'])} detections gathered, metrics "
+              f"{'written' if test['metrics'] else 'none'}; launches train "
+              f"{got[0]}, resume {got[1]}, test {got[2]}")
+        if (first["step"], resumed["step"], first["rank"],
+                first["world_size"]) != (2, 4, rk, n) or got != want:
+            fail(f"{tag} rank {rk}: steps or launches {got} != {want}")
+        runs += got
+    test0 = ranks[0][2]
+    files = sorted(os.listdir(wd))
+    same_gt = len(test0["gts"]) == len(ds) and all(
+        np.array_equal(g["boxes"], ds[i]["gt_boxes"])
+        for i, g in enumerate(test0["gts"]))
+    logs = {f"train.rank{r}.log" for r in range(1, n)}
+    print(f"[{tag}] {n} ranks in {wall:.1f}s; files {files}; rank 0's "
+          f"{len(test0['dets'])} scenes hold the val split's GT in order: "
+          f"{same_gt}; {_metric_summary(test0['metrics'])}")
+    if not same_gt or not test0["metrics"] or any(
+            r[2]["dets"] or r[2]["metrics"] for r in ranks[1:]) or not {
+                "train.log", "latest", "dets.pkl"} | logs <= set(files):
+        fail(f"{tag}: rank 0's gather, files or the other ranks' outputs")
+    return runs
+
+
+def ddp(torch, dev):
+    """Phases 59-62: data parallelism on the card. 59 one rank over NCCL
+    through ``cli.train`` (torchrun's environment) at full width, 2
+    steps; 60 two ranks sharing the card over gloo on CUDA tensors: one
+    fp32 flagship step at B=2 a rank against one process at B=4 on the
+    same weights and batch, their ms/step and the all-reduce's share,
+    ``run_inference_distributed`` against ``run_inference``; 61
+    ``cli.train`` / resume / ``cli.test --num-processes 2``; 62
+    ``graft_entry.dryrun_multichip(2)``. Returns the launches of every
+    rank's runs."""
+    from uni3detr_tpu_torch import graft_entry
+    from uni3detr_tpu_torch.config_file import (build_model_config,
+                                                load_config,
+                                                merge_cfg_options)
+
+    shutil.rmtree(DDP_DIR, ignore_errors=True)
+    runs = []
+    root = ddp_root(os.path.join(DDP_DIR, "sunrgbd"), DDP_SCENES)
+    cfg_file = merge_cfg_options(load_config(SUNRGBD_CONFIG),
+                                 [f"data.data_root={root}"])
+    mc = build_model_config(cfg_file)
+
+    # -- 59: one rank over NCCL through cli.train, env as torchrun's
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", LOCAL_WORLD_SIZE="1",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()))
+    saved = {k: os.environ.get(k) for k in env}
+    seen = {}
+
+    def on_first(model, opt):
+        seen.update(initialized=torch.distributed.is_initialized(),
+                    backend=torch.distributed.get_backend(),
+                    world=torch.distributed.get_world_size())
+
+    os.environ.update(env)
+    try:
+        r, w = train_cli_run(torch, "ddp-nccl", SUNRGBD_CONFIG, root,
+                             ["--work-dir", os.path.join(DDP_DIR, "nccl"),
+                              "--max-steps", "2", "--cfg-options",
+                              "evaluation.interval=0",
+                              "log_config.interval=1"], mc,
+                             on_first=on_first)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    runs.append(w.launches())
+    print(f"[ddp-nccl] process group during the steps: {seen}; world size "
+          f"{r['world_size']}, {len(w.steps)} steps of {mc.num_points} "
+          f"points at B={cfg_file.data['samples_per_gpu']}; torn down after: "
+          f"{not torch.distributed.is_initialized()}")
+    if seen != dict(initialized=True, backend="nccl", world=1) or len(
+            w.steps) != 2 or torch.distributed.is_initialized():
+        fail(f"ddp-nccl: {seen}, {len(w.steps)} steps")
+    del w
+    torch.cuda.empty_cache()
+
+    # -- 60: two ranks on the card against one process, same global batch
+    runs += ddp_step_phase(torch, dev, DDP_RANKS, DDP_B, "gloo", root,
+                           SUNRGBD_CONFIG, "ddp-gloo")
+
+    # -- 61: the CLIs on two ranks
+    runs += ddp_cli_phase(torch, DDP_RANKS, root, os.path.join(DDP_DIR, "cli"),
+                          "ddp-cli")
+
+    # -- 62: the graft entry's dry run on the card
+    t0 = time.perf_counter()
+    res = graft_entry.dryrun_multichip(DDP_RANKS, device="cuda")
+    dcfg = graft_entry.dryrun_config()
+    n_eval = 2 * DDP_RANKS + 1
+    for rk in res:
+        shard = len(range(rk["rank"], n_eval, DDP_RANKS))
+        want = _sum_launches(train_per_step(dcfg), _times(
+            infer_per_batch(dcfg), -(-shard // 2)))
+        if rk["launches"] != want:
+            fail(f"ddp-dryrun rank {rk['rank']}: launches {rk['launches']} "
+                 f"!= {want}")
+        runs.append(rk["launches"])
+    print(f"[ddp-dryrun] dryrun_multichip({DDP_RANKS}) on the card in "
+          f"{time.perf_counter() - t0:.1f}s, launches a rank as one tiny "
+          f"step and its eval shard")
+    shutil.rmtree(DDP_DIR, ignore_errors=True)
+    return runs
+
+
 def main():
     import torch
 
@@ -3197,6 +3755,8 @@ def main():
     t.append(time.perf_counter())
     runs += train_cli(torch, dev)
     t.append(time.perf_counter())
+    runs += ddp(torch, dev)
+    t.append(time.perf_counter())
     # the NMS kernels' numbers at uni3detr_scannet's 5000 boxes
     for name in ("iou3d_rotated", "nms_greedy"):
         report[name] = scan_reports[0][name]
@@ -3205,7 +3765,7 @@ def main():
         for k, v in run.items():
             launches[k] = launches.get(k, 0) + v
     names = ("flagship", "nuscenes", "scannet", "scannet_large", "kitti_car",
-             "kitti_3classes", "ov", "cli", "train_cli")
+             "kitti_3classes", "ov", "cli", "train_cli", "ddp")
     print("[time] " + ", ".join(f"{n} {t[i + 1] - t[i]:.1f}s"
                                 for i, n in enumerate(names))
           + f"; the whole smoke {time.perf_counter() - T_START:.1f}s")

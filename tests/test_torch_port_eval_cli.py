@@ -14,7 +14,8 @@ another order through ~20 convs and the decoder; observed ~1e-6).
 ``cli.test --device cpu`` end to end on the Lidar and the OV synthetic
 tiny configs (``--max-samples 2 --out --show-dir``), then
 ``cli.eval_metric`` on the pkl: the same metric dict; without a card and
-without ``--device cpu`` the CLI exits non-zero.
+without ``--device cpu`` the CLI exits non-zero; the multi-process flags
+on a group of one rank give the plain run's detections and metric.
 """
 import os
 import pickle
@@ -147,7 +148,7 @@ def test_cli_end_to_end_on_cpu(tmp_path, config):
     assert eval_metric.main([config, out, "--device", "cpu"]) == r["metrics"]
 
 
-def test_cli_needs_a_card_or_cpu_flag(monkeypatch):
+def test_cli_needs_a_card_or_cpu_flag(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit) as e:
         cli_test.main([TINY, "--eval", "bbox"])
@@ -155,8 +156,19 @@ def test_cli_needs_a_card_or_cpu_flag(monkeypatch):
     with pytest.raises(SystemExit) as e:
         eval_metric.main([TINY, "dets.pkl"])
     assert e.value.code not in (0, None)
-    with pytest.raises(NotImplementedError, match="DDP"):
-        cli_test.main([TINY, "--num-processes", "2", "--device", "cpu"])
+    # the multi-process flags run: a group of one rank over a file://
+    # rendezvous computes what the plain run does, and is torn down
+    # (tests/test_torch_port_ddp.py runs two ranks)
+    flags = ["--num-processes", "1", "--process-id", "0", "--coordinator",
+             f"file://{tmp_path / 'rendezvous'}"]
+    argv = [TINY, "--eval", "bbox", "--max-samples", "2", "--device", "cpu"]
+    r = cli_test.main(argv + flags)
+    assert not torch.distributed.is_initialized()
+    assert (r["rank"], r["world_size"]) == (0, 1)
+    plain = cli_test.main(argv)
+    assert r["metrics"] == plain["metrics"]
+    for d, e in zip(r["dets"], plain["dets"]):
+        np.testing.assert_array_equal(d["boxes"], e["boxes"])
 
 
 def test_cli_model_reads_checkpoint_and_zeroshot(setup, tmp_path):

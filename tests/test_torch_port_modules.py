@@ -77,9 +77,9 @@ def test_config_fields_equal_jax_config():
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, ``chip_smoke.py`` and the port's train,
-    inference and evaluation profile tools import no JAX, flax or JAX
-    package."""
+    """Every module of the port, ``chip_smoke.py``, the port's train,
+    inference and evaluation profile tools and ``tools/ddp_cards.py``
+    import no JAX, flax or JAX package."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     code = ("import sys, pkgutil, importlib, importlib.util\n"
             f"sys.path[:0] = [{root!r}, {os.path.join(root, 'tools')!r}]\n"
@@ -87,7 +87,8 @@ def test_port_imports_no_jax():
             "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
             "    importlib.import_module(m.name)\n"
             "for name in ('chip_smoke', 'profile_torch_train', "
-            "'profile_torch_flagship', 'profile_torch_eval'):\n"
+            "'profile_torch_flagship', 'profile_torch_eval', "
+            "'ddp_cards'):\n"
             "    importlib.import_module(name)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'uni3detr_tpu')]\n"

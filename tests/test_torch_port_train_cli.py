@@ -20,7 +20,7 @@ CPU.
   step's loss equal to a direct ``train_step`` on the same batch and the
   seed's weights; each step's lr against JAX's schedule; the OV tiny
   config's staged branch loading, lr multipliers and frozen stages.
-- ``--num-processes 2`` raises; without a card and without ``--device
+- ``--spatial-shard 2`` raises; without a card and without ``--device
   cpu`` the CLI exits non-zero.
 """
 import glob
@@ -303,10 +303,10 @@ def test_ov_cli_staged_loading_on_cpu(tmp_path, monkeypatch):
 
 
 def test_cli_refuses_unported_options_and_a_missing_card(monkeypatch):
-    for opt in (["--num-processes", "2"], ["--spatial-shard", "2"],
-                ["--coordinator", "localhost:1234"]):
-        with pytest.raises(NotImplementedError, match="DDP"):
-            cli_train.main([TINY, "--device", "cpu", *opt])
+    # data parallelism is ported (tests/test_torch_port_ddp.py); spatial
+    # sharding is not
+    with pytest.raises(NotImplementedError, match="ROADMAP.*spatial"):
+        cli_train.main([TINY, "--device", "cpu", "--spatial-shard", "2"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit) as e:
         cli_train.main([TINY])

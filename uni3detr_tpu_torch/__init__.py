@@ -32,6 +32,10 @@ config's train split (the train-time augmentations, ObjectSample and
 ObjectNoise on the C++ box ops of ``native``, built by g++ on first use,
 ``RepeatDataset`` / ``CBGSDataset``) through ``train.step`` with
 checkpoints, periodic evaluation, resume and the OV staged loading.
+Both CLIs run data parallel, one process per card (``parallel``: the
+global batch's BN statistics and loss normalizers, averaged gradients,
+a distributed eval gathered on rank 0); ``graft_entry`` holds the
+flagship's eval forward and a dry run on n ranks.
 
 Tests: ``python -m pytest tests/test_torch_port_*.py`` on the CPU (the
 port against the JAX package), and on a machine with an NVIDIA GPU

@@ -3,7 +3,9 @@
     python -m uni3detr_tpu_torch.cli.test CONFIG [CKPT] --eval bbox \\
         [--tta] [--out dets.pkl] [--format-only] [--show-dir DIR] \\
         [--batch-size N] [--max-samples N] [--cfg-options k=v ...] \\
+        [--num-processes W --process-id R --coordinator HOST:PORT] \\
         [--device cuda|cpu]
+    torchrun --nproc_per_node W -m uni3detr_tpu_torch.cli.test CONFIG ...
 
 Loads a config file and a checkpoint of the port (``train.checkpoint``;
 without one the weights are random, seed 0), runs batched inference over
@@ -12,17 +14,27 @@ AP for SUN RGB-D / ScanNet and the synthetic sets, KITTI AP, nuScenes
 metrics, or with ``--format-only`` the KITTI label txts / nuScenes JSON.
 It runs on the card (``--device cuda``, the default) and exits with an
 error when there is none; ``--device cpu`` runs the kernels' plain
-versions on the CPU. Multi-process evaluation is not ported yet.
+versions on the CPU.
+
+Data parallel (torchrun's environment or the JAX CLI's flags, as
+``cli.train``): each rank runs a round-robin shard of the split
+(``train.evaluator.run_inference_distributed``) and prints its own
+timings; rank 0 gathers the detections in dataset order and alone writes
+``--out``, ``--show-dir`` and the submission files and computes the
+metric. The other ranks return without writing.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import pickle
 import sys
 
 import numpy as np
 import torch
+
+from .train import add_dist_args, start_distributed
 
 
 def parse_args(argv=None):
@@ -47,10 +59,7 @@ def parse_args(argv=None):
     p.add_argument("--tta", action="store_true",
                    help="test-time augmentation over the cfg 'tta' grid "
                         "(flips by default)")
-    p.add_argument("--coordinator", default=None,
-                   help="multi-process evaluation (not ported yet)")
-    p.add_argument("--num-processes", type=int, default=1,
-                   help="multi-process evaluation (not ported yet)")
+    add_dist_args(p)
     p.add_argument("--cfg-options", nargs="*", default=[])
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="cuda (the default) runs the kernels on the card; "
@@ -88,28 +97,38 @@ def build_model(model_cfg, checkpoint=None, device="cuda", log=print,
 
 
 def main(argv=None):
-    """Run the CLI; returns {"dets", "gts", "metrics", "stats"} for
-    callers in the same process."""
+    """Run the CLI; returns {"dets", "gts", "metrics", "stats", "rank",
+    "world_size"} for callers in the same process (on a rank other than
+    0 empty detections, GT and metrics, and the rank's own ``stats``)."""
     args = parse_args(argv)
-    if args.num_processes > 1 or args.coordinator:
-        raise NotImplementedError(
-            "multi-process evaluation is not ported yet (ROADMAP.md, "
-            "Queue 1: DDP with distributed eval)")
     if args.device == "cuda" and not torch.cuda.is_available():
         sys.exit("cli.test: no CUDA device; pass --device cpu to run the "
                  "plain versions of the kernels on the CPU")
+    from ..parallel import dist
+
+    device, started = start_distributed(args)
+    try:
+        return _test(args, device)
+    finally:
+        if started:
+            dist.destroy_distributed()
+
+
+def _test(args, device):
     from ..config_file import build_model_config, load_config, \
         merge_cfg_options
     from ..data.datasets import box_type_of, build_dataset
-    from ..train.evaluator import evaluate, run_inference
+    from ..parallel import dist
+    from ..train import evaluator
 
-    device = torch.device(args.device)
+    W, rank = dist.world_size(), dist.rank()
     cfg = load_config(args.config)
     cfg = merge_cfg_options(cfg, args.cfg_options)
     model_cfg = build_model_config(cfg)
     dataset = build_dataset(cfg.data, cfg.class_names, model_cfg.pc_range,
                             "val")
-    model = build_model(model_cfg, args.checkpoint, device)
+    model = build_model(model_cfg, args.checkpoint, device,
+                        log=print if rank == 0 else (lambda *a: None))
 
     tta_grid = None
     if args.tta:
@@ -119,18 +138,24 @@ def main(argv=None):
             rot_degrees=tcfg.get("rot_degrees", (0.0,)),
             scales=tcfg.get("scales", (1.0,)),
             flips=tcfg.get("flips", (False, True)))
-        print(f"TTA over {len(tta_grid)} augmentations")
+        if rank == 0:
+            print(f"TTA over {len(tta_grid)} augmentations")
 
     bs = args.batch_size or cfg.data.get("samples_per_gpu", 1)
     stats = {}
-    dets, gts = run_inference(
+    # the shared directory of UNI3DETR_GATHER=file
+    tmpdir = os.path.join(os.path.dirname(os.path.abspath(args.out))
+                          if args.out else "work_dirs", ".dist_eval")
+    dets, gts = evaluator.run_inference_distributed(
         dataset, model, model_cfg, device=device, batch_size=bs,
         max_samples=args.max_samples, tta_grid=tta_grid,
-        box_type=box_type_of(cfg.data), log=print, stats=stats)
+        box_type=box_type_of(cfg.data), log=print if rank == 0 else None,
+        stats=stats, tmpdir=tmpdir)
     n, wall = stats["scenes"], stats["wall_s"]
-    line = (f"{n} scenes in {wall:.3f} s ({n / wall:.3f} scenes/s) at "
+    line = (f"rank {rank} of {W}: " if W > 1 else "") + (
+            f"{n} scenes in {wall:.3f} s ({n / wall:.3f} scenes/s) at "
             f"batch {bs}: load + collate "
-            f"{sum(stats['load_ms']) / n:.3f} ms a scene")
+            f"{sum(stats['load_ms']) / max(n, 1):.3f} ms a scene")
     if stats["stream_ms"]:
         share = sum(stats["stream_ms"]) / 1e3 / wall
         line += (f", stream {np.median(stats['stream_ms']):.3f} ms a batch "
@@ -143,6 +168,10 @@ def main(argv=None):
                  f"{(n - bs) / (done[-1] - done[0]):.3f} scenes/s over "
                  f"{len(done) - 1} batches")
     print(line)
+    if rank != 0:
+        # the detections were gathered on rank 0, which writes alone
+        return {"dets": [], "gts": [], "metrics": {}, "stats": stats,
+                "rank": rank, "world_size": W}
 
     if args.out:
         with open(args.out, "wb") as f:
@@ -155,16 +184,17 @@ def main(argv=None):
                          class_names=list(cfg.class_names))
     metrics = {}
     if args.format_only:
-        evaluate(dets, gts, cfg, dataset,
-                 out_prefix=args.out or "work_dirs/results",
-                 format_only=True, device=device)
-    elif args.eval:
-        metrics = evaluate(dets, gts, cfg, dataset,
+        evaluator.evaluate(dets, gts, cfg, dataset,
                            out_prefix=args.out or "work_dirs/results",
-                           device=device)
+                           format_only=True, device=device)
+    elif args.eval:
+        metrics = evaluator.evaluate(
+            dets, gts, cfg, dataset,
+            out_prefix=args.out or "work_dirs/results", device=device)
         print(json.dumps({k: float(v) for k, v in metrics.items()},
                          indent=2))
-    return {"dets": dets, "gts": gts, "metrics": metrics, "stats": stats}
+    return {"dets": dets, "gts": gts, "metrics": metrics, "stats": stats,
+            "rank": rank, "world_size": W}
 
 
 if __name__ == "__main__":

@@ -2,7 +2,9 @@
 
     python -m uni3detr_tpu_torch.cli.train CONFIG [--work-dir DIR] \\
         [--resume-from CKPT] [--seed N] [--max-steps N] \\
+        [--num-processes W --process-id R --coordinator HOST:PORT] \\
         [--cfg-options k=v ...] [--device cuda|cpu]
+    torchrun --nproc_per_node W -m uni3detr_tpu_torch.cli.train CONFIG ...
 
 Trains a config file's model on its data root: the train split with its
 augmentations (``data.datasets.build_dataset``, ``RepeatDataset`` /
@@ -27,8 +29,22 @@ so a resumed run steps as an uninterrupted one. The sample order is the
 JAX CLI's: ``RandomState(seed)``'s permutations, the first of them drawn
 for the JAX package's init batch. It runs on the card (``--device cuda``,
 the default) and exits with an error when there is none; ``--device
-cpu`` runs the kernels' plain versions on the CPU. Multi-process (DDP)
-and spatially sharded training are not ported yet.
+cpu`` runs the kernels' plain versions on the CPU.
+
+Data parallel: one process per card, started by torchrun (its
+environment) or by hand with the JAX CLI's flags (``--num-processes``,
+``--process-id``, ``--coordinator``, a ``host:port`` or a ``tcp://`` /
+``file://`` URL), over NCCL, or gloo where ranks share a card or run on
+the CPU (``parallel.dist.init_distributed``). The global batch is
+``samples_per_gpu`` x W and the epoch counts its steps; every rank draws
+the same order and loads its own slice (``batch_iterator(local=)``). The
+step is the global batch's (``train.step``: global BN statistics and
+positive counts, averaged gradients), the OV modality draw is seeded
+from (seed, step) on every rank and dropout from (seed, step, rank).
+Rank 0 writes ``train.log`` and the checkpoints; rank r > 0 logs
+warnings to ``train.rank{r}.log``. The eval hook runs a shard a rank
+(``run_inference_distributed``) and the metric on rank 0. Spatial
+sharding (``--spatial-shard`` > 1) is not ported (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -53,13 +69,8 @@ def parse_args(argv=None):
     p.add_argument("--max-steps", type=int, default=None,
                    help="cap total steps (smoke runs)")
     p.add_argument("--spatial-shard", type=int, default=1,
-                   help="spatial sharding (not ported yet)")
-    p.add_argument("--coordinator", default=None,
-                   help="multi-process training (not ported yet)")
-    p.add_argument("--num-processes", type=int, default=1,
-                   help="multi-process training (not ported yet)")
-    p.add_argument("--process-id", type=int, default=None,
-                   help="multi-process training (not ported yet)")
+                   help="spatial sharding (not ported: ROADMAP Queue 1)")
+    add_dist_args(p)
     p.add_argument("--cfg-options", nargs="*", default=[])
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="cuda (the default) runs the kernels on the card; "
@@ -67,12 +78,45 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def batch_iterator(dataset, batch_size, cfg_model, rng, pool):
+def add_dist_args(p):
+    """The JAX CLIs' multi-process flags (``cli.train``, ``cli.test``)."""
+    p.add_argument("--coordinator", default=None,
+                   help="data parallel: the rendezvous, host:port or a "
+                        "tcp:// / file:// URL (default: torchrun's "
+                        "MASTER_ADDR / MASTER_PORT)")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="data parallel: the number of ranks (default: "
+                        "torchrun's WORLD_SIZE, else 1)")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="data parallel: this rank (default: RANK)")
+
+
+def start_distributed(args):
+    """(device, whether this call started the process group): the
+    process group of the flags or of torchrun's environment, or none
+    (one process on ``args.device``)."""
+    from ..parallel import dist
+
+    wanted = args.num_processes not in (None, 1) or args.coordinator \
+        or args.process_id is not None \
+        or ("RANK" in os.environ and "WORLD_SIZE" in os.environ)
+    if not wanted:
+        return torch.device(args.device), False
+    started = not torch.distributed.is_initialized()
+    dev = dist.init_distributed(args.coordinator, args.num_processes,
+                                args.process_id, device=args.device)
+    return dev, started
+
+
+def batch_iterator(dataset, batch_size, cfg_model, rng, pool,
+                   local=slice(None)):
     """Shuffled epoch iterator with threaded sample loading, as the JAX
     CLI's: the order is ``rng.permutation``, the tail partial batch is
     padded by wrapping to the epoch's first samples (``np.resize``), so
     every sample is seen and every batch has ``batch_size`` scenes.
-    Yields ``collate_batch``'s (numpy batch, metas)."""
+    ``local``: this rank's slice of each global batch (every rank draws
+    the same order from the same seed). Yields ``collate_batch``'s
+    (numpy batch, metas) of the slice."""
     from ..data.datasets import collate_batch
 
     order = rng.permutation(len(dataset))
@@ -81,7 +125,7 @@ def batch_iterator(dataset, batch_size, cfg_model, rng, pool):
         order = np.resize(order, len(order) + batch_size
                           - len(order) % batch_size)
     for i in range(0, len(order) - batch_size + 1, batch_size):
-        idxs = order[i:i + batch_size]
+        idxs = order[i:i + batch_size][local]
         samples = list(pool.map(dataset.__getitem__, idxs))
         batch, metas = collate_batch(
             samples, cfg_model.num_points, cfg_model.max_gt,
@@ -146,20 +190,24 @@ def build_optimizer(cfg, model, steps_per_epoch: int):
                           lr_mult=dict(cfg.get("lr_mult") or {}))
 
 
-def step_seed(seed: int, step: int) -> int:
-    """The seed of the generators (dropout, OV modality draw) of step
-    ``step``, a function of (seed, step) alone."""
-    return int(np.random.SeedSequence([seed, step]).generate_state(
+def step_seed(seed: int, step: int, rank=None) -> int:
+    """The seed of the generators of step ``step``: of (seed, step) alone
+    for the OV modality draw and a single process's dropout, of (seed,
+    step, rank) for a rank's dropout under data parallelism (the ranks
+    do not draw the same masks)."""
+    key = [seed, step] if rank is None else [seed, step, rank]
+    return int(np.random.SeedSequence(key).generate_state(
         1, np.uint64)[0])
 
 
-def _logger(work_dir):
+def _logger(work_dir, rank=0):
     log = logging.getLogger("uni3detr_tpu_torch.cli.train")
-    log.setLevel(logging.INFO)
+    log.setLevel(logging.INFO if rank == 0 else logging.WARNING)
     log.propagate = False
     fmt = logging.Formatter("%(asctime)s %(message)s")
+    name = "train.log" if rank == 0 else f"train.rank{rank}.log"
     for h in (logging.StreamHandler(sys.stdout),
-              logging.FileHandler(os.path.join(work_dir, "train.log"))):
+              logging.FileHandler(os.path.join(work_dir, name))):
         h.setFormatter(fmt)
         log.addHandler(h)
     return log
@@ -167,66 +215,86 @@ def _logger(work_dir):
 
 def main(argv=None):
     """Run the CLI; returns {"work_dir", "epoch", "step", "evals" (epoch
-    -> metric dict), "staged" (prefix -> tensors loaded), "stats"} for
-    callers in the same process. ``stats``: the loader's ms a batch
-    (``load_ms``) and, at each log step, (epoch, step, host seconds
-    after the losses reached the host) in ``log_s``."""
+    -> metric dict, rank 0's), "staged" (prefix -> tensors loaded),
+    "stats", "rank", "world_size", "launches"} for callers in the same
+    process. ``stats``: the loader's ms a batch (``load_ms``) and, at
+    each log step, (epoch, step, host seconds after the losses reached
+    the host) in ``log_s``; ``launches``: this rank's kernel launches in
+    the run by kernel (``ops.launch_counts``)."""
     args = parse_args(argv)
-    if args.num_processes > 1 or args.coordinator \
-            or args.process_id is not None or args.spatial_shard > 1:
+    if args.spatial_shard > 1:
         raise NotImplementedError(
-            "multi-process and spatially sharded training are not ported "
-            "yet (ROADMAP.md, Queue 1 item 2: DDP)")
+            "spatially sharded training (--spatial-shard > 1) is not "
+            "ported: the port is data parallel only (ROADMAP.md, Queue 1: "
+            "spatial sharding)")
     if args.device == "cuda" and not torch.cuda.is_available():
         sys.exit("cli.train: no CUDA device; pass --device cpu to run the "
                  "plain versions of the kernels on the CPU")
     from ..config_file import build_model_config, load_config, \
         merge_cfg_options
+    from ..ops import launch_counts
+    from ..parallel import dist
 
-    cfg = merge_cfg_options(load_config(args.config), args.cfg_options)
-    model_cfg = build_model_config(cfg)
-    work_dir = args.work_dir or cfg.get("work_dir") or os.path.join(
-        "work_dirs", os.path.splitext(os.path.basename(args.config))[0])
-    os.makedirs(work_dir, exist_ok=True)
-    log = _logger(work_dir)
+    device, started = start_distributed(args)
     try:
-        return _train(args, cfg, model_cfg, work_dir, log)
+        cfg = merge_cfg_options(load_config(args.config), args.cfg_options)
+        model_cfg = build_model_config(cfg)
+        work_dir = args.work_dir or cfg.get("work_dir") or os.path.join(
+            "work_dirs", os.path.splitext(os.path.basename(args.config))[0])
+        os.makedirs(work_dir, exist_ok=True)
+        log = _logger(work_dir, dist.rank())
+        before = launch_counts()
+        try:
+            result = _train(args, cfg, model_cfg, work_dir, log, device)
+        finally:
+            for h in list(log.handlers):
+                log.removeHandler(h)
+                h.close()
+        after = launch_counts()
+        result.update(rank=dist.rank(), world_size=dist.world_size(),
+                      launches={k: after[k] - before[k] for k in after})
+        return result
     finally:
-        for h in list(log.handlers):
-            log.removeHandler(h)
-            h.close()
+        if started:
+            dist.destroy_distributed()
 
 
-def _train(args, cfg, model_cfg, work_dir, log):
+def _train(args, cfg, model_cfg, work_dir, log, device):
     from ..data.datasets import box_type_of, build_dataset
     from ..data.loading import prefetch
     from ..train import evaluator
     from ..train import step as step_mod
+    from ..parallel import dist
     from ..train.checkpoint import (load_branch, load_checkpoint, restore,
                                     save_checkpoint)
     from .test import build_model
 
-    device = torch.device(args.device)
     cuda = device.type == "cuda"
+    W, rank = dist.world_size(), dist.rank()
     log.info("config: %s", args.config)
-    log.info("device: %s%s", device, f" ({torch.cuda.get_device_name(device)})"
-             if cuda else "")
+    log.info("device: %s%s, %d process%s", device,
+             f" ({torch.cuda.get_device_name(device)})" if cuda else "", W,
+             "es" if W > 1 else "")
     seed = args.seed if args.seed is not None else cfg.get("seed", 0)
     rng = np.random.RandomState(seed)
     dataset = build_dataset(cfg.data, cfg.class_names, model_cfg.pc_range,
                             "train")
     bs = cfg.data.get("samples_per_gpu", 2)
-    # the schedules count whole batches, as the JAX CLI's (the iterator
-    # pads the tail batch)
-    steps_per_epoch = max(len(dataset) // bs, 1)
+    # the global batch over the ranks (the reference's samples_per_gpu x
+    # world size); the schedules count whole global batches, as the JAX
+    # CLI's (the iterator pads the tail batch)
+    gbs = bs * W
+    local = dist.local_slice(gbs)
+    steps_per_epoch = max(len(dataset) // gbs, 1)
     epochs = cfg.get("total_epochs", 40)
     # the JAX CLI draws one order for its init batch before the epochs
     rng.permutation(len(dataset))
 
     model = build_model(model_cfg, None, device, log.info, seed).train()
     opt = build_optimizer(cfg, model, steps_per_epoch)
-    log.info("train split: %d samples, batch %d, %d steps an epoch, %d "
-             "epochs", len(dataset), bs, steps_per_epoch, epochs)
+    log.info("train split: %d samples, batch %d (%d a rank), %d steps an "
+             "epoch, %d epochs", len(dataset), gbs, bs, steps_per_epoch,
+             epochs)
 
     # OV staged init: separately trained branches by key prefix
     staged = {}
@@ -247,6 +315,9 @@ def _train(args, cfg, model_cfg, work_dir, log):
         start_epoch = (meta or {}).get("epoch", 0)
         log.info("resumed from %s at epoch %d, step %d", resume,
                  start_epoch, opt.steps)
+    # every rank holds rank 0's weights (all start from the same seed and
+    # checkpoints; this makes it so whatever the caller did)
+    dist.broadcast_module(model)
 
     eval_cfg = cfg.get("evaluation", {})
     eval_int = eval_cfg.get("interval", 0)
@@ -274,12 +345,13 @@ def _train(args, cfg, model_cfg, work_dir, log):
                                                      4)) as pool:
         for epoch in range(start_epoch, epochs):
             batches = host_batches(
-                batch_iterator(dataset, bs, model_cfg, rng, pool), cuda,
-                stats["load_ms"])
+                batch_iterator(dataset, gbs, model_cfg, rng, pool, local),
+                cuda, stats["load_ms"])
             for batch in prefetch(batches):
                 batch = {k: v.to(device, non_blocking=True)
                          for k, v in batch.items()}
-                torch.manual_seed(step_seed(seed, gstep))
+                torch.manual_seed(step_seed(seed, gstep,
+                                            rank if W > 1 else None))
                 if modality_gen is not None:
                     modality_gen.manual_seed(step_seed(seed, gstep))
                 logs = step_mod.train_step(model, opt, batch,
@@ -312,17 +384,19 @@ def _train(args, cfg, model_cfg, work_dir, log):
                 log.info("checkpoint saved at epoch %d", epoch + 1)
             if eval_int and (epoch + 1) % eval_int == 0:
                 model.eval()
-                dets, gts = evaluator.run_inference(
+                dets, gts = evaluator.run_inference_distributed(
                     val_dataset, model, model_cfg, device=device,
                     batch_size=bs, max_samples=eval_cfg.get("max_samples"),
-                    box_type=box_type_of(cfg.data))
-                res = evaluator.evaluate(dets, gts, cfg, val_dataset,
-                                         log=log.info, device=device)
+                    box_type=box_type_of(cfg.data),
+                    tmpdir=os.path.join(work_dir, ".dist_eval"))
                 model.train()
-                result["evals"][epoch + 1] = res
-                log.info("eval epoch %d | %s", epoch + 1,
-                         " ".join(f"{k}={v:.4f}" for k, v in res.items()
-                                  if isinstance(v, float) and v == v))
+                if dist.is_main_process():
+                    res = evaluator.evaluate(dets, gts, cfg, val_dataset,
+                                             log=log.info, device=device)
+                    result["evals"][epoch + 1] = res
+                    log.info("eval epoch %d | %s", epoch + 1,
+                             " ".join(f"{k}={v:.4f}" for k, v in res.items()
+                                      if isinstance(v, float) and v == v))
                 t_last = time.perf_counter()
     result.update(epoch=epochs, step=gstep)
     return result

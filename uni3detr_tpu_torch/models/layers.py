@@ -12,6 +12,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..parallel import dist
+
 
 class FlaxBatchNormStats:
     """Train-mode forward of ``nn.BatchNorm{2,3}d`` with flax's running
@@ -20,23 +22,57 @@ class FlaxBatchNormStats:
     where torch would store the unbiased one, and a batch of one value
     per channel normalizes with variance 0 (x - mean(x) = 0, gradient 0:
     the output is the bias), where torch refuses. Normalization, eval mode
-    and the state_dict keys are torch's."""
+    and the state_dict keys are torch's. Inside ``dist.sharded_batch()``
+    over several ranks (the train step's) the statistics are the global
+    batch's (``_global_forward``), as the JAX package's; the reference's
+    SyncBN-less DDP would take each card's (ROADMAP Queue 3)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if dist.batch_ranks() > 1:
+            return self._global_forward(x)
         with torch.no_grad():
             dims = (0,) + tuple(range(2, x.dim()))
             mean = x.mean(dim=dims)
             var = ((x * x).mean(dim=dims) - mean * mean).clamp(min=0.0)
-            self.running_mean.lerp_(mean, self.momentum)
-            self.running_var.lerp_(var, self.momentum)
-            self.num_batches_tracked.add_(1)
+            _update_running(self, mean, var)
         if x.numel() == x.shape[1]:
             shape = (1, -1) + (1,) * (x.dim() - 2)
             return (x - x) * self.weight.view(shape) + self.bias.view(shape)
         return F.batch_norm(x, None, None, self.weight, self.bias,
                             training=True, eps=self.eps)
+
+    def _global_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode over the ranks of a sharded batch: flax's
+        statistics of the global batch, as the JAX package's one jit over
+        the sharded batch takes them (E[x^2] - E[x]^2, biased, at least
+        0), from one differentiable sum of (sum x, sum x^2, count) over
+        the ranks; computed in fp32, returned in the input dtype. One
+        rank keeps torch's fused kernel above, which normalizes with the
+        same biased variance."""
+        dims = (0,) + tuple(range(2, x.dim()))
+        xf = x.float()
+        cnt = torch.full((1,), x.numel() // x.shape[1], dtype=torch.float32,
+                         device=x.device)
+        s, s2, n = dist.batch_sum(xf.sum(dim=dims), (xf * xf).sum(dim=dims),
+                                  cnt)
+        mean = s / n
+        var = (s2 / n - mean * mean).clamp(min=0.0)
+        _update_running(self, mean, var)
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        y = (xf - mean.view(shape)) * torch.rsqrt(var.view(shape) + self.eps)
+        return (y * self.weight.view(shape) + self.bias.view(shape)).to(
+            x.dtype)
+
+
+def _update_running(bn, mean, var) -> None:
+    """flax's running-statistics update: towards (mean, var) by
+    ``momentum``."""
+    with torch.no_grad():
+        bn.running_mean.lerp_(mean, bn.momentum)
+        bn.running_var.lerp_(var, bn.momentum)
+        bn.num_batches_tracked.add_(1)
 
 
 class MaskedBatchNorm(nn.BatchNorm1d):
@@ -48,6 +84,9 @@ class MaskedBatchNorm(nn.BatchNorm1d):
     running statistics move by ``momentum`` towards the same biased
     values (flax's rule; ``nn.BatchNorm1d`` would store the unbiased
     variance). The state_dict keys are those of ``nn.BatchNorm1d``.
+    Inside ``dist.sharded_batch()`` over several ranks (the train
+    step's) the sums run over the valid rows of the global batch, every
+    rank's, the count clamped after the sum (ROADMAP Queue 3).
     """
 
     def __init__(self, num_features: int, eps: float = 1e-3,
@@ -59,13 +98,12 @@ class MaskedBatchNorm(nn.BatchNorm1d):
         if self.training:
             m = mask[..., None].float()
             red = tuple(range(x.dim() - 1))
-            cnt = m.sum().clamp(min=1.0)
-            mean = (xf * m).sum(dim=red) / cnt
-            var = (((xf - mean) ** 2) * m).sum(dim=red) / cnt
-            with torch.no_grad():
-                self.running_mean.lerp_(mean, self.momentum)
-                self.running_var.lerp_(var, self.momentum)
-                self.num_batches_tracked.add_(1)
+            s, n = dist.batch_sum((xf * m).sum(dim=red), m.sum())
+            cnt = n.clamp(min=1.0)
+            mean = s / cnt
+            (ss,) = dist.batch_sum((((xf - mean) ** 2) * m).sum(dim=red))
+            var = ss / cnt
+            _update_running(self, mean, var)
         else:
             mean, var = self.running_mean, self.running_var
         y = (xf - mean) * torch.rsqrt(var + self.eps)

@@ -22,6 +22,7 @@ from typing import Dict, Mapping, Optional, Tuple
 import torch
 from torch import nn
 
+from ..parallel import dist
 from .step import Optimizer
 
 _FILE = "checkpoint.pt"
@@ -32,7 +33,15 @@ def save_checkpoint(path: str, model: nn.Module,
                     meta: Optional[Dict] = None,
                     generator: Optional[torch.Generator] = None) -> None:
     """Write the model (and the optimizer with its step, and the state of
-    ``generator``, the OV modality draw's) under ``path``."""
+    ``generator``, the OV modality draw's) under ``path``. Under a process
+    group rank 0 writes (the ranks hold the same state) and every rank
+    waits until it has."""
+    if dist.is_main_process():
+        _write(path, model, opt, meta, generator)
+    dist.barrier()
+
+
+def _write(path, model, opt, meta, generator) -> None:
     os.makedirs(path, exist_ok=True)
     tree = {"model": model.state_dict()}
     if opt is not None:
@@ -52,7 +61,8 @@ def save_checkpoint(path: str, model: nn.Module,
 def load_checkpoint(path: str, map_location="cpu"
                     ) -> Tuple[Dict, Optional[Dict]]:
     """Returns (the tree ``{"model", ["optimizer", "step"],
-    ["generator"]}``, meta or None)."""
+    ["generator"]}``, meta or None). Every rank of a process group loads
+    it for itself; ``restore`` moves it to the rank's device."""
     tree = torch.load(os.path.join(path, _FILE), map_location=map_location,
                       weights_only=True)
     meta = None

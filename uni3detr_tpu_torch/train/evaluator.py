@@ -1,6 +1,5 @@
 """Batched inference over a dataset's val split, test-time augmentation
-and the metric dispatch (port of ``uni3detr_tpu/train/evaluator.py``
-without its multi-process path, ``run_inference_distributed``).
+and the metric dispatch (port of ``uni3detr_tpu/train/evaluator.py``).
 
 :func:`run_inference` is a pipelined loop. A thread loads, runs the test
 pipeline on and collates batch k+1 (``data.loading.prefetch``, pinned
@@ -14,6 +13,13 @@ post-processes batch k (box merging, the TTA cut) while the device runs
 batch k+1. A batch is always ``batch_size`` scenes: the tail repeats its
 last scene and the surplus detections are dropped, as in the JAX
 package.
+
+:func:`run_inference_distributed` runs one round-robin shard of the
+split on each rank of a process group and gathers the detections on
+rank 0 in dataset order (the JAX package's multi-process eval). The JAX
+package's single-process eval over a local device mesh
+(``run_inference(mesh=)``) has no counterpart: the port runs one process
+per card.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ import torch
 from ..data.datasets import collate_batch
 from ..data.loading import prefetch
 from ..eval.postprocess import pack_batch, postprocess_sample, unpack_batch
+from ..parallel import dist
 from .coder import decode_predictions, post_process
 from .tta import (apply_aug_points, map_boxes_back, merge_aug_detections,
                   select_merged)
@@ -211,6 +218,71 @@ def run_inference(dataset, model, cfg, *, device="cuda",
         if pending is not None:
             consume(pending)
     stats["wall_s"] = time.perf_counter() - t_start
+    return dets, gts
+
+
+class _DatasetShard:
+    """Index-remapped view of a dataset (one rank's eval shard)."""
+
+    def __init__(self, base, indices):
+        self.base = base
+        self.indices = list(indices)
+
+    def __len__(self):
+        return len(self.indices)
+
+    def __getitem__(self, i):
+        return self.base[self.indices[i]]
+
+
+def run_inference_distributed(dataset, model, cfg, *, device="cuda",
+                              batch_size: int = 1,
+                              max_samples: Optional[int] = None,
+                              tta_grid: Optional[List[dict]] = None,
+                              box_type: str = "Depth", log=None,
+                              tmpdir: Optional[str] = None,
+                              random_points: Optional[Callable] = None,
+                              **kw):
+    """:func:`run_inference` over the ranks of a process group: rank r of
+    W runs the scenes ``range(r, n, W)`` of the first n, the detections
+    and GT are gathered on rank 0 (``parallel.dist.gather_objects``, in
+    ``tmpdir`` under ``UNI3DETR_GATHER=file``) and returned there in
+    dataset order; the other ranks return ([], []). A single process runs
+    :func:`run_inference` on the whole split. ``random_points(scenes,
+    view_index)``, when given, supplies a batch's random query group from
+    the dataset indices of its scenes (the padded tail repeats the last),
+    so that draws keyed by scene are the same for any number of ranks.
+    Without it each rank draws from a generator seeded 0, as each JAX
+    process restarts ``PRNGKey(0)``: W ranks do not draw one process's
+    points (ROADMAP Queue 3). Other keywords go to :func:`run_inference`.
+    """
+    n = len(dataset) if max_samples is None else min(len(dataset),
+                                                     max_samples)
+    w, r = dist.world_size(), dist.rank()
+    idxs = list(range(r, n, w))
+    rp = None
+    if random_points is not None:
+        def rp(k, a):
+            scenes = idxs[k * batch_size:(k + 1) * batch_size]
+            return random_points(
+                scenes + [scenes[-1]] * (batch_size - len(scenes)), a)
+    if w == 1:
+        return run_inference(dataset, model, cfg, device=device,
+                             batch_size=batch_size, max_samples=n,
+                             tta_grid=tta_grid, box_type=box_type, log=log,
+                             random_points=rp, **kw)
+    dets_l, gts_l = run_inference(
+        _DatasetShard(dataset, idxs), model, cfg, device=device,
+        batch_size=batch_size, tta_grid=tta_grid, box_type=box_type,
+        log=log, random_points=rp, **kw)
+    parts = dist.gather_objects((idxs, dets_l, gts_l), tmpdir, name="eval")
+    if parts is None:
+        return [], []
+    dets, gts = [None] * n, [None] * n
+    for part_idxs, part_dets, part_gts in parts:
+        for i, d, g in zip(part_idxs, part_dets, part_gts):
+            dets[i], gts[i] = d, g
+    assert all(d is not None for d in dets)
     return dets, gts
 
 

@@ -16,8 +16,12 @@ rotated 3D IoU; the costs of all layers are matched in one call), then:
   is the mean sigma. As in the JAX package the term has weight 1:
   ``uncertainty_consistency_weight`` is not read.
 
-Each sum is divided by the batch's positive count (at least 1), the
-cross-rank ``reduce_mean`` of the reference on one device. Batched over
+Each sum is divided by the batch's positive count (at least 1). Under a
+process group of W ranks the count is the global batch's (the JAX
+package's one jit over the sharded batch, the reference's
+``reduce_mean``) and each rank's sums are multiplied by W, so that the
+mean of the ranks' gradients is the global loss's; ``loss_consistency``,
+a mean over equal-sized batches, needs no factor. Batched over
 B; padded GT rows (``gt_mask`` False) never match. The ``rdiou`` and
 ``axis_aligned_iou3d`` cost/loss types are not ported.
 """
@@ -35,6 +39,7 @@ from ..geom.iou import (iou3d_rotated, iou3d_rotated_aligned,
                         nearest_bev_iou, nearest_bev_iou_aligned,
                         z_interval_iou_aligned)
 from ..ops.matching import match_queries_to_gt
+from ..parallel import dist
 
 _NOT_PORTED = ("axis_aligned_iou3d", "rdiou")
 
@@ -147,10 +152,12 @@ def hungarian_assign(cls_scores, bbox_preds, gt_boxes, gt_labels, gt_mask,
 
 
 def _layer_loss(cls_scores, bbox_preds, iou_preds, gt_boxes, gt_labels,
-                assigned, cfg: Uni3DETRConfig, unc_preds=None
-                ) -> Dict[str, torch.Tensor]:
+                assigned, cfg: Uni3DETRConfig, unc_preds=None,
+                num_pos=None) -> Dict[str, torch.Tensor]:
     """Loss of one decoder layer over the batch given its assignment
-    (B, Q); shapes (B, Q, .), ``unc_preds`` (B, Q, ncls + 1) or None."""
+    (B, Q); shapes (B, Q, .), ``unc_preds`` (B, Q, ncls + 1) or None.
+    ``num_pos`` replaces the batch's positive count (at least 1) as the
+    divisor of the summed terms."""
     B, Q, ncls = cls_scores.shape
     pos = assigned >= 0
     safe = assigned.clamp(min=0)
@@ -165,7 +172,8 @@ def _layer_loss(cls_scores, bbox_preds, iou_preds, gt_boxes, gt_labels,
     iou_z = z_interval_iou_aligned(decoded, tgt)
     quality = (iou_bev + iou_z) * 0.5
     posf = pos.float()
-    num_pos = posf.sum().clamp(min=1.0)
+    if num_pos is None:
+        num_pos = posf.sum().clamp(min=1.0)
 
     loss_cls = soft_focal_loss(cls_scores.reshape(-1, ncls),
                                labels.reshape(-1), quality.reshape(-1),
@@ -227,12 +235,22 @@ def uni3detr_loss(outs, gt_boxes, gt_labels, gt_mask, cfg: Uni3DETRConfig
     assigned = assign_layers(all_layer_costs(outs, gt_boxes, gt_labels, cfg),
                              gt_mask, cfg)
     unc = outs.get("all_uncertainty_preds")
+    num_pos = [None] * L
+    W = dist.batch_ranks()
+    if W > 1:
+        # inside dist.sharded_batch(), mmdet's reduce_mean: the global
+        # positive count of each layer (at least 1) over W, so that each
+        # rank's loss is W x its sum over the global count and the ranks'
+        # mean gradient is the global loss's
+        counts = dist.all_reduce_sum((assigned >= 0).sum(dim=(1, 2)).float())
+        num_pos = list(counts.clamp(min=1.0) / W)
     logs, total = {}, 0.0
     for l in range(L):
         d = _layer_loss(outs["all_cls_scores"][l], outs["all_bbox_preds"][l],
                         outs["all_iou_preds"][l], gt_boxes, gt_labels,
                         assigned[l], cfg,
-                        unc_preds=None if unc is None else unc[l])
+                        unc_preds=None if unc is None else unc[l],
+                        num_pos=num_pos[l])
         prefix = "" if l == L - 1 else f"d{l}."
         for k, v in d.items():
             logs[prefix + k] = v

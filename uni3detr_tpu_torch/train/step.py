@@ -25,6 +25,7 @@ from torch import nn
 
 from ..config import OVUni3DETRConfig
 from ..geom.boxes import gravity_center_boxes
+from ..parallel import dist
 from .losses import uni3detr_loss
 
 Schedule = Callable[[int], float]
@@ -74,12 +75,18 @@ class Optimizer:
     def step(self) -> torch.Tensor:
         """Clip and update; returns the global gradient norm before the
         clip. A parameter the loss did not reach gets a zero gradient, so
-        weight decay still applies to it, as in optax."""
+        weight decay still applies to it, as in optax. Under a process
+        group of several ranks the gradients are first replaced by their
+        mean over the ranks (one flat all-reduce), so that the norm, the
+        clip and the update are the global batch's on every rank; an
+        unreached parameter takes part with its zeros (the OV modality
+        draw leaves a branch without gradient on every rank alike)."""
         grads = []
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
             grads.append(p.grad)
+        dist.average_gradients(grads)
         norm = torch.linalg.vector_norm(torch.stack(
             [torch.linalg.vector_norm(g.float()) for g in grads]))
         # optax clip_by_global_norm: g * max / norm when norm >= max
@@ -214,20 +221,34 @@ def train_step(model: nn.Module, opt: Optimizer,
     generator.
 
     Returns detached logs: ``total_loss``, ``grad_norm`` (before the
-    clip) and the per-layer loss terms of :func:`uni3detr_loss`."""
+    clip) and the per-layer loss terms of :func:`uni3detr_loss`. Under a
+    process group of several ranks ``batch`` is this rank's slice of the
+    global batch and every rank must call the step: it is the global
+    batch's (the forward, the loss and the backward run inside
+    ``dist.sharded_batch()``: global BN statistics and positive counts;
+    gradients averaged over the ranks), and the logged losses are their
+    means over the ranks, the global batch's values; every rank must draw
+    the same ``modality``. A train-mode forward or loss outside the step
+    stays the rank's own."""
     cfg = model.cfg
     model.train()
     opt.zero_grad()
-    if isinstance(cfg, OVUni3DETRConfig):
-        outs = model(batch, modality=modality, generator=modality_generator)
-    else:
-        outs = model(batch["points"], batch["pts_mask"])
-    gt = gravity_center_boxes(batch["gt_boxes"])
-    total, logs = uni3detr_loss(outs, gt, batch["gt_labels"],
-                                batch["gt_mask"], cfg)
-    total.backward()
+    with dist.sharded_batch():
+        if isinstance(cfg, OVUni3DETRConfig):
+            outs = model(batch, modality=modality,
+                         generator=modality_generator)
+        else:
+            outs = model(batch["points"], batch["pts_mask"])
+        gt = gravity_center_boxes(batch["gt_boxes"])
+        total, logs = uni3detr_loss(outs, gt, batch["gt_labels"],
+                                    batch["gt_mask"], cfg)
+        total.backward()
     grad_norm = opt.step()
     logs = {k: v.detach() for k, v in logs.items()}
     logs["total_loss"] = total.detach()
+    if dist.world_size() > 1:
+        keys = list(logs)
+        mean = dist.mean_over_ranks(torch.stack([logs[k] for k in keys]))
+        logs = dict(zip(keys, mean.unbind()))
     logs["grad_norm"] = grad_norm
     return logs
