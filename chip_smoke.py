@@ -285,12 +285,49 @@ batch's counts):
     eval over 5 scenes, launches a rank as one step and its shard's
     batches.
 
+Then the on-ramps of the workflow (``onramps``), at full width on roots
+written under ``build/``, each phase printing its host seconds:
+
+63. KITTI from the raw layout (``synthetic.write_kitti_raw``: 8 train
+    and 4 val scans of 120000 points, 8-12 Cars and 1-3 DontCare rows a
+    scan, a non-identity calib): ``cli.create_data kitti`` for both
+    splits and ``gt_database`` with ``uni3detr_kitti_car.py``, the infos'
+    Cars within 1e-4 m and 1e-5 rad of the planted boxes, each database
+    object's count ``points_in_rbbox``'s, the file at the config's
+    ``db_info_path``; ``cli.train`` 3 steps at B=1 with ``ObjectSample``
+    pasting from the new database (launches as phase 57's steps), then
+    ``cli.test`` on its ``latest`` over the val scans with box merging
+    and the KITTI metric (launches a scan K1 4, K2 17, K3 3, K4 1, N1's
+    matrix form; N1's 3D and BEV two-set forms in the metric);
+64. nuScenes from the raw tables (``synthetic.write_nuscenes_raw``: 2
+    scenes of 4 key frames, LIDAR_TOP at 20 Hz with 34720 points of 5
+    floats and 10 sweeps before the first key frame, 6 cameras, ~40
+    annotations a key frame over the 10 classes): ``cli.create_data
+    nuscenes --max-sweeps 10 --val-scenes``, boxes and velocities within
+    1e-6 of the planted ones, the sweeps' poses the planted poses,
+    ``valid_flag`` false exactly where both point counts are 0; then
+    ``uni3detr_nuscenes.py``'s ``cli.train`` 2 steps (CBGS, 300000
+    points; launches as phase 12's steps) and ``cli.test`` on the 4 val
+    key frames (launches as phase 10's scenes, N1 and N2 once a batch);
+65. a reference checkpoint: the seed-0 weights of ``uni3detr_sunrgbd``
+    and ``ov_uni3detr_sunrgbd_mm`` as mmdet3d ``.pth`` files (sparse
+    convs in spconv-v2 layout, BN counts), ``cli.import_ckpt``, then
+    ``cli.test`` on the result bit-equal to ``cli.test`` on the seed-0
+    weights; a ``.pth`` with one tensor of the wrong shape refused with
+    the key named;
+66. ``cli.get_flops`` on the six Lidar and three OV presets' configs at
+    B=1 (params, GFLOP, GB moved, peak memory); the card's count equal to
+    the CPU's for ``uni3detr_sunrgbd`` and the synthetic tiny config, and
+    over two different scenes; ``utils.profiling.trace_context`` over
+    one flagship forward, its trace listing K1 4, K2 17, K3 3 and K4 1.
+
 Then one JSON line of the kernels (launches summed over every path's
 run: the inference and train runs of all six Lidar presets, the three
 OV presets' inference and train runs, K11's own call, the three
 ``cli.test`` runs and the train CLI's runs (phases 54, 55, 57 and 58:
-their steps and evals; phase 56's ``cli.test``) and every rank's runs
-of phases 59-62, each read right after its run; times, errors,
+their steps and evals; phase 56's ``cli.test``), every rank's runs
+of phases 59-62 and the runs of phases 63-66, each read right after its
+run; times, errors,
 ``bound_ms`` with
 ``bound_by``, ``library_ms`` (null where no single PyTorch call
 computes the kernel's function) and, for the convs, ``gemm_ms``, at the
@@ -312,6 +349,7 @@ import functools
 import json
 import math
 import os
+import pickle
 import re
 import shutil
 import statistics
@@ -2541,16 +2579,19 @@ def sync_debug_inference(mode):
 
 def infer_per_batch(mc):
     """Kernel launches of one eval batch of a Lidar-point model through
-    ``run_inference``: the forward's K1-K4, N1's NMS bitmask and N2."""
+    ``run_inference``: the forward's K1-K4, then N1's NMS bitmask and N2,
+    or with box merging N1's matrix form."""
     subm, strided = conv_cases(mc)
+    post = {"iou3d_rotated_matrix": 1} \
+        if mc.post_processing == "box_merging" \
+        else {"iou3d_rotated": 1, "nms_greedy": 1}
     return {"match_positions": len(mc.encoder_channels),
             "gather_conv": sum(c[-1] for c in subm),
-            "gather_conv_ids": len(strided), "fps_pair": 1,
-            "iou3d_rotated": 1, "nms_greedy": 1}
+            "gather_conv_ids": len(strided), "fps_pair": 1, **post}
 
 
 def cli_run(torch, tag, config, root, n_scenes, per_batch, ckpt=None,
-            tta=False, extra=()):
+            tta=False, extra=(), metric_kind="indoor"):
     """``cli.test CONFIG [CKPT] --cfg-options data.data_root=ROOT --eval
     bbox --out ROOT/TAG.pkl`` (with ``--tta`` if asked, then ``extra``)
     in this process,
@@ -2558,8 +2599,11 @@ def cli_run(torch, tag, config, root, n_scenes, per_batch, ckpt=None,
     ``torch.cuda.set_sync_debug_mode("error")`` (``run_inference``'s
     ``sync_debug_mode``, set by :func:`sync_debug_inference`): the launches of every kernel wrapper over
     the run asserted (``per_batch`` a batch, N1's two-set form once a
-    scene with GT and detections in the indoor metric), every detection
-    finite, at most 500 a scene with TTA, and ``cli.eval_metric`` on the
+    scene with GT and detections in the indoor metric (``metric_kind``),
+    its 3D and BEV forms in ``kitti``, none in ``nuscenes``), every
+    detection finite, detections in every scene (but for KITTI's box
+    merging, which random weights rarely pass), at most 500 a scene with
+    TTA, and ``cli.eval_metric`` on the
     written pkl giving the CLI's metric. Prints scenes/s, the host's load
     and collate ms a scene, the stream ms a batch and the stream share.
     Returns (launches, the CLI's result)."""
@@ -2582,8 +2626,10 @@ def cli_run(torch, tag, config, root, n_scenes, per_batch, ckpt=None,
     want = dict.fromkeys(wrappers, 0)
     for k, v in per_batch.items():
         want[k] = v * n_batches
-    want["iou3d_rotated_sets"] = sum(
-        bool(len(g["boxes"]) and len(d["boxes"])) for g, d in zip(gts, dets))
+    n_eval = sum(bool(len(g["boxes"]) and len(d["boxes"]))
+                 for g, d in zip(gts, dets))
+    want["iou3d_rotated_sets"] = n_eval if metric_kind != "nuscenes" else 0
+    want["iou_bev_rotated_sets"] = n_eval if metric_kind == "kitti" else 0
     print(f"[{tag}] launches={launches} expected={want}")
     if launches != want:
         fail(f"{tag}: kernel launch counts {launches} != {want}")
@@ -2591,7 +2637,8 @@ def cli_run(torch, tag, config, root, n_scenes, per_batch, ckpt=None,
         fail(f"{tag}: {len(dets)} detections for {n_scenes} scenes")
     counts = [len(d["scores"]) for d in dets]
     if not all(np.isfinite(d["boxes"]).all() and np.isfinite(
-            d["scores"]).all() for d in dets) or not all(counts) or (
+            d["scores"]).all() for d in dets) or not (
+            all(counts) or metric_kind == "kitti") or (
             tta and max(counts) > 500):
         fail(f"{tag}: non-finite detections or counts {counts}")
     metric = eval_metric.main([config, out, "--cfg-options",
@@ -3708,6 +3755,432 @@ def ddp(torch, dev):
     return runs
 
 
+# -- the on-ramps: raw data to AP, a reference checkpoint, FLOPs -----------
+ONRAMP_DIR = os.path.join(_ROOT, "build", "chip_smoke_onramps")
+NUSCENES_CONFIG = os.path.join(_ROOT, "configs/uni3detr/uni3detr_nuscenes.py")
+KITTI_RAW_TRAIN, KITTI_RAW_VAL = 8, 4     # phase 63: scans a split
+KITTI_RAW_CARS = (8, 12)  # Cars a scan (ObjectSample fills to 15 a scene)
+KITTI_RAW_STEPS, NUS_RAW_STEPS = 3, 2     # phases 63-64: cli.train steps
+KITTI_BOX_ATOL, KITTI_YAW_ATOL = 1e-4, 1e-5   # phase 63: infos vs planted
+NUS_ATOL = 1e-6           # phase 64: boxes (m, rad) and velocities (m/s)
+NUS_POSE_ATOL = 1e-9      # phase 64: the sweeps' sensor2lidar vs planted
+LIDAR_CONFIGS = ("uni3detr_sunrgbd", "uni3detr_scannet",
+                 "uni3detr_scannet_large", "uni3detr_kitti_car",
+                 "uni3detr_kitti_3classes", "uni3detr_nuscenes")
+OV_CONFIGS = ("ov_uni3detr_sunrgbd_mm", "ov_uni3detr_sunrgbd_pc",
+              "ov_uni3detr_sunrgbd_rgb")
+TINY_CONFIG = os.path.join(_ROOT,
+                           "configs/uni3detr/uni3detr_synthetic_tiny.py")
+FP32_OPT = ("--cfg-options", "model.compute_dtype=float32")
+
+
+def _config_path(name):
+    sub = "ov_uni3detr" if name.startswith("ov_") else "uni3detr"
+    return os.path.join(_ROOT, "configs", sub, f"{name}.py")
+
+
+def _timed(fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return out, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def object_sample_watch():
+    """Records (GT boxes before, after) of every ``ObjectSample`` call in
+    the block (the train loader's threads included)."""
+    from uni3detr_tpu_torch.data import pipeline
+
+    calls, real = [], pipeline.ObjectSample.__call__
+
+    def call(self, sample, rng):
+        n = len(sample["gt_boxes"])
+        out = real(self, sample, rng)
+        calls.append((n, len(out["gt_boxes"])))
+        return out
+
+    pipeline.ObjectSample.__call__ = call
+    try:
+        yield calls
+    finally:
+        pipeline.ObjectSample.__call__ = real
+
+
+def kitti_raw_phase(torch, dev):
+    """Phase 63: KITTI from its raw layout to AP with ``uni3detr_kitti_car``
+    at full width. ``synthetic.write_kitti_raw`` (KITTI_RAW_TRAIN +
+    KITTI_RAW_VAL scans of 120000 points, KITTI_RAW_CARS Cars and 1-3
+    DontCare rows a scan, a non-identity calib), ``cli.create_data kitti``
+    for both splits and ``gt_database`` with the config: every info's
+    Cars within KITTI_BOX_ATOL m and KITTI_YAW_ATOL rad of the planted
+    boxes, the DontCare rows kept, the database at the config's
+    ``db_info_path`` with each object's count ``points_in_rbbox``'s; then
+    ``cli.train`` KITTI_RAW_STEPS steps at B=1 with ``ObjectSample``
+    drawing from it (launches as phase 57's steps) and ``cli.test`` on its
+    ``latest`` over the val scans with box merging (launches a scan K1 4,
+    K2 17, K3 3, K4 1 and N1's matrix form, N1's 3D and BEV two-set forms
+    in the metric). Returns the launches of both runs."""
+    import numpy as np
+    from uni3detr_tpu_torch.cli import create_data
+    from uni3detr_tpu_torch.config_file import (build_model_config,
+                                                load_config,
+                                                merge_cfg_options)
+    from uni3detr_tpu_torch.data import box_np_ops
+    from uni3detr_tpu_torch.synthetic import write_kitti_raw
+
+    root = os.path.join(ONRAMP_DIR, "kitti")
+    planted, t_write = _timed(lambda: write_kitti_raw(
+        root, KITTI_RAW_TRAIN, KITTI_RAW_VAL, cars=KITTI_RAW_CARS))
+    t_conv = {}
+    for split in ("train", "val"):
+        _, t_conv[split] = _timed(create_data.main,
+                                  ["kitti", "--root", root, "--split", split])
+    db_path, t_db = _timed(create_data.main, [
+        "gt_database", KITTI_CAR_CONFIG, "--out-dir", root, "--cfg-options",
+        f"data.data_root={root}"])
+    print(f"[onramp-kitti] host s: write_kitti_raw {t_write:.3f} "
+          f"({KITTI_RAW_TRAIN + KITTI_RAW_VAL} scans), create_data kitti "
+          f"train {t_conv['train']:.3f} val {t_conv['val']:.3f}, "
+          f"gt_database {t_db:.3f}")
+    worst, n_db, n_cars = [0.0, 0.0], 0, 0
+    with open(db_path, "rb") as f:
+        db = pickle.load(f)
+    for split in ("train", "val"):
+        with open(os.path.join(root, f"kitti_infos_{split}.pkl"), "rb") as f:
+            infos = pickle.load(f)
+        for i, info in enumerate(infos):
+            want = planted[info["point_cloud"]["idx"]]
+            n = len(want["boxes"])
+            names = list(info["annos"]["name"])
+            if names != ["Car"] * n + ["DontCare"] * want["dontcare"]:
+                fail(f"onramp-kitti: {info['point_cloud']['idx']} names "
+                     f"{names}")
+            got = info["annos"]["gt_boxes_lidar"][:n].astype(np.float64)
+            dyaw = (got[:, 6] - want["boxes"][:, 6] + np.pi) % (
+                2 * np.pi) - np.pi
+            worst = [max(worst[0], np.abs(got[:, :6]
+                                          - want["boxes"][:, :6]).max()),
+                     max(worst[1], np.abs(dyaw).max())]
+            n_cars += n
+            if split != "train":
+                continue
+            pts = np.fromfile(os.path.join(
+                root, info["point_cloud"]["velodyne_path"]),
+                np.float32).reshape(-1, 4)
+            inside = box_np_ops.points_in_rbbox(
+                pts[:, :3], info["annos"]["gt_boxes_lidar"][:n])
+            for rec in db["Car"]:
+                scene, _, j = os.path.basename(rec["path"])[:-4].split("_")
+                if int(scene) == i:
+                    n_db += 1
+                    if rec["num_points_in_gt"] != inside[:, int(j)].sum():
+                        fail(f"onramp-kitti: {rec['path']} holds "
+                             f"{rec['num_points_in_gt']} points")
+    print(f"[onramp-kitti] {n_cars} planted Cars: worst |box - planted| "
+          f"{worst[0]:.3g} m (atol {KITTI_BOX_ATOL}), yaw {worst[1]:.3g} "
+          f"rad (atol {KITTI_YAW_ATOL}); {n_db} database objects at "
+          f"{os.path.relpath(db_path, root)}, each with points_in_rbbox's "
+          f"count")
+    cfg = merge_cfg_options(load_config(KITTI_CAR_CONFIG),
+                            [f"data.data_root={root}"])
+    if worst[0] > KITTI_BOX_ATOL or worst[1] > KITTI_YAW_ATOL or not n_db \
+            or db_path != os.path.join(root, cfg.data["train_pipeline"][0][
+                "db_info_path"]):
+        fail("onramp-kitti: the infos or the GT database")
+    mc = build_model_config(cfg)
+    wd = os.path.join(ONRAMP_DIR, "kitti_wd")
+    with object_sample_watch() as pasted:
+        _, w = train_cli_run(torch, "onramp-kitti-train", KITTI_CAR_CONFIG,
+                             root, ["--work-dir", wd, "--max-steps",
+                                    str(KITTI_RAW_STEPS), "--cfg-options",
+                                    "log_config.interval=1"], mc,
+                             gt_counts=True)
+    added = sum(b - a for a, b in pasted)
+    print(f"[onramp-kitti-train] ObjectSample (GT before, after) "
+          f"{pasted}: {added} objects pasted from the new database; GT a "
+          f"sample in the batches {[g for st in w.steps for g in st['gt']]}")
+    if len(w.steps) != KITTI_RAW_STEPS or added <= 0:
+        fail("onramp-kitti-train: wrong step count or nothing pasted")
+    runs = [w.launches()]
+    del w
+    torch.cuda.empty_cache()
+    run, _ = cli_run(torch, "onramp-kitti-test", KITTI_CAR_CONFIG, root,
+                      KITTI_RAW_VAL, infer_per_batch(mc),
+                      os.path.join(wd, "latest"), metric_kind="kitti")
+    runs.append(run)
+    return runs
+
+
+def nuscenes_raw_phase(torch, dev):
+    """Phase 64: nuScenes from its raw tables to its metrics with
+    ``uni3detr_nuscenes`` at full width. ``synthetic.write_nuscenes_raw``
+    (2 scenes of 4 key frames, LIDAR_TOP at 20 Hz with 34720 points of 5
+    floats, 10 sweeps before the first key frame, 6 cameras, ~40
+    annotations a key frame over the 10 classes) and ``cli.create_data
+    nuscenes --max-sweeps 10 --val-scenes``: boxes within NUS_ATOL of the
+    planted ones, velocities too, each key frame's 10 sweeps at the
+    planted poses, ``valid_flag`` false exactly where both point counts
+    are 0; ``cli.train`` NUS_RAW_STEPS steps (CBGS, 300000 of the 381920
+    points after ``LoadPointsFromMultiSweeps``; launches as phase 12's
+    steps) and ``cli.test`` on the 4 val key frames (launches as phase
+    10's scenes, N1 and N2 once a batch). Returns the launches of both
+    runs."""
+    import numpy as np
+    from uni3detr_tpu_torch.cli import create_data
+    from uni3detr_tpu_torch.config_file import (build_model_config,
+                                                load_config,
+                                                merge_cfg_options)
+    from uni3detr_tpu_torch.synthetic import write_nuscenes_raw
+
+    root = os.path.join(ONRAMP_DIR, "nuscenes")
+    truth, t_write = _timed(write_nuscenes_raw, root)
+    _, t_conv = _timed(create_data.main, [
+        "nuscenes", "--root", root, "--max-sweeps", "10", "--val-scenes",
+        os.path.join(root, "val_scenes.txt")])
+    print(f"[onramp-nuscenes] host s: write_nuscenes_raw {t_write:.3f}, "
+          f"create_data nuscenes {t_conv:.3f}")
+    worst = dict(box=0.0, yaw=0.0, velocity=0.0, pose=0.0)
+    n_inv = n_ann = 0
+    for split in ("train", "val"):
+        with open(os.path.join(root, f"nuscenes_infos_{split}.pkl"),
+                  "rb") as f:
+            infos = pickle.load(f)["infos"]
+        if len(infos) != 4:
+            fail(f"onramp-nuscenes: {len(infos)} {split} infos")
+        for info in infos:
+            want = truth[info["token"]]
+            g = info["gt_boxes"]
+            dyaw = (g[:, 6] - want["boxes"][:, 6] + np.pi) % (
+                2 * np.pi) - np.pi
+            worst["box"] = max(worst["box"], np.abs(
+                g[:, :6] - want["boxes"][:, :6]).max())
+            worst["yaw"] = max(worst["yaw"], np.abs(dyaw).max())
+            worst["velocity"] = max(worst["velocity"], np.abs(
+                info["gt_velocity"] - want["velocity"]).max())
+            if len(info["sweeps"]) != 10 or not np.array_equal(
+                    info["valid_flag"], want["valid"]):
+                fail(f"onramp-nuscenes: {info['token']} sweeps or valid")
+            for sw, (tok, rot, trans) in zip(info["sweeps"],
+                                              want["sweeps"]):
+                if sw["sample_data_token"] != tok:
+                    fail(f"onramp-nuscenes: sweep {tok}")
+                worst["pose"] = max(
+                    worst["pose"],
+                    np.abs(sw["sensor2lidar_rotation"] - rot).max(),
+                    np.abs(sw["sensor2lidar_translation"] - trans).max())
+            n_inv += int((~info["valid_flag"]).sum())
+            n_ann += len(g)
+    print(f"[onramp-nuscenes] {n_ann} annotations ({n_inv} without a "
+          f"point): worst |box - planted| {worst['box']:.3g} m, yaw "
+          f"{worst['yaw']:.3g} rad, velocity {worst['velocity']:.3g} m/s "
+          f"(atol {NUS_ATOL}); sweep poses {worst['pose']:.3g} (atol "
+          f"{NUS_POSE_ATOL}); valid_flag as planted")
+    if max(worst["box"], worst["yaw"], worst["velocity"]) > NUS_ATOL or \
+            worst["pose"] > NUS_POSE_ATOL or not n_inv:
+        fail("onramp-nuscenes: the infos differ from the planted truth")
+    cfg = merge_cfg_options(load_config(NUSCENES_CONFIG),
+                            [f"data.data_root={root}"])
+    mc = build_model_config(cfg)
+    wd = os.path.join(ONRAMP_DIR, "nuscenes_wd")
+    _, w = train_cli_run(torch, "onramp-nuscenes-train", NUSCENES_CONFIG,
+                         root, ["--work-dir", wd, "--max-steps",
+                                str(NUS_RAW_STEPS), "--cfg-options",
+                                "log_config.interval=1"], mc)
+    if len(w.steps) != NUS_RAW_STEPS:
+        fail("onramp-nuscenes-train: wrong step count")
+    runs = [w.launches()]
+    del w
+    torch.cuda.empty_cache()
+    run, _ = cli_run(torch, "onramp-nuscenes-test", NUSCENES_CONFIG, root,
+                      4, infer_per_batch(mc), os.path.join(wd, "latest"),
+                      metric_kind="nuscenes")
+    runs.append(run)
+    return runs
+
+
+def reference_pth(torch, model, path):
+    """Write ``model``'s seed-0 weights (``weights.random_state_dict``) as
+    a reference checkpoint: mmdet3d's ``{"meta", "state_dict"}``, the
+    sparse convs in spconv-v2's (out, kd, kh, kw, in) layout, the BN
+    counts set as a trained checkpoint has them. Returns the key of the
+    largest tensor."""
+    sd = _state_dict(torch, model)
+    for k, v in sd.items():
+        if k.startswith("pts_middle_encoder.") and v.dim() == 5:
+            sd[k] = v.permute(4, 0, 1, 2, 3).contiguous()
+        elif k.endswith("num_batches_tracked"):
+            sd[k] = torch.tensor(29000)
+    torch.save({"meta": {"epoch": 36, "mmdet3d_version": "1.0.0rc6"},
+                "state_dict": sd}, path)
+    return max(sd, key=lambda k: sd[k].numel())
+
+
+def import_phase(torch, dev):
+    """Phase 65: a reference checkpoint. For ``uni3detr_sunrgbd`` and
+    ``ov_uni3detr_sunrgbd_mm``: the
+    seed-0 weights as a reference ``.pth`` (``reference_pth``),
+    ``cli.import_ckpt``, then ``cli.test`` on the result and without a
+    checkpoint (the seed-0 weights): detections bit-equal; then a
+    ``.pth`` with one tensor of the wrong shape, which ``import_ckpt``
+    refuses naming the key. Returns the launches of the ``cli.test``
+    runs."""
+    from uni3detr_tpu_torch.cli import import_ckpt
+    from uni3detr_tpu_torch.config_file import (build_model_config,
+                                                load_config,
+                                                merge_cfg_options)
+    from uni3detr_tpu_torch.presets import PRESETS
+    from uni3detr_tpu_torch.synthetic import write_sunrgbd_root
+
+    runs = []
+    for name, config, camera in (
+            ("uni3detr_sunrgbd", SUNRGBD_CONFIG, False),
+            ("ov_uni3detr_sunrgbd_mm", OV_MM_CONFIG, True)):
+        how = ["--preset", name]
+        root = os.path.join(ONRAMP_DIR, f"import_{name}")
+        cfg = load_config(config)
+        write_sunrgbd_root(root, PRESETS[name], cfg.class_names, 4,
+                           camera=camera, num_points=CLI_POINTS)
+        mc = build_model_config(merge_cfg_options(
+            cfg, [f"data.data_root={root}"]))
+        pth, out = os.path.join(root, "ref.pth"), os.path.join(root, "ckpt")
+        big = reference_pth(torch, build_model(mc), pth)
+        n, t_imp = _timed(import_ckpt.main, [pth, out] + how)
+        with open(os.path.join(out, "meta.json")) as f:
+            meta = json.load(f)
+        print(f"[onramp-import] {name}: {n} tensors imported from a "
+              f"spconv-v2 .pth in {t_imp:.3f}s; meta classes "
+              f"{len(meta['classes'])}, preset {meta['preset']}")
+        if meta["classes"] != list(cfg.class_names):
+            fail(f"onramp-import {name}: classes {meta['classes']}")
+        per_batch = infer_per_batch(mc)
+        run, imp = cli_run(torch, f"onramp-import-{name}", config, root, 4,
+                           per_batch, out)
+        runs.append(run)
+        run, seed0 = cli_run(torch, f"onramp-seed0-{name}", config, root, 4,
+                             per_batch)
+        runs.append(run)
+        same_dets(f"onramp-import-{name}", imp["dets"], seed0["dets"],
+                  "cli.test's on the seed-0 weights")
+        raw = torch.load(pth, weights_only=False)
+        raw["state_dict"][big] = raw["state_dict"][big][:-1]
+        torch.save(raw, pth)
+        try:
+            import_ckpt.main([pth, os.path.join(root, "bad")] + how)
+        except ValueError as e:
+            if big not in str(e):
+                fail(f"onramp-import {name}: the error {e} names no key")
+            print(f"[onramp-import] {name}: a .pth with {big} cut by one "
+                  f"row is refused: {str(e)[:160]}")
+        else:
+            fail(f"onramp-import {name}: a wrong shape was imported")
+        del raw
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return runs
+
+
+def flops_phase(torch, dev):
+    """Phase 66: ``cli.get_flops`` on every shipped preset's config at
+    B=1 (params, GFLOP, GB moved, peak memory); for ``uni3detr_sunrgbd``
+    and the synthetic tiny config the card's FLOP count equal to the
+    CPU's (fp32 on both, and the card's preset dtype) and, for the
+    flagship, to the count over two different scenes; then
+    ``trace_context`` over one flagship forward: the trace lists the port's
+    kernels with K1 4, K2 17, K3 3 and K4 1 launches. Returns the
+    launches of the card runs."""
+    from uni3detr_tpu_torch import synthetic
+    from uni3detr_tpu_torch.cli import get_flops
+    from uni3detr_tpu_torch.ops.cuda_lib import forward_launches
+    from uni3detr_tpu_torch.presets import SUNRGBD
+    from uni3detr_tpu_torch.utils.profiling import (flops_of, trace_context,
+                                                    trace_kernel_counts)
+
+    wrappers = kernel_wrappers()
+    runs = []
+
+    def on_card(argv):
+        before = {k: fn.launches for k, fn in wrappers.items()}
+        r, secs = _timed(get_flops.main, argv)
+        runs.append({k: fn.launches - before[k]
+                     for k, fn in wrappers.items()})
+        torch.cuda.empty_cache()
+        return r, secs
+
+    rows = {}
+    for name in LIDAR_CONFIGS + OV_CONFIGS:
+        r, secs = on_card([_config_path(name)])
+        rows[name] = r
+        print(f"[flops] {name}: params {r['params']} forward "
+              f"{r['flops'] / 1e9:.3f} GFLOP (kernels "
+              f"{sum(v['flops'] for v in r['kernels'].values()) / 1e9:.3f})"
+              f" bytes {r['bytes_accessed'] / 1e9:.3f} GB peak "
+              f"{r['peak_memory_bytes'] / 1e9:.3f} GB at B=1 ({secs:.1f}s)")
+    for name, config in (("uni3detr_sunrgbd", SUNRGBD_CONFIG),
+                         ("synthetic_tiny", TINY_CONFIG)):
+        card, _ = on_card([config])
+        card32, _ = on_card([config, *FP32_OPT])
+        cpu, secs = _timed(get_flops.main, [config, "--device", "cpu",
+                                            *FP32_OPT])
+        print(f"[flops] {name}: card {card['flops']} (preset dtype), card "
+              f"fp32 {card32['flops']}, CPU fp32 {cpu['flops']} FLOPs "
+              f"({secs:.1f}s on the CPU); bytes card "
+              f"{card32['bytes_accessed']} CPU {cpu['bytes_accessed']}")
+        if not card["flops"] == card32["flops"] == cpu["flops"] > 0:
+            fail(f"flops {name}: the card's count is not the CPU's")
+    model = build_model(SUNRGBD)
+    model.load_state_dict(_state_dict(torch, model), strict=True)
+    model = model.eval().to(dev)
+    counts = []
+    with torch.inference_mode():
+        for seed in (0, 1):
+            args = scene_inputs(torch, synthetic.clustered_scene(
+                seed, SUNRGBD), dev)
+            before = {k: fn.launches for k, fn in wrappers.items()}
+            counts.append(flops_of(model, *args)["flops"])
+            runs.append({k: fn.launches - before[k]
+                         for k, fn in wrappers.items()})
+        model(*args)
+        torch.cuda.synchronize()
+        logdir = os.path.join(ONRAMP_DIR, "trace")
+        before = {k: fn.launches for k, fn in wrappers.items()}
+        with trace_context(logdir):
+            model(*args)
+            torch.cuda.synchronize()
+        launched = {k: fn.launches - before[k] for k, fn in wrappers.items()}
+    runs.append(launched)
+    zeros = rows["uni3detr_sunrgbd"]["flops"]
+    print(f"[flops] uni3detr_sunrgbd over two clustered scenes: {counts} "
+          f"FLOPs (the CLI's zeros batch: {zeros})")
+    if not counts[0] == counts[1] == zeros:
+        fail("flops: the count depends on the scene")
+    path, by_kernel = trace_kernel_counts(logdir)
+    traced = forward_launches(by_kernel)
+    want = {"match_positions": 4, "gather_conv": 17, "gather_conv_ids": 3,
+            "fps_pair": 1}
+    print(f"[trace] {os.path.basename(path)} ({os.path.getsize(path)} "
+          f"bytes): port kernels {by_kernel}; by wrapper {traced}")
+    if traced != want or any(launched[k] != v for k, v in want.items()):
+        fail(f"trace: launches {traced} (counted {launched}) != {want}")
+    del model
+    torch.cuda.empty_cache()
+    return runs
+
+
+def onramps(torch, dev):
+    """Phases 63-66 (see the module docstring); returns their launches."""
+    shutil.rmtree(ONRAMP_DIR, ignore_errors=True)
+    runs, t = [], [time.perf_counter()]
+    for phase in (kitti_raw_phase, nuscenes_raw_phase, import_phase,
+                  flops_phase):
+        runs += phase(torch, dev)
+        t.append(time.perf_counter())
+    print("[onramps] s: " + ", ".join(
+        f"{n} {b - a:.1f}" for n, a, b in zip(
+            ("kitti", "nuscenes", "import", "flops"), t, t[1:])))
+    shutil.rmtree(ONRAMP_DIR, ignore_errors=True)
+    return runs
+
+
 def main():
     import torch
 
@@ -3757,6 +4230,8 @@ def main():
     t.append(time.perf_counter())
     runs += ddp(torch, dev)
     t.append(time.perf_counter())
+    runs += onramps(torch, dev)
+    t.append(time.perf_counter())
     # the NMS kernels' numbers at uni3detr_scannet's 5000 boxes
     for name in ("iou3d_rotated", "nms_greedy"):
         report[name] = scan_reports[0][name]
@@ -3765,7 +4240,7 @@ def main():
         for k, v in run.items():
             launches[k] = launches.get(k, 0) + v
     names = ("flagship", "nuscenes", "scannet", "scannet_large", "kitti_car",
-             "kitti_3classes", "ov", "cli", "train_cli", "ddp")
+             "kitti_3classes", "ov", "cli", "train_cli", "ddp", "onramps")
     print("[time] " + ", ".join(f"{n} {t[i + 1] - t[i]:.1f}s"
                                 for i, n in enumerate(names))
           + f"; the whole smoke {time.perf_counter() - T_START:.1f}s")

@@ -13,6 +13,8 @@ bf16); weight gradients (fp32 sums over all rows, in another order)
 within 1e-4 relative of the largest entry, for bf16 and fp32 inputs
 alike, since bf16 rows and cotangents widen to fp32 exactly.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -1597,3 +1599,87 @@ def test_two_ranks_share_the_card(dev):
         assert launches == one[3] and launches["gather_conv_dw"] > 0
         for k, v in state.items():
             np.testing.assert_array_equal(v, ranks[0][1][k], err_msg=k)
+
+
+_TINY_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "..", "configs", "uni3detr",
+                            "uni3detr_synthetic_tiny.py")
+
+
+def test_get_flops_card_count_equals_cpu_count(dev):
+    """``cli.get_flops`` on the tiny config: the card's FLOPs (cuDNN,
+    flash attention, the kernels' records) equal the CPU's (the plain
+    versions under ``FlopCounterMode``); the kernels' records name K1-K4
+    with one launch each as the launch counters."""
+    from uni3detr_tpu_torch.cli import get_flops
+    from uni3detr_tpu_torch.ops import kernel_wrappers
+
+    before = {k: f.launches for k, f in kernel_wrappers().items()}
+    card = get_flops.main([_TINY_CONFIG])
+    launched = {k: f.launches - before[k]
+                for k, f in kernel_wrappers().items()}
+    cpu = get_flops.main([_TINY_CONFIG, "--device", "cpu"])
+    assert card["flops"] == cpu["flops"] > 0
+    assert card["peak_memory_bytes"] > 0 and cpu["peak_memory_bytes"] == -1
+    assert {k: v["launches"] for k, v in card["kernels"].items()} == \
+        {k: v for k, v in launched.items() if v}
+    assert set(card["kernels"]) == {"match_positions", "gather_conv",
+                                    "gather_conv_ids", "fps_pair"}
+    assert cpu["kernels"] == {}
+
+
+def test_spconv_v2_pth_imports_and_runs(dev, tmp_path):
+    """A reference ``.pth`` of the tiny preset's seed-0 weights with its
+    sparse convs in spconv-v2's layout: ``cli.import_ckpt``, then
+    ``cli.test`` on the card gives the detections of the seed-0 weights
+    bit for bit."""
+    from uni3detr_tpu_torch.cli import import_ckpt, test as cli_test
+    from uni3detr_tpu_torch.models.detector import Uni3DETR
+    from uni3detr_tpu_torch.presets import TINY_SYNTHETIC
+    from uni3detr_tpu_torch.weights import random_state_dict
+
+    sd = {k: torch.from_numpy(v) for k, v in random_state_dict(
+        Uni3DETR(TINY_SYNTHETIC), 0).items()}
+    for k, v in sd.items():
+        if k.startswith("pts_middle_encoder.") and v.dim() == 5:
+            sd[k] = v.permute(4, 0, 1, 2, 3).contiguous()
+    pth = str(tmp_path / "ref.pth")
+    torch.save({"meta": {"epoch": 1}, "state_dict": sd}, pth)
+    out = str(tmp_path / "ckpt")
+    import_ckpt.main([pth, out, "--preset", "uni3detr_tiny_synthetic"])
+    args = ["--eval", "bbox", "--max-samples", "3"]
+    a = cli_test.main([_TINY_CONFIG, out] + args)["dets"]
+    b = cli_test.main([_TINY_CONFIG] + args)["dets"]
+    for da, db in zip(a, b):
+        for k in ("boxes", "scores", "labels"):
+            assert np.array_equal(da[k], db[k])
+
+
+def test_trace_context_names_the_kernels(dev, tmp_path):
+    """``trace_context`` over one tiny forward on the card writes a trace
+    whose port kernels, by wrapper, are the launch counters'."""
+    from uni3detr_tpu_torch import synthetic
+    from uni3detr_tpu_torch.models.detector import Uni3DETR
+    from uni3detr_tpu_torch.ops import kernel_wrappers
+    from uni3detr_tpu_torch.ops.cuda_lib import forward_launches
+    from uni3detr_tpu_torch.presets import TINY_SYNTHETIC
+    from uni3detr_tpu_torch.utils.profiling import (trace_context,
+                                                    trace_kernel_counts)
+
+    model = Uni3DETR(TINY_SYNTHETIC).eval().to(dev)
+    pts, rnd = synthetic.clustered_scene(0, TINY_SYNTHETIC)
+    pts = torch.from_numpy(pts).to(dev)
+    args = (pts, torch.ones(pts.shape[:2], dtype=torch.bool, device=dev),
+            torch.from_numpy(rnd).to(dev))
+    with torch.no_grad():
+        model(*args)
+        before = {k: f.launches for k, f in kernel_wrappers().items()}
+        with trace_context(str(tmp_path)):
+            model(*args)
+            torch.cuda.synchronize()
+    launched = {k: f.launches - before[k]
+                for k, f in kernel_wrappers().items()}
+    _, counts = trace_kernel_counts(str(tmp_path))
+    traced = forward_launches(counts)
+    assert traced == {k: launched[k] for k in traced}
+    assert traced["gather_conv"] > 0 and traced["fps_pair"] == 1

@@ -334,11 +334,12 @@ def box_type_of(data_cfg: dict) -> str:
 
 
 def build_dataset(data_cfg: dict, class_names, pc_range, split="train",
-                  sample_rng=None):
+                  sample_rng=None, filter_empty_gt=True):
     """A config's ``data`` split: "train" runs ``train_pipeline`` with
     ``cbgs`` and ``repeat``, any other split ``ann_val`` with
-    ``test_pipeline`` in test mode. ``sample_rng``: see
-    :class:`DetDataset` (the synthetic dataset seeds itself)."""
+    ``test_pipeline`` in test mode. ``sample_rng`` and
+    ``filter_empty_gt``: see :class:`DetDataset` (the synthetic dataset
+    seeds itself and always has GT)."""
     t = data_cfg["dataset_type"]
     pipeline = data_cfg["train_pipeline"] if split == "train" \
         else data_cfg["test_pipeline"]
@@ -360,7 +361,8 @@ def build_dataset(data_cfg: dict, class_names, pc_range, split="train",
             use_dim=tuple(data_cfg.get("use_dim", (0, 1, 2))),
             shift_height=data_cfg.get("shift_height", False),
             use_camera=data_cfg.get("use_camera", False),
-            test_mode=(split != "train"), sample_rng=sample_rng)
+            test_mode=(split != "train"), sample_rng=sample_rng,
+            filter_empty_gt=filter_empty_gt)
     if split == "train":
         if data_cfg.get("cbgs") and t != "synthetic":
             ds = CBGSDataset(ds)

@@ -20,7 +20,7 @@ import math
 
 import torch
 
-from ..ops import cuda_lib
+from ..ops import cost, cuda_lib
 from .boxes import corners_bev
 
 _NV = 8  # max vertices of a rect-rect intersection
@@ -181,6 +181,8 @@ def _iou_sets(fn, boxes1, boxes2, bev: bool, z_origin: str):
             torch.cuda.current_stream(a.device).cuda_stream)
     cuda_lib.check(status, "u3d_iou_rotated_sets")
     fn.launches += 1
+    key = "iou3d_rotated_matrix" if fn is iou3d_rotated_pairwise else name
+    cost.record(key, (a, b), out)
     return out
 
 

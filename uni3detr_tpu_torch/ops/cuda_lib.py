@@ -50,6 +50,18 @@ _SIGNATURES = {
 }
 _ERROR_STRING = "u3d_error_string"
 KERNEL_PREFIX = "u3d_"
+# the wrapper (``ops.kernel_wrappers()``) behind each forward kernel, by
+# the names a profiler shows (demangled, template arguments included): K2
+# and K3 share their templates and differ in the first argument (IDMATCH);
+# K11 runs K4's kernel, so a trace of a forward reads its launches as K4's
+FORWARD_KERNELS = {
+    "match_positions": ("u3d_match_positions_kernel",),
+    "gather_conv": ("u3d_gather_conv_mma_kernel<false",
+                    "u3d_gather_conv_f32_kernel<false"),
+    "gather_conv_ids": ("u3d_gather_conv_mma_kernel<true",
+                        "u3d_gather_conv_f32_kernel<true"),
+    "fps_pair": ("u3d_fps_grid_kernel",),
+}
 
 
 def _sources():
@@ -133,6 +145,14 @@ def check(status: int, name: str) -> None:
     if status != 0:
         msg = getattr(library(), _ERROR_STRING)(status).decode()
         raise RuntimeError(f"{name}: CUDA error {status} at launch: {msg}")
+
+
+def forward_launches(kernel_counts) -> dict:
+    """Launches by forward wrapper (``FORWARD_KERNELS``) from launches by
+    kernel name (``utils.profiling.trace_kernel_counts``)."""
+    return {w: sum(n for name, n in kernel_counts.items()
+                   if any(p in name for p in pats))
+            for w, pats in FORWARD_KERNELS.items()}
 
 
 def print_kernel_times(key_averages, n: int, unit: str) -> None:

@@ -26,7 +26,7 @@ import functools
 
 import torch
 
-from . import cuda_lib
+from . import cost, cuda_lib
 
 
 def farthest_point_sample_plain(xyz: torch.Tensor, mask: torch.Tensor,
@@ -111,16 +111,20 @@ def _fps_launch(name: str, sets, num_samples: int) -> torch.Tensor:
     return idx
 
 
-def _fps_batched(name: str, sets, num_samples: int):
+def _fps_batched(name: str, sets, num_samples: int, wrapper: str):
     """Run ``name`` on the (xyz, mask) sets in as few launches as the
     kernel's problems per launch (sets x batch elements) allow, splitting
-    the batch: ``([(B, S) int32 per set], launches)``."""
+    the batch (each launch recorded under ``wrapper`` in ``ops.cost``):
+    ``([(B, S) int32 per set], launches)``."""
     B = sets[0][0].shape[0]
     max_problems = _device_limits(sets[0][0].device.index)[2]
     step = max(1, max_problems // len(sets))
-    chunks = [_fps_launch(name, [(x[b:b + step], m[b:b + step])
-                                 for x, m in sets], num_samples)
-              .view(len(sets), -1, num_samples) for b in range(0, B, step)]
+    chunks = []
+    for b in range(0, B, step):
+        part = [(x[b:b + step], m[b:b + step]) for x, m in sets]
+        idx = _fps_launch(name, part, num_samples)
+        cost.record(wrapper, [t for s in part for t in s], idx)
+        chunks.append(idx.view(len(sets), -1, num_samples))
     idx = chunks[0] if len(chunks) == 1 else torch.cat(chunks, dim=1)
     return list(idx.unbind(0)), len(chunks)
 
@@ -149,7 +153,8 @@ def farthest_point_sample(xyz: torch.Tensor, mask: torch.Tensor,
     """K11: one D-FPS sample, (B, N, 3) with its mask -> (B, S) int32."""
     if _check_sets("farthest_point_sample", [(xyz, mask)]):
         return farthest_point_sample_plain(xyz, mask, num_samples)
-    (idx,), launches = _fps_batched("u3d_fps", [(xyz, mask)], num_samples)
+    (idx,), launches = _fps_batched("u3d_fps", [(xyz, mask)], num_samples,
+                                    "fps")
     farthest_point_sample.launches += launches
     return idx
 
@@ -167,7 +172,7 @@ def farthest_point_sample_pair(xyz_a: torch.Tensor, mask_a: torch.Tensor,
         return (farthest_point_sample_plain(xyz_a, mask_a, num_samples),
                 farthest_point_sample_plain(xyz_b, mask_b, num_samples))
     (idx_a, idx_b), launches = _fps_batched("u3d_fps_pair", sets,
-                                            num_samples)
+                                            num_samples, "fps_pair")
     farthest_point_sample_pair.launches += launches
     return idx_a, idx_b
 

@@ -25,6 +25,8 @@ import numpy as np
 import torch
 
 from . import cuda_lib
+# ``cost`` names the matching costs in this module
+from .cost import record as record_cost
 
 NEG = -1e30  # the TPU kernel's "no value"
 
@@ -124,6 +126,7 @@ def auction_lap(benefit: torch.Tensor, spread: torch.Tensor,
                          f"the card's shared memory at M={M}, N={N}")
     cuda_lib.check(status, "u3d_auction_lap")
     auction_lap.launches += 1
+    record_cost("auction_lap", (benefit, spread), out, counts)
     auction_lap.counts = counts
     auction_lap.variant = AUCTION_VARIANTS[ran.value] if ran.value >= 0 \
         else None

@@ -32,7 +32,7 @@ from __future__ import annotations
 import torch
 
 from ..geom.iou import iou3d_rotated, iou_bev_rotated
-from . import cuda_lib
+from . import cost, cuda_lib
 
 WORD = 64   # boxes per bitmask word
 
@@ -178,6 +178,8 @@ def _overlap_mask(fn, boxes, labels, iou_thr, bev, z_origin):
             torch.cuda.current_stream(bx.device).cuda_stream)
     cuda_lib.check(status, "u3d_iou3d_rotated_mask")
     fn.launches += 1
+    key = "iou_bev_rotated_mask" if bev else "iou3d_rotated"
+    cost.record(key, (bx, lab), mask)
     return mask
 
 
@@ -241,6 +243,7 @@ def greedy_scan(mask, labels, order):
             torch.cuda.current_stream(mask.device).cuda_stream)
     cuda_lib.check(status, "u3d_nms_greedy")
     greedy_scan.launches += 1
+    cost.record("nms_greedy", (mask, lab, order), keep)
     return keep
 
 

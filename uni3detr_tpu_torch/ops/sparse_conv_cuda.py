@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import torch
 
-from . import cuda_lib
+from . import cost, cuda_lib
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -93,6 +93,7 @@ def match_positions(site_ids: torch.Tensor, qids: torch.Tensor,
             Vout, K, int(n_sites), _stream(qids))
     cuda_lib.check(status, "u3d_match_positions")
     match_positions.launches += 1
+    cost.record("match_positions", (site_ids, qids), out)
     return out
 
 
@@ -170,6 +171,7 @@ def gather_conv(features: torch.Tensor, neighbor_idx: torch.Tensor,
             out.data_ptr(), B, V, C, Vout, K, Cout, _stream(features))
     cuda_lib.check(status, name)
     gather_conv.launches += 1
+    cost.record("gather_conv", (features, neighbor_idx, w), out)
     return out
 
 
@@ -217,6 +219,7 @@ def gather_conv_ids(features: torch.Tensor, site_ids: torch.Tensor,
             _stream(features))
     cuda_lib.check(status, name)
     gather_conv_ids.launches += 1
+    cost.record("gather_conv_ids", (features, site_ids, qids, w), out)
     return out
 
 
@@ -357,6 +360,7 @@ def gather_conv_dw(features: torch.Tensor, neighbor_idx: torch.Tensor,
     dw = _dw_launch("u3d_gather_conv_dw", features, (neighbor_idx,), g,
                     neighbor_idx.shape[2])
     gather_conv_dw.launches += 1
+    cost.record("gather_conv_dw", (features, neighbor_idx, g), dw)
     return dw
 
 
@@ -378,6 +382,7 @@ def gather_conv_ids_dw(features: torch.Tensor, site_ids: torch.Tensor,
     dw = _dw_launch("u3d_gather_conv_ids_dw", features, (site_ids, qids), g,
                     qids.shape[2])
     gather_conv_ids_dw.launches += 1
+    cost.record("gather_conv_ids_dw", (features, site_ids, qids, g), dw)
     return dw
 
 

@@ -3,6 +3,7 @@ profiles and tests."""
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import pickle
 
@@ -336,3 +337,477 @@ def write_kitti_root(root: str, cfg, n_train: int, n_val: int,
                           "difficulty": 0})
     with open(os.path.join(root, "kitti_dbinfos_train.pkl"), "wb") as f:
         pickle.dump(db, f)
+
+
+# ---------------------------------------------------------------------------
+# raw dataset layouts, the converters' inputs
+# ---------------------------------------------------------------------------
+
+def _rot(axis: int, angle: float) -> np.ndarray:
+    """3x3 rotation by ``angle`` about x (0), y (1) or z (2), fp64."""
+    c, s = np.cos(angle), np.sin(angle)
+    i, j = [a for a in range(3) if a != axis]
+    r = np.eye(3)
+    r[i, i], r[i, j], r[j, i], r[j, j] = c, -s, s, c
+    return r
+
+
+# KITTI's 7-line calib: the lidar -> camera axes (x_cam = -y, y_cam = -z,
+# z_cam = x) turned by a few tenths of a degree about each axis, and a
+# rectifying rotation of the same size, as the real calibrations have
+KITTI_VELO_AXES = np.array([[0.0, -1.0, 0.0], [0.0, 0.0, -1.0],
+                            [1.0, 0.0, 0.0]])
+KITTI_TR_TURN = (0.0071, -0.0123, 0.0052)     # about x, y, z, rad
+KITTI_TR_SHIFT = (-0.0041, -0.0763, -0.2718)
+KITTI_R0_TURN = (0.0093, -0.0058, 0.0035)
+KITTI_IMAGE = (375, 1242)                      # H, W
+KITTI_FOCAL = 721.5377
+KITTI_LIDAR_HEIGHT = 1.73                      # the road at z = -1.73
+
+
+def kitti_calib():
+    """(P2 (3, 4), R0_rect (3, 3), Tr_velo_to_cam (3, 4)) fp64 of the
+    written root: non-identity rotations, so a transposed or dropped
+    matrix in a converter moves every box."""
+    r0 = _rot(0, KITTI_R0_TURN[0]) @ _rot(1, KITTI_R0_TURN[1]) @ _rot(
+        2, KITTI_R0_TURN[2])
+    turn = _rot(0, KITTI_TR_TURN[0]) @ _rot(1, KITTI_TR_TURN[1]) @ _rot(
+        2, KITTI_TR_TURN[2])
+    tr = np.concatenate([turn @ KITTI_VELO_AXES,
+                         np.asarray(KITTI_TR_SHIFT)[:, None]], 1)
+    H, W = KITTI_IMAGE
+    p2 = np.array([[KITTI_FOCAL, 0.0, W / 2 + 7.6, 44.86],
+                   [0.0, KITTI_FOCAL, H / 2 - 14.2, 0.2164],
+                   [0.0, 0.0, 1.0, 0.002746]])
+    return p2, r0, tr
+
+
+def _kitti_scan(rng, boxes, n_points):
+    """A 64-beam revolution of ``n_points`` (x, y, z, intensity) float32
+    points: beams from +2 to -24.8 degrees hitting the road at
+    ``-KITTI_LIDAR_HEIGHT`` (or a far wall), then the returns of each box
+    (storage layout, bottom z) placed inside it in place of as many
+    road returns."""
+    beams = 64
+    per_beam = n_points // beams
+    elev = np.deg2rad(np.linspace(2.0, -24.8, beams))[:, None]
+    az = rng.uniform(-np.pi, np.pi, (beams, per_beam))
+    ground = KITTI_LIDAR_HEIGHT / np.maximum(-np.tan(elev), 1e-3)
+    r = np.where(elev < -0.02, ground, rng.uniform(30.0, 75.0, az.shape))
+    r = np.minimum(r, 75.0) * rng.uniform(0.99, 1.01, az.shape)
+    pts = np.stack([r * np.cos(elev) * np.cos(az),
+                    r * np.cos(elev) * np.sin(az),
+                    r * np.sin(elev) + rng.normal(0, 0.01, az.shape),
+                    rng.uniform(0, 1, az.shape)], -1).reshape(-1, 4)
+    objs = [_points_in_box(rng, b, int(rng.randint(150, 900)), 4)
+            + np.r_[b[:3], 0.0].astype(np.float32) for b in boxes]
+    n_obj = sum(len(o) for o in objs)
+    keep = rng.permutation(len(pts))[:len(pts) - n_obj]
+    return np.concatenate([pts[np.sort(keep)]] + objs).astype(np.float32)
+
+
+def _kitti_boxes(rng, n):
+    """``n`` cars (n, 7) fp64 in the lidar frame, storage layout (bottom
+    z on the road), inside the camera's field of view, 5-65 m ahead, no
+    two closer than 5 m."""
+    boxes = []
+    while len(boxes) < n:
+        x = rng.uniform(5.0, 65.0)
+        y = x * np.tan(rng.uniform(-0.6, 0.6))
+        if any(np.hypot(x - b[0], y - b[1]) < 5.0 for b in boxes):
+            continue
+        size = np.asarray(KITTI_CAR) * rng.uniform(0.9, 1.1, 3)
+        boxes.append([x, y, -KITTI_LIDAR_HEIGHT, *size,
+                      rng.uniform(-np.pi, np.pi)])
+    return np.asarray(boxes)
+
+
+def _kitti_label_rows(boxes, p2, r0, tr, rng, n_dontcare):
+    """KITTI label_2 rows of lidar ``boxes``: type, truncated, occluded,
+    alpha, the 2D box (the corners projected through P2 R0 Tr, clipped to
+    the image), (h, w, l), the bottom centre in the rectified camera
+    frame and rot_y = -yaw - pi/2 (mmdet3d's lidar -> camera box),
+    written with 6 decimals; then ``n_dontcare`` DontCare rows."""
+    H, W = KITTI_IMAGE
+    rt = np.eye(4)
+    rt[:3, :3] = r0
+    velo2rect = rt @ np.vstack([tr, [0, 0, 0, 1]])
+    rows = []
+    for b in boxes:
+        loc = (velo2rect @ np.r_[b[:3], 1.0])[:3]
+        rot_y = (-b[6] - np.pi / 2 + np.pi) % (2 * np.pi) - np.pi
+        c, s = np.cos(b[6]), np.sin(b[6])
+        hx, hy = b[3] / 2, b[4] / 2
+        corners = np.array([[b[0] + c * dx - s * dy, b[1] + s * dx + c * dy,
+                             b[2] + dz, 1.0]
+                            for dx in (-hx, hx) for dy in (-hy, hy)
+                            for dz in (0.0, b[5])])
+        uvw = corners @ velo2rect.T @ np.vstack([p2, [0, 0, 0, 1]]).T
+        uv = uvw[:, :2] / uvw[:, 2:3]
+        x0, y0 = np.clip(uv.min(0), 0, [W - 1, H - 1])
+        x1, y1 = np.clip(uv.max(0), 0, [W - 1, H - 1])
+        alpha = rot_y - np.arctan2(loc[0], loc[2])
+        rows.append(f"Car 0.00 0 {alpha:.6f} {x0:.2f} {y0:.2f} {x1:.2f} "
+                    f"{y1:.2f} {b[5]:.6f} {b[4]:.6f} {b[3]:.6f} "
+                    f"{loc[0]:.6f} {loc[1]:.6f} {loc[2]:.6f} {rot_y:.6f}")
+    for _ in range(n_dontcare):
+        x0, y0 = rng.uniform(0, W - 60), rng.uniform(100, H - 30)
+        rows.append(f"DontCare -1 -1 -10 {x0:.2f} {y0:.2f} {x0 + 50:.2f} "
+                    f"{y0 + 20:.2f} -1 -1 -1 -1000 -1000 -1000 -10")
+    return rows
+
+
+def write_kitti_raw(root: str, n_train: int, n_val: int,
+                    n_points: int = 120000, cars=(8, 15)):
+    """KITTI's raw layout under ``root`` for ``cli.create_data kitti``:
+    ``training/velodyne/<id>.bin`` (``n_points`` float32 x, y, z,
+    intensity: one 64-beam revolution, :func:`_kitti_scan`),
+    ``training/label_2/<id>.txt`` (``cars`` Cars, an inclusive range, and
+    1-3 DontCare rows a scan), ``training/calib/<id>.txt``
+    (P0-P3, R0_rect, Tr_velo_to_cam, Tr_imu_to_velo; non-identity
+    :func:`kitti_calib`) and ``ImageSets/{train,val}.txt`` (ids 0 ..
+    n_train-1, then n_val more). Returns what it planted: {id: {"boxes":
+    (n, 7) fp64 lidar storage boxes of the Cars, "dontcare": count}}."""
+    for sub in ("velodyne", "label_2", "calib"):
+        os.makedirs(os.path.join(root, "training", sub), exist_ok=True)
+    os.makedirs(os.path.join(root, "ImageSets"), exist_ok=True)
+    p2, r0, tr = kitti_calib()
+    p_other = p2.copy()
+    p_other[0, 3] = 0.0
+    calib = [("P0", p_other), ("P1", p_other), ("P2", p2), ("P3", p2),
+             ("R0_rect", r0), ("Tr_velo_to_cam", tr),
+             ("Tr_imu_to_velo", np.concatenate(
+                 [_rot(2, 0.0083), [[-0.81], [0.32], [-0.80]]], 1))]
+    calib_text = "".join(f"{k}: " + " ".join(f"{v:.12e}" for v in m.ravel())
+                         + "\n" for k, m in calib)
+    planted = {}
+    ids = [f"{i:06d}" for i in range(n_train + n_val)]
+    for i, idx in enumerate(ids):
+        rng = np.random.RandomState(i)
+        boxes = _kitti_boxes(rng, rng.randint(cars[0], cars[1] + 1))
+        n_dc = rng.randint(1, 4)
+        _kitti_scan(rng, boxes.astype(np.float32), n_points).tofile(
+            os.path.join(root, "training", "velodyne", f"{idx}.bin"))
+        with open(os.path.join(root, "training", "label_2",
+                               f"{idx}.txt"), "w") as f:
+            f.write("\n".join(_kitti_label_rows(boxes, p2, r0, tr, rng,
+                                                n_dc)) + "\n")
+        with open(os.path.join(root, "training", "calib",
+                               f"{idx}.txt"), "w") as f:
+            f.write(calib_text)
+        planted[idx] = {"boxes": boxes, "dontcare": n_dc}
+    for split, part in (("train", ids[:n_train]), ("val", ids[n_train:])):
+        with open(os.path.join(root, "ImageSets", f"{split}.txt"), "w") as f:
+            f.write("".join(f"{idx}\n" for idx in part))
+    return planted
+
+
+def _yaw_quat(yaw: float):
+    """(w, x, y, z) of a rotation by ``yaw`` about z."""
+    return [float(np.cos(yaw / 2)), 0.0, 0.0, float(np.sin(yaw / 2))]
+
+
+def _rotmat_quat(r: np.ndarray):
+    """(w, x, y, z) of a 3x3 rotation matrix."""
+    t = np.trace(r)
+    if t > 0:
+        s = np.sqrt(t + 1.0) * 2
+        return [0.25 * s, (r[2, 1] - r[1, 2]) / s, (r[0, 2] - r[2, 0]) / s,
+                (r[1, 0] - r[0, 1]) / s]
+    i = int(np.argmax(np.diag(r)))
+    j, k = (i + 1) % 3, (i + 2) % 3
+    s = np.sqrt(r[i, i] - r[j, j] - r[k, k] + 1.0) * 2
+    q = [0.0] * 4
+    q[0] = (r[k, j] - r[j, k]) / s
+    q[i + 1] = 0.25 * s
+    q[j + 1] = (r[j, i] + r[i, j]) / s
+    q[k + 1] = (r[k, i] + r[i, k]) / s
+    return [float(v) for v in q]
+
+
+# nuScenes: the raw categories of the 10 detection classes (through the
+# converter's NAME_MAPPING), their (w, l, h) in metres and an attribute
+NUSCENES_CATEGORIES = (
+    ("vehicle.car", (1.9, 4.6, 1.7), "vehicle.moving"),
+    ("vehicle.truck", (2.5, 6.9, 2.8), "vehicle.parked"),
+    ("vehicle.construction", (2.8, 6.4, 3.2), "vehicle.stopped"),
+    ("vehicle.bus.rigid", (2.9, 11.0, 3.5), "vehicle.moving"),
+    ("vehicle.trailer", (2.3, 12.3, 3.9), "vehicle.parked"),
+    ("movable_object.barrier", (2.5, 0.5, 1.0), ""),
+    ("vehicle.motorcycle", (0.8, 2.1, 1.5), "cycle.with_rider"),
+    ("vehicle.bicycle", (0.6, 1.7, 1.3), "cycle.without_rider"),
+    ("human.pedestrian.adult", (0.7, 0.7, 1.8), "pedestrian.moving"),
+    ("movable_object.trafficcone", (0.4, 0.4, 1.1), ""),
+)
+NUSCENES_CAMERAS = ("CAM_FRONT", "CAM_FRONT_RIGHT", "CAM_FRONT_LEFT",
+                    "CAM_BACK", "CAM_BACK_LEFT", "CAM_BACK_RIGHT")
+NUSCENES_CAMERA_YAW = (0.0, -0.96, 0.96, np.pi, 1.92, -1.92)
+NUSCENES_LIDAR_HZ, NUSCENES_KEY_HZ, NUSCENES_CAMERA_HZ = 20, 2, 12
+NUSCENES_LIDAR = ((0.943713, 0.0, 1.84023), -1.5708)   # translation, yaw
+NUSCENES_POINTS = 34720
+
+
+def _nuscenes_ego(t: float, heading0: float, origin):
+    """The ego pose at ``t`` s: a 6 m/s drive that turns at 0.05 rad/s
+    -> (translation (3,), yaw)."""
+    yaw = heading0 + 0.05 * t
+    v, w = 6.0, 0.05
+    x = origin[0] + v / w * (np.sin(yaw) - np.sin(heading0))
+    y = origin[1] - v / w * (np.cos(yaw) - np.cos(heading0))
+    return np.array([x, y, 0.0]), yaw
+
+
+def _nuscenes_sweep_points(rng, boxes_lidar, n):
+    """``n`` (x, y, z, intensity, ring) float32 lidar points: road returns
+    around the sensor and up to 120 returns inside each box (lidar-frame
+    (cx, cy, cz, w, l, h, yaw), centre z) in place of road returns."""
+    objs = []
+    for b in boxes_lidar:
+        m = int(rng.randint(20, 120))
+        local = rng.uniform(-0.5, 0.5, (m, 3)) * b[3:6]
+        c, s = np.cos(b[6]), np.sin(b[6])
+        xy = local[:, :2] @ np.array([[c, s], [-s, c]]) + b[:2]
+        objs.append(np.concatenate([xy, local[:, 2:] + b[2],
+                                    rng.uniform(0, 1, (m, 1)),
+                                    rng.randint(0, 32, (m, 1))], 1))
+    n_road = max(n - sum(len(o) for o in objs), 0)
+    r = rng.uniform(2.0, 52.0, n_road)
+    a = rng.uniform(-np.pi, np.pi, n_road)
+    road = np.stack([r * np.cos(a), r * np.sin(a),
+                     rng.normal(-1.84, 0.02, n_road),
+                     rng.uniform(0, 1, n_road),
+                     rng.randint(0, 32, n_road)], 1)
+    return np.concatenate([road] + objs)[:n].astype(np.float32)
+
+
+def write_nuscenes_raw(root: str, n_scenes: int = 2, key_frames: int = 4,
+                       anns: int = 40, max_sweeps: int = 10,
+                       n_points: int = NUSCENES_POINTS):
+    """nuScenes' raw layout under ``root`` for ``cli.create_data
+    nuscenes``: the JSON tables under ``root/v1.0-trainval`` (log, scene,
+    sensor, calibrated_sensor, ego_pose, sample, sample_data,
+    sample_annotation, instance, category, attribute), ``n_scenes``
+    scenes of ``key_frames`` key frames at 2 Hz, LIDAR_TOP at 20 Hz from
+    ``max_sweeps`` sweeps before the first key frame (``n_points`` float32
+    points of 5 values a file, ``samples/`` for key frames and
+    ``sweeps/`` between them), 6 cameras at 12 Hz with intrinsics and
+    poses (no image files), ``anns`` annotations a key frame over the 10
+    classes in instance chains with constant global velocities and
+    attributes, every 7th with no lidar and no radar point, and
+    ``val_scenes.txt`` naming the last scene. The ego and the lidar
+    rotate about z only.
+
+    Returns the truth, by key-frame sample token: {"scene", "boxes" (n,
+    7) lidar-frame (cx, cy, cz, l, w, h, yaw), "velocity" (n, 2) in the
+    lidar frame, "valid" (n,), "names" and "sweeps": the key frame's
+    lidar chain, newest first, as (sample_data token, sensor2lidar
+    rotation (3, 3), translation (3,)) computed from the planted poses}.
+    """
+    tdir = os.path.join(root, "v1.0-trainval")
+    for sub in (tdir, os.path.join(root, "samples", "LIDAR_TOP"),
+                os.path.join(root, "sweeps", "LIDAR_TOP")):
+        os.makedirs(sub, exist_ok=True)
+    rng = np.random.RandomState(0)
+    t = {k: [] for k in ("log", "scene", "sensor", "calibrated_sensor",
+                         "ego_pose", "sample", "sample_data",
+                         "sample_annotation", "instance", "category",
+                         "attribute")}
+    for i, (cat, _, _) in enumerate(NUSCENES_CATEGORIES):
+        t["category"].append({"token": f"cat{i}", "name": cat,
+                              "description": ""})
+    attrs = sorted({a for _, _, a in NUSCENES_CATEGORIES if a})
+    for a in attrs:
+        t["attribute"].append({"token": f"attr_{a}", "name": a,
+                               "description": ""})
+    (l_t, l_yaw) = NUSCENES_LIDAR
+    t["sensor"].append({"token": "se_lidar", "channel": "LIDAR_TOP",
+                        "modality": "lidar"})
+    t["calibrated_sensor"].append({
+        "token": "cs_lidar", "sensor_token": "se_lidar",
+        "translation": list(l_t), "rotation": _yaw_quat(l_yaw),
+        "camera_intrinsic": []})
+    # camera optics: x_cam = -y_ego, y_cam = -z_ego, z_cam = x_ego, then
+    # the mount's yaw about the ego z axis and a 1 degree pitch
+    optics = np.array([[0.0, -1.0, 0.0], [0.0, 0.0, -1.0], [1.0, 0.0, 0.0]])
+    for c, (cam, cyaw) in enumerate(zip(NUSCENES_CAMERAS,
+                                        NUSCENES_CAMERA_YAW)):
+        cam2ego = _rot(2, cyaw) @ _rot(1, 0.0175) @ optics.T
+        K = [[1266.4 - 3 * c, 0.0, 816.3 + c], [0.0, 1266.4 - 3 * c, 491.5],
+             [0.0, 0.0, 1.0]]
+        t["sensor"].append({"token": f"se_{cam}", "channel": cam,
+                            "modality": "camera"})
+        t["calibrated_sensor"].append({
+            "token": f"cs_{cam}", "sensor_token": f"se_{cam}",
+            "translation": [1.5 * np.cos(cyaw), 0.5 * np.sin(cyaw), 1.51],
+            "rotation": _rotmat_quat(cam2ego), "camera_intrinsic": K})
+    R_cs, t_cs = _rot(2, l_yaw), np.asarray(l_t)
+    truth = {}
+    names_out = []
+    dt_key = 1.0 / NUSCENES_KEY_HZ
+    for s in range(n_scenes):
+        scene = f"scene-{s + 1:04d}"
+        names_out.append(scene)
+        t0_us = 1_532_402_900_000_000 + s * 100_000_000
+        origin = rng.uniform(-400, 400, 2)
+        heading0 = rng.uniform(-np.pi, np.pi)
+        t["log"].append({"token": f"log{s}", "logfile": "", "vehicle": "n",
+                         "date_captured": "", "location": "synthetic"})
+        keys = [f"s{s}_{k}" for k in range(key_frames)]
+        t["scene"].append({
+            "token": f"sc{s}", "name": scene, "log_token": f"log{s}",
+            "nbr_samples": key_frames, "first_sample_token": keys[0],
+            "last_sample_token": keys[-1], "description": ""})
+        # the objects: global start pose, velocity and class, ~anns of them
+        ego0, _ = _nuscenes_ego(0.0, heading0, origin)
+        obj = []
+        for j in range(anns):
+            ci = j % len(NUSCENES_CATEGORIES)
+            cat, wlh, attr = NUSCENES_CATEGORIES[ci]
+            wlh = np.asarray(wlh) * rng.uniform(0.9, 1.1, 3)
+            r, a = rng.uniform(6.0, 45.0), rng.uniform(-np.pi, np.pi)
+            still = cat.startswith("movable") or attr.endswith("parked")
+            # on the road (the ego's z = 0), centre z at half the height
+            obj.append(dict(
+                ci=ci, wlh=wlh,
+                p0=ego0 + np.array([r * np.cos(a), r * np.sin(a),
+                                    wlh[2] / 2]),
+                v=np.zeros(3) if still else np.r_[rng.uniform(-4, 4, 2), 0],
+                yaw=rng.uniform(-np.pi, np.pi), attr=attr,
+                empty=(j % 7 == 3)))
+            t["instance"].append({
+                "token": f"in{s}_{j}", "category_token": f"cat{ci}",
+                "nbr_annotations": key_frames,
+                "first_annotation_token": f"a{s}_0_{j}",
+                "last_annotation_token": f"a{s}_{key_frames - 1}_{j}"})
+
+        def boxes_at(tt, ego_t, ego_yaw):
+            """Every object's lidar-frame box at time tt from the ego
+            pose: (n, 7) (cx, cy, cz, l, w, h, yaw) and its velocity."""
+            R_e = _rot(2, ego_yaw)
+            out, vel = [], []
+            for o in obj:
+                ctr = R_cs.T @ (R_e.T @ (o["p0"] + o["v"] * tt - ego_t)
+                                - t_cs)
+                yaw = o["yaw"] - ego_yaw - l_yaw
+                yaw = (yaw + np.pi) % (2 * np.pi) - np.pi
+                out.append([*ctr, o["wlh"][1], o["wlh"][0], o["wlh"][2],
+                            yaw])
+                vel.append((R_cs.T @ R_e.T @ o["v"])[:2])
+            return np.asarray(out), np.asarray(vel)
+
+        # LIDAR_TOP at 20 Hz from max_sweeps sweeps before the first key
+        # frame; every 10th reading is a key frame
+        per_key = NUSCENES_LIDAR_HZ // NUSCENES_KEY_HZ
+        n_lidar = max_sweeps + per_key * (key_frames - 1) + 1
+        lidar_tokens, poses = [], {}
+        for n in range(n_lidar):
+            tt = (n - max_sweeps) / NUSCENES_LIDAR_HZ
+            us = t0_us + int(round(tt * 1e6))
+            ego_t, ego_yaw = _nuscenes_ego(tt, heading0, origin)
+            key = n >= max_sweeps and (n - max_sweeps) % per_key == 0
+            k = (n - max_sweeps) // per_key
+            tok = f"sd{s}_lidar_{n}"
+            sub = "samples" if key else "sweeps"
+            fname = f"{sub}/LIDAR_TOP/{scene}__LIDAR_TOP__{us}.pcd.bin"
+            t["ego_pose"].append({"token": f"ep_{tok}", "timestamp": us,
+                                  "translation": ego_t.tolist(),
+                                  "rotation": _yaw_quat(ego_yaw)})
+            sample = keys[k] if key else keys[min(max(k + 1, 0),
+                                                  key_frames - 1)]
+            t["sample_data"].append({
+                "token": tok, "sample_token": sample,
+                "calibrated_sensor_token": "cs_lidar",
+                "ego_pose_token": f"ep_{tok}", "timestamp": us,
+                "is_key_frame": bool(key), "filename": fname,
+                "fileformat": "pcd", "height": 0, "width": 0,
+                "prev": lidar_tokens[-1] if lidar_tokens else "",
+                "next": ""})
+            if lidar_tokens:
+                t["sample_data"][-2]["next"] = tok
+            lidar_tokens.append(tok)
+            poses[tok] = (ego_t, ego_yaw)
+            bl, _ = boxes_at(tt, ego_t, ego_yaw)
+            live = [b for b, o in zip(bl, obj) if not o["empty"]]
+            _nuscenes_sweep_points(rng, live, n_points).tofile(
+                os.path.join(root, fname))
+        for k, key in enumerate(keys):
+            tt = k * dt_key
+            us = t0_us + int(round(tt * 1e6))
+            t["sample"].append({
+                "token": key, "timestamp": us, "scene_token": f"sc{s}",
+                "prev": keys[k - 1] if k else "",
+                "next": keys[k + 1] if k + 1 < key_frames else ""})
+            ego_t, ego_yaw = _nuscenes_ego(tt, heading0, origin)
+            R_ek = _rot(2, ego_yaw)
+            boxes, vel = boxes_at(tt, ego_t, ego_yaw)
+            valid = []
+            for j, o in enumerate(obj):
+                n_l = 0 if o["empty"] else int(rng.randint(1, 400))
+                n_r = 0 if o["empty"] else int(rng.randint(0, 6))
+                valid.append(n_l + n_r > 0)
+                t["sample_annotation"].append({
+                    "token": f"a{s}_{k}_{j}", "sample_token": key,
+                    "instance_token": f"in{s}_{j}",
+                    "translation": (o["p0"] + o["v"] * tt).tolist(),
+                    "size": o["wlh"].tolist(),
+                    "rotation": _yaw_quat(o["yaw"]),
+                    "prev": f"a{s}_{k - 1}_{j}" if k else "",
+                    "next": f"a{s}_{k + 1}_{j}" if k + 1 < key_frames
+                    else "", "num_lidar_pts": n_l, "num_radar_pts": n_r,
+                    "visibility_token": "4",
+                    "attribute_tokens": [f"attr_{o['attr']}"]
+                    if o["attr"] else []})
+            key_tok = lidar_tokens[max_sweeps + k * per_key]
+            chain = []
+            for back in range(1, max_sweeps + 1):
+                tok = lidar_tokens[max_sweeps + k * per_key - back]
+                sw_t, sw_yaw = poses[tok]
+                R_es = _rot(2, sw_yaw)
+                rot = R_cs.T @ R_ek.T @ R_es @ R_cs
+                trans = R_cs.T @ (R_ek.T @ (R_es @ t_cs + sw_t - ego_t)
+                                  - t_cs)
+                chain.append((tok, rot, trans))
+            truth[key] = {
+                "scene": scene, "boxes": boxes, "velocity": vel,
+                "valid": np.asarray(valid), "lidar_token": key_tok,
+                "names": [NUSCENES_CATEGORIES[o["ci"]][0] for o in obj],
+                "sweeps": chain}
+        # cameras at 12 Hz over the same span; the reading nearest each
+        # key frame is that camera's key frame
+        span = (n_lidar - 1) / NUSCENES_LIDAR_HZ
+        n_cam = int(span * NUSCENES_CAMERA_HZ) + 1
+        for cam in NUSCENES_CAMERAS:
+            prev = ""
+            key_at = {int(round((max_sweeps / NUSCENES_LIDAR_HZ + k * dt_key)
+                                * NUSCENES_CAMERA_HZ)): k
+                      for k in range(key_frames)}
+            for n in range(n_cam):
+                tt = n / NUSCENES_CAMERA_HZ - max_sweeps / NUSCENES_LIDAR_HZ
+                us = t0_us + int(round(tt * 1e6))
+                ego_t, ego_yaw = _nuscenes_ego(tt, heading0, origin)
+                tok = f"sd{s}_{cam}_{n}"
+                k = key_at.get(n)
+                sub = "samples" if k is not None else "sweeps"
+                t["ego_pose"].append({"token": f"ep_{tok}", "timestamp": us,
+                                      "translation": ego_t.tolist(),
+                                      "rotation": _yaw_quat(ego_yaw)})
+                near = min(range(key_frames),
+                           key=lambda kk: abs(kk * dt_key - tt))
+                t["sample_data"].append({
+                    "token": tok, "sample_token": keys[
+                        k if k is not None else near],
+                    "calibrated_sensor_token": f"cs_{cam}",
+                    "ego_pose_token": f"ep_{tok}", "timestamp": us,
+                    "is_key_frame": k is not None,
+                    "filename": f"{sub}/{cam}/{scene}__{cam}__{us}.jpg",
+                    "fileformat": "jpg", "height": 900, "width": 1600,
+                    "prev": prev, "next": ""})
+                if prev:
+                    t["sample_data"][-2]["next"] = tok
+                prev = tok
+    for name, rows in t.items():
+        with open(os.path.join(tdir, f"{name}.json"), "w") as f:
+            json.dump(rows, f)
+    with open(os.path.join(root, "val_scenes.txt"), "w") as f:
+        f.write(f"{names_out[-1]}\n")
+    return truth

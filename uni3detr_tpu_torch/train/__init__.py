@@ -1,1 +1,3 @@
-"""Training of the port: losses, the train step, decode and post-processing."""
+"""Training of the port: losses, the train step, decode and
+post-processing, checkpoints and the import of a reference checkpoint
+(``torch_import``)."""

@@ -79,11 +79,13 @@ def restore(model: nn.Module, tree: Dict,
     """Load a loaded tree into ``model`` and, when given, ``opt`` and
     ``generator`` (eval restores the model alone). The optimizer must be
     built over this model's parameters, with the same groups; its state
-    moves to their device."""
+    moves to their device. A tree without an optimizer (an imported
+    reference checkpoint, ``cli.import_ckpt``) leaves ``opt`` as built,
+    at step 0."""
     model.load_state_dict(tree["model"], strict=True)
-    if opt is not None:
+    if opt is not None and "optimizer" in tree:
         opt.load_state_dict(tree["optimizer"])
-    if generator is not None:
+    if generator is not None and "generator" in tree:
         generator.set_state(tree["generator"])
 
 

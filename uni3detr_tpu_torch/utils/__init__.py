@@ -1,1 +1,3 @@
-"""Host-side utilities of the port."""
+"""Host-side utilities of the port: the BEV drawings of ``cli.test
+--show-dir`` (``visualize``) and FLOPs, traces and step timing
+(``profiling``)."""
