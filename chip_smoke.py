@@ -321,13 +321,42 @@ written under ``build/``, each phase printing its host seconds:
     over two different scenes; ``utils.profiling.trace_context`` over
     one flagship forward, its trace listing K1 4, K2 17, K3 3 and K4 1.
 
+Then the config options that no shipped preset uses (``options``), at
+full width, each phase printing its host seconds:
+
+67. N3 (``u3d_soft_nms``) on the decoded boxes of a random-weight
+    forward at the flagship's eval batch (4 scenes, 1000 boxes of 10
+    classes) and at ScanNet's (1 scene, 5000 boxes of 18 classes):
+    ``post_process`` with ``soft_nms`` under
+    ``set_sync_debug_mode("error")`` launches N1's matrix and N3 once,
+    then N3 against ``soft_nms_plain`` on the same matrix: the keep masks
+    and the kept boxes' steps equal (no near-tie flip), the scores within
+    SOFT_SCORE_RTOL; kernel, device and plain ms, the bound and the
+    serial bound (the longest class loop's steps x N3's least step);
+68. ``cli.train configs/uni3detr/uni3detr_sunrgbd.py --max-steps 3`` with
+    ``model.iou_cost_type=rdiou model.iou_loss_type=rdiou
+    model.post_processing=soft_nms`` on a written SUN RGB-D root at B=4
+    (launches as phase 54's steps, finite losses), ``cli.test`` on its
+    ``latest`` with soft-NMS (N1's matrix and N3 once a batch, a metric),
+    and one direct step with the ``axis_aligned_iou3d`` cost;
+69. ``encoder_impl="dense"`` at ``uni3detr_sunrgbd``'s width: the dense
+    encoder against the gather route (no budgets) in fp32 at its active
+    sites, then the bf16 forward and two B=4 train steps (ms, peak
+    memory; K4, and K12 in training, the only port kernels launched);
+70. ``ov_uni3detr_sunrgbd_mm`` with two sweeps under ``sweep_cat`` and
+    ``with_time``: two steps each at B=4 (8 images a batch and
+    ``sweep_times``), launches by ri as phase 45's, the gradient at the
+    sweep conv;
+71. VoVNet-V2-39 at B=1 on a 480x640 image: bf16 on the card against
+    fp32 on the CPU, ms.
+
 Then one JSON line of the kernels (launches summed over every path's
 run: the inference and train runs of all six Lidar presets, the three
 OV presets' inference and train runs, K11's own call, the three
 ``cli.test`` runs and the train CLI's runs (phases 54, 55, 57 and 58:
 their steps and evals; phase 56's ``cli.test``), every rank's runs
-of phases 59-62 and the runs of phases 63-66, each read right after its
-run; times, errors,
+of phases 59-62 and the runs of phases 63-66 and 67-70, each read right
+after its run; times, errors,
 ``bound_ms`` with
 ``bound_by``, ``library_ms`` (null where no single PyTorch call
 computes the kernel's function) and, for the convs, ``gemm_ms``, at the
@@ -336,8 +365,8 @@ for K7/K10/K12, per call for K11; N1 and N2 at ``uni3detr_scannet``'s
 5000 boxes, per scene, N1's bitmask launch with its matrix launch's
 ``matrix_ms`` and ``matrix_bound_ms`` beside it; N1's matrix form at the
 KITTI merge's 150 boxes and its two-set forms at the largest KITTI eval
-scene, per call; its BEV bitmask at phase 50's batch, per call), the
-card line, and the
+scene, per call; its BEV bitmask at phase 50's batch, per call; N3 at
+ScanNet's 5000 boxes of 18 classes, per scene), the card line, and the
 result line ``{"ok": true, "device": {...}}``. The smoke's wall time is
 printed before them. There is no CPU fallback: without a CUDA device the
 script fails before any phase, as it does without cv2 and PIL (the test
@@ -2580,21 +2609,22 @@ def sync_debug_inference(mode):
 def infer_per_batch(mc):
     """Kernel launches of one eval batch of a Lidar-point model through
     ``run_inference``: the forward's K1-K4, then N1's NMS bitmask and N2,
-    or with box merging N1's matrix form."""
+    with box merging N1's matrix form, with soft-NMS N1's matrix form and
+    N3."""
     subm, strided = conv_cases(mc)
-    post = {"iou3d_rotated_matrix": 1} \
-        if mc.post_processing == "box_merging" \
-        else {"iou3d_rotated": 1, "nms_greedy": 1}
+    post = {"box_merging": {"iou3d_rotated_matrix": 1},
+            "soft_nms": {"iou3d_rotated_matrix": 1, "soft_nms": 1}}.get(
+        mc.post_processing, {"iou3d_rotated": 1, "nms_greedy": 1})
     return {"match_positions": len(mc.encoder_channels),
             "gather_conv": sum(c[-1] for c in subm),
             "gather_conv_ids": len(strided), "fps_pair": 1, **post}
 
 
 def cli_run(torch, tag, config, root, n_scenes, per_batch, ckpt=None,
-            tta=False, extra=(), metric_kind="indoor"):
-    """``cli.test CONFIG [CKPT] --cfg-options data.data_root=ROOT --eval
-    bbox --out ROOT/TAG.pkl`` (with ``--tta`` if asked, then ``extra``)
-    in this process,
+            tta=False, extra=(), metric_kind="indoor", cfg_options=()):
+    """``cli.test CONFIG [CKPT] --cfg-options data.data_root=ROOT
+    [cfg_options] --eval bbox --out ROOT/TAG.pkl`` (with ``--tta`` if
+    asked, then ``extra``) in this process,
     decoding, post-processing and the merge under
     ``torch.cuda.set_sync_debug_mode("error")`` (``run_inference``'s
     ``sync_debug_mode``, set by :func:`sync_debug_inference`): the launches of every kernel wrapper over
@@ -2612,8 +2642,8 @@ def cli_run(torch, tag, config, root, n_scenes, per_batch, ckpt=None,
 
     out = os.path.join(root, f"{tag}.pkl")
     argv = [config] + ([ckpt] if ckpt else []) + [
-        "--cfg-options", f"data.data_root={root}", "--eval", "bbox",
-        "--out", out] + (["--tta"] if tta else []) + list(extra)
+        "--cfg-options", f"data.data_root={root}", *cfg_options, "--eval",
+        "bbox", "--out", out] + (["--tta"] if tta else []) + list(extra)
     wrappers = kernel_wrappers()
     for fn in wrappers.values():
         fn.launches = 0
@@ -4181,6 +4211,463 @@ def onramps(torch, dev):
     return runs
 
 
+OPTIONS_DIR = os.path.join(_ROOT, "build", "chip_smoke_options")
+# phase 67: (preset, eval batch) of N3's shapes; decoded boxes a scene are
+# the preset's max_num (1000 of 10 classes, 5000 of 18)
+SOFT_NMS_SHAPES = (("uni3detr_sunrgbd", 4), ("uni3detr_scannet", 1))
+SOFT_SCORE_RTOL = 1e-6
+# N3: fp32 operations a live box and step: the argmax compare, and while
+# the step keeps a box the square, the division, exp, the product and the
+# select of the decay
+SOFT_OPS_PER_BOX_STEP = 6
+SOFT_STEP_BOXES = 256     # phase 67's serial-step probe: one box a thread
+OPT_TRAIN_SCENES, OPT_VAL_SCENES, OPT_STEPS = 8, 4, 3   # phase 68
+OPT_TRAIN_OPTS = ["model.iou_cost_type=rdiou", "model.iou_loss_type=rdiou",
+                  "model.post_processing=soft_nms", "log_config.interval=1"]
+DENSE_RTOL, DENSE_ATOL = 2e-2, 2e-3       # phase 69, tests/test_sparse_conv.py's
+DENSE_STEPS = 2                            # phase 69: B=4 steps, the first warms
+SWEEPS, SWEEP_STEPS = 2, 2                 # phase 70
+VOV_SIZE = (480, 640)                      # phase 71: the OV configs' img_size
+VOV_RTOL = 5e-2      # phase 71: bf16 card vs fp32 CPU, of each stage's largest
+
+
+def soft_nms_roofline(B, N, kept, loops):
+    """N3: the kept boxes' IoU rows read once (``kept`` x N x 4 bytes), the
+    scores, labels and valid flags read and the score, keep and step
+    written (B N x 18 bytes); every block scans its N live scores once a
+    step (``kept`` steps that keep a box, each with the decay, and the
+    ``loops`` final steps that keep none) at SOFT_OPS_PER_BOX_STEP fp32
+    operations a box."""
+    return roofline(SOFT_OPS_PER_BOX_STEP * N * kept + N * loops,
+                    4 * kept * N + 18 * B * N, "fp32")
+
+
+def soft_nms_step_ms(torch, dev):
+    """N3's least time for one serial step (a block argmax, its two
+    barriers, the prune test and one IoU row): one scene and one class of
+    SOFT_STEP_BOXES boxes, one a thread of the block, on an IoU matrix of
+    zeros with every score above the prune level, so that every step
+    keeps a box; (t(n steps) - t(n / 2 steps)) / (n / 2), each t from
+    back-to-back launches, which cancels the launch. A class loop of k
+    steps takes at least k times this on the card, whatever its width."""
+    from uni3detr_tpu_torch.ops import nms
+    n = SOFT_STEP_BOXES
+    iou = torch.zeros((1, n, n), device=dev)
+    sc = torch.linspace(1.0, 0.5, n, device=dev)[None]
+    lab = torch.zeros((1, n), dtype=torch.int32, device=dev)
+    val = torch.ones((1, n), dtype=torch.uint8, device=dev)
+    t = {}
+    for k in (n // 2, n):
+        before = nms.soft_nms.launches
+        t[k] = back_to_back_ms(
+            torch, lambda: nms.soft_nms(iou, sc, lab, val, 1, 0.5, 0.0, k), 50)
+        if nms.soft_nms.launches - before != 51:
+            fail("N3's step timing: not one launch a call")
+    if not bool(nms.soft_nms(iou, sc, lab, val, 1, 0.5, 0.0, n)[1].all()):
+        fail("N3's step timing: a step kept no box")
+    return (t[n] - t[n // 2]) / (n // 2)
+
+
+def soft_nms_phase(torch, dev, report):
+    """Phase 67: N3 on the decoded boxes of a random-weight forward at
+    the flagship's eval batch (4 scenes, 1000 boxes of 10 classes) and at
+    ScanNet's (1 scene, 5000 boxes of 18 classes). The main path
+    (``post_process`` with ``soft_nms``, under
+    ``set_sync_debug_mode("error")``) launches N1's matrix and N3 once;
+    then N3 against ``soft_nms_plain`` on the same matrix: the keep masks
+    and each kept box's step (the kept indices in order) equal, the
+    scores within SOFT_SCORE_RTOL, the boxes whose step differs (a
+    near-tie flipped) counted and held to 0; kernel, device and plain
+    times, the bound, and the serial bound: the longest class loop's
+    steps (the kept ones and the last, which keeps none) times
+    :func:`soft_nms_step_ms`. The device time is N3's alone, back to back
+    on arguments already in its dtypes; the profiler's reading of N3 and
+    of the wrapper's casts is printed beside it (both 0: it traced no
+    kernel). Returns the main path's launches."""
+    import numpy as np
+    from uni3detr_tpu_torch.geom.boxes import bottom_center_boxes
+    from uni3detr_tpu_torch.geom.iou import iou3d_rotated_pairwise
+    from uni3detr_tpu_torch.ops import nms
+    from uni3detr_tpu_torch.presets import PRESETS
+    from uni3detr_tpu_torch.synthetic import clustered_scene
+    from uni3detr_tpu_torch.train.coder import (decode_predictions,
+                                                post_process)
+
+    wrappers = kernel_wrappers()
+    runs = []
+    step_ms = soft_nms_step_ms(torch, dev)
+    print(f"[soft-nms] N3 one serial step at least {step_ms * 1e3:.3f} us "
+          f"({SOFT_STEP_BOXES} boxes of one class, every step keeping one)")
+    for preset, B in SOFT_NMS_SHAPES:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(PRESETS[preset],
+                                  post_processing="soft_nms")
+        model = build_model(cfg).eval()
+        model.load_state_dict(_state_dict(torch, model), strict=True)
+        model.to(dev)
+        scenes = [clustered_scene(seed, cfg) for seed in range(B)]
+        pts = torch.from_numpy(np.concatenate([s[0] for s in scenes])).to(dev)
+        rnd = torch.from_numpy(np.concatenate([s[1] for s in scenes])).to(dev)
+        mask = torch.ones(pts.shape[:2], dtype=torch.bool, device=dev)
+        with torch.inference_mode():
+            dec = decode_predictions(model(pts, mask, rnd), cfg)
+        del model
+        boxes, scores, labels, valid = dec
+        N, C = scores.shape[1], cfg.num_classes
+        args = (scores, labels, valid, C, cfg.soft_nms_sigma,
+                cfg.soft_nms_prune, min(cfg.max_num, N))
+        torch.cuda.synchronize()
+        before = {k: fn.launches for k, fn in wrappers.items()}
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            post = post_process(*dec, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        run = {k: fn.launches - before[k] for k, fn in wrappers.items()}
+        want = dict.fromkeys(wrappers, 0)
+        want.update(iou3d_rotated_matrix=1, soft_nms=1)
+        if run != want:
+            fail(f"soft-NMS {preset}: launches {run} != {want}")
+        runs.append(run)
+        iou = iou3d_rotated_pairwise(
+            bottom_center_boxes(boxes)[..., :7].contiguous(), "bottom")
+        got = nms.soft_nms(iou, *args)
+        ref = nms.soft_nms_plain(iou, *args)
+        flipped = int((got[2] != ref[2]).sum())
+        kept = int(ref[1].sum())
+        err = ((got[0] - ref[0]).abs()
+               / ref[0].abs().clamp(min=1e-30)).max().item()
+        per_loop = torch.zeros(B, C, dtype=torch.long, device=dev)
+        per_loop.index_put_((torch.arange(B, device=dev)[:, None].expand(
+            B, N)[ref[1]], labels.long()[ref[1]]),
+            torch.ones(kept, dtype=torch.long, device=dev), accumulate=True)
+        if cfg.score_thr is None and cfg.num_thr is None and not (
+                torch.equal(post[3], got[1]) and torch.equal(post[1], got[0])):
+            fail(f"soft-NMS {preset}: post_process's output is not N3's")
+        ms = median_ms(torch, lambda: nms.soft_nms(iou, *args), 20)
+        cast = (scores.float(), labels.to(torch.int32),
+                valid.to(torch.uint8)) + args[3:]
+        before = nms.soft_nms.launches
+        dev_ms = back_to_back_ms(torch, lambda: nms.soft_nms(iou, *cast), 20)
+        if nms.soft_nms.launches - before != 21:
+            fail("N3's timing: not one launch a call")
+        prof = device_ms_by_name(torch, lambda: nms.soft_nms(iou, *args),
+                                 "u3d_soft_nms", 10)
+        pms = median_ms(torch, lambda: nms.soft_nms_plain(iou, *args), 2, 1)
+        bound = soft_nms_roofline(B, N, kept, B * C)
+        longest = int(per_loop.max())
+        chain_ms = (longest + 1) * step_ms
+        print(f"[soft-nms] {preset} B={B} N={N} C={C}: valid="
+              f"{int(valid.sum())} kept={kept}, the longest class loop "
+              f"{longest} steps; post_process launches N1 matrix "
+              f"{run['iou3d_rotated_matrix']} N3 {run['soft_nms']} (no host "
+              f"sync); N3 vs plain: keep equal "
+              f"{torch.equal(got[1], ref[1])}, steps equal "
+              f"{torch.equal(got[2], ref[2])}, {flipped} boxes at another "
+              f"step (near-tie flips), score max rel err {err:.3g} (rtol "
+              f"{SOFT_SCORE_RTOL}); ms={ms:.4f} device_ms={dev_ms:.4f} "
+              f"(20 back to back; profiler: N3 {prof[0]:.4f}, the wrapper's "
+              f"dtype casts {prof[1]:.4f}) plain_ms={pms:.4f} bound_ms="
+              f"{bound['bound_ms']:.5f} ({bound['bound_by']}; "
+              f"{bound['bytes']} bytes, {bound['ops']} operations) "
+              f"serial_bound_ms={chain_ms:.4f} ({longest + 1} steps x "
+              f"{step_ms * 1e3:.3f} us) binds "
+              f"{'serial' if chain_ms > bound['bound_ms'] else bound['bound_by']}"
+              f" ({time.perf_counter() - t0:.1f}s)")
+        if flipped or not torch.equal(got[1], ref[1]) or \
+                not err <= SOFT_SCORE_RTOL:
+            fail(f"N3 soft_nms differs from soft_nms_plain at {preset}")
+        if preset == "uni3detr_scannet":
+            _report_add(report, "soft_nms", err, ms, pms, 1, bound)
+            report["soft_nms"].update(device_ms=dev_ms,
+                                      serial_bound_ms=chain_ms)
+        del iou, got, ref, dec, post
+        torch.cuda.empty_cache()
+    return runs
+
+
+def rdiou_cli_phase(torch, dev):
+    """Phase 68: ``cli.train`` on ``uni3detr_sunrgbd.py`` at B=4 with the
+    RDIoU cost and loss and soft-NMS post-processing (``--max-steps 3``)
+    on a written SUN RGB-D root, each step's launches as phase 54's and
+    its loss finite; ``cli.test`` on its ``latest`` with soft-NMS (N1's
+    matrix and N3 once a batch, a metric); one direct ``train_step`` with
+    the ``axis_aligned_iou3d`` cost. Returns the launches of the runs."""
+    from uni3detr_tpu_torch.config_file import (build_model_config,
+                                                load_config,
+                                                merge_cfg_options)
+    from uni3detr_tpu_torch.presets import SUNRGBD
+    from uni3detr_tpu_torch.synthetic import (clustered_train_batch,
+                                              write_sunrgbd_root)
+    from uni3detr_tpu_torch.train.step import make_optimizer, train_step
+
+    root = os.path.join(OPTIONS_DIR, "sunrgbd")
+    classes = load_config(SUNRGBD_CONFIG).class_names
+    write_sunrgbd_root(root, SUNRGBD, classes, OPT_TRAIN_SCENES,
+                       num_points=CLI_POINTS, split="train")
+    write_sunrgbd_root(root, SUNRGBD, classes, OPT_VAL_SCENES,
+                       num_points=CLI_POINTS)
+    mc = build_model_config(merge_cfg_options(
+        load_config(SUNRGBD_CONFIG), [f"data.data_root={root}",
+                                      *OPT_TRAIN_OPTS]))
+    if (mc.iou_cost_type, mc.iou_loss_type, mc.post_processing) != (
+            "rdiou", "rdiou", "soft_nms"):
+        fail(f"options: the CLI's model config {mc}")
+    wd = os.path.join(OPTIONS_DIR, "rdiou_wd")
+    _, w = train_cli_run(torch, "options-train", SUNRGBD_CONFIG, root,
+                         ["--work-dir", wd, "--max-steps", str(OPT_STEPS),
+                          "--cfg-options", *OPT_TRAIN_OPTS], mc)
+    if len(w.steps) != OPT_STEPS:
+        fail(f"options-train: {len(w.steps)} steps")
+    train_log_check("options-train", wd, ())
+    runs = [w.launches()]
+    del w
+    torch.cuda.empty_cache()
+    run, _ = cli_run(torch, "options-test", SUNRGBD_CONFIG, root,
+                     OPT_VAL_SCENES, infer_per_batch(mc),
+                     os.path.join(wd, "latest"),
+                     cfg_options=["model.post_processing=soft_nms"])
+    runs.append(run)
+    cfg = dataclasses.replace(SUNRGBD, iou_cost_type="axis_aligned_iou3d")
+    model = build_model(cfg)
+    model.load_state_dict(_state_dict(torch, model), strict=True)
+    model.to(dev)
+    opt = make_optimizer(model, TRAIN_LR)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             clustered_train_batch(0, cfg, TRAIN_B).items()}
+    wrappers = kernel_wrappers()
+    before = {k: fn.launches for k, fn in wrappers.items()}
+    logs = train_step(model, opt, batch)
+    torch.cuda.synchronize()
+    run = {k: fn.launches - before[k] for k, fn in wrappers.items()}
+    print(f"[options-axis-aligned] one step at B={TRAIN_B}: total_loss="
+          f"{float(logs['total_loss']):.5f} grad_norm="
+          f"{float(logs['grad_norm']):.5f} launches {run}")
+    if run != train_per_step(cfg) or not math.isfinite(
+            float(logs["total_loss"])):
+        fail(f"options-axis-aligned: launches {run} or loss")
+    runs.append(run)
+    del model, opt, batch
+    torch.cuda.empty_cache()
+    return runs
+
+
+def dense_phase(torch, dev):
+    """Phase 69: ``encoder_impl="dense"`` at ``uni3detr_sunrgbd``'s full
+    width (its grid, one clustered scene's voxels): the dense encoder
+    against the gather route in fp32,
+    TF32 off, on the same weights, at the gather route's active sites
+    (the gather route without budgets, so that it cuts no site), within
+    DENSE_RTOL / DENSE_ATOL; then the bf16 dense model's forward on the
+    scene and DENSE_STEPS train steps at B=4: ms, peak memory and
+    launches (K4 and, in training, K12 alone). Returns the launches."""
+    import numpy as np
+    from uni3detr_tpu_torch.presets import SUNRGBD
+    from uni3detr_tpu_torch.synthetic import (clustered_scene,
+                                              clustered_train_batch)
+    from uni3detr_tpu_torch.train.step import make_optimizer, train_step
+
+    wrappers = kernel_wrappers()
+    cfg32 = dataclasses.replace(SUNRGBD, compute_dtype="float32")
+    gather = build_model(dataclasses.replace(
+        cfg32, encoder_budget_shrink=(1.0, 1.0, 1.0),
+        encoder_budget_caps=None)).eval()
+    sd = _state_dict(torch, gather)
+    gather.load_state_dict(sd, strict=True)
+    dense = build_model(dataclasses.replace(cfg32, encoder_impl="dense"))
+    dense.load_state_dict(sd, strict=True)
+    gather.to(dev)
+    dense.eval().to(dev)
+    pts, rnd = clustered_scene(0, SUNRGBD)
+    pts = torch.from_numpy(pts).to(dev)
+    mask = torch.ones(pts.shape[:2], dtype=torch.bool, device=dev)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with torch.inference_mode():
+        feats, coords, vmask = gather.voxelize(pts, mask)
+        vg, gg = gather.pts_middle_encoder(feats, coords, vmask)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vd, gd = dense.pts_middle_encoder(feats, coords, vmask)
+        torch.cuda.synchronize()
+        fp32_ms = (time.perf_counter() - t0) * 1e3
+        active = vg.abs().sum(-1) > 0
+        extra = int(((vd.abs().sum(-1) > 0) & ~active).sum())
+        bad = int(((vd - vg).abs() > DENSE_ATOL + DENSE_RTOL * vg.abs())[
+            active].sum())
+        err = (vd - vg)[active].abs().max().item()
+    torch.backends.cudnn.allow_tf32 = True
+    print(f"[dense] fp32 encoder, one scene: {int(vmask.sum())} voxels on "
+          f"the {tuple(SUNRGBD.grid_size)} grid -> {gd} volume; dense vs "
+          f"gather at the gather route's {int(active.sum())} active sites: "
+          f"max abs err {err:.3g}, {bad} entries outside rtol {DENSE_RTOL} "
+          f"atol {DENSE_ATOL}; {extra} sites only the dense route fills; "
+          f"dense encoder ms={fp32_ms:.3f} (one call, fp32, TF32 off)")
+    if gd != gg or bad or not bool(active.any()):
+        fail("dense encoder differs from the gather route")
+    del gather, dense, vg, vd, feats, coords, vmask
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(SUNRGBD, encoder_impl="dense")
+    model = build_model(cfg)
+    model.load_state_dict(sd, strict=True)
+    model.eval().to(dev)
+    rnd = torch.from_numpy(rnd).to(dev)
+    runs = []
+    with torch.inference_mode():
+        model(pts, mask, rnd)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = {k: fn.launches for k, fn in wrappers.items()}
+        t0 = time.perf_counter()
+        model(pts, mask, rnd)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    run = {k: fn.launches - before[k] for k, fn in wrappers.items()}
+    want = dict.fromkeys(wrappers, 0)
+    want["fps_pair"] = 1
+    print(f"[dense] bf16 forward, one scene (after a warm-up): ms={ms:.3f} "
+          f"peak_mem_bytes={torch.cuda.max_memory_allocated(dev)} launches "
+          f"{ {k: v for k, v in run.items() if v} }")
+    if run != want:
+        fail(f"dense forward: launches {run} != {want}")
+    runs.append(run)
+    opt = make_optimizer(model, TRAIN_LR)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             clustered_train_batch(0, cfg, TRAIN_B).items()}
+    want["auction_lap"] = 1
+    for i in range(DENSE_STEPS):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = {k: fn.launches for k, fn in wrappers.items()}
+        t0 = time.perf_counter()
+        logs = train_step(model, opt, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        run = {k: fn.launches - before[k] for k, fn in wrappers.items()}
+        loss = float(logs["total_loss"])
+        print(f"[dense] train step {i} at B={TRAIN_B}: total_loss={loss:.5f}"
+              f" grad_norm={float(logs['grad_norm']):.5f} ms={ms:.3f} "
+              f"peak_mem_bytes={torch.cuda.max_memory_allocated(dev)} "
+              f"launches {({k: v for k, v in run.items() if v})}"
+              + (" (warm-up)" if i == 0 else ""))
+        if run != want or not math.isfinite(loss):
+            fail(f"dense train step {i}: launches {run} or loss {loss}")
+        runs.append(run)
+    del model, opt, batch
+    torch.cuda.empty_cache()
+    return runs
+
+
+def ov_sweep_phase(torch, dev):
+    """Phase 70: ``ov_uni3detr_sunrgbd_mm`` with SWEEPS sweeps under
+    ``sweep_cat`` and under ``with_time``: SWEEP_STEPS train steps each
+    at the config's B=4 on ``synthetic.ov_train_batch`` (sweeps x cameras
+    images a scene and ``sweep_times``), ri drawn as phase 45 draws it:
+    finite losses, a non-zero gradient at ``trans_conv.0`` /
+    ``time_conv.0`` in every step that uses the image branch (ri 0, 2),
+    each step's launches phase 45's for its ri. Returns the launches."""
+    from uni3detr_tpu_torch.presets import OV_SUNRGBD_MM, OV_SUNRGBD_MM_LR_MULT
+    from uni3detr_tpu_torch.synthetic import ov_train_batch
+    from uni3detr_tpu_torch.train.step import make_optimizer, train_step
+
+    wrappers = kernel_wrappers()
+    runs = []
+    for fusion, conv in (("sweep_cat", "trans_conv"),
+                         ("with_time", "time_conv")):
+        cfg = dataclasses.replace(OV_SUNRGBD_MM, num_sweeps=SWEEPS,
+                                  sweep_fusion=fusion)
+        model = build_model(cfg)
+        model.load_state_dict(_state_dict(torch, model), strict=True)
+        model.to(dev)
+        opt = make_optimizer(model, OV_LR, lr_mult=OV_SUNRGBD_MM_LR_MULT)
+        batch_np, _ = ov_train_batch(0, cfg, OV_TRAIN_B["mm"])
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
+        gen = torch.Generator().manual_seed(OV_MODALITY_SEED)
+        weight = getattr(model.view_trans, conv)[0].weight
+        torch.cuda.reset_peak_memory_stats(dev)
+        reached = []
+        for i in range(SWEEP_STEPS):
+            before = {k: fn.launches for k, fn in wrappers.items()}
+            t0 = time.perf_counter()
+            logs = train_step(model, opt, batch, modality_generator=gen)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            ri = model.last_modality
+            run = {k: fn.launches - before[k] for k, fn in wrappers.items()}
+            g = 0.0 if weight.grad is None else weight.grad.abs().max().item()
+            loss = float(logs["total_loss"])
+            print(f"[ov-sweeps] {fusion} step {i} (ri {ri}) at B="
+                  f"{OV_TRAIN_B['mm']}, {tuple(batch['images'].shape)} "
+                  f"images: total_loss={loss:.5f} grad_norm="
+                  f"{float(logs['grad_norm']):.5f} |grad {conv}.0| max "
+                  f"{g:.3g} ms={ms:.3f} peak_mem_bytes="
+                  f"{torch.cuda.max_memory_allocated(dev)}")
+            if run != train_per_step(cfg, ri) or not math.isfinite(loss) or \
+                    (ri != 1 and not g > 0):
+                fail(f"ov-sweeps {fusion} step {i}: launches {run}, loss "
+                     f"{loss} or the {conv} gradient {g}")
+            reached.append(ri != 1)
+            runs.append(run)
+        if not any(reached):
+            fail(f"ov-sweeps {fusion}: no step used the image branch")
+        del model, opt, batch
+        torch.cuda.empty_cache()
+    return runs
+
+
+def vovnet_phase(torch, dev):
+    """Phase 71: VoVNet-V2-39 at B=1 on a VOV_SIZE image, seeded random
+    weights, eval: bf16 on the card against fp32 on the CPU, each stage
+    within VOV_RTOL of its largest value; ms on the card."""
+    import numpy as np
+    from uni3detr_tpu_torch.models.vovnet import VoVNet
+
+    model = VoVNet().eval()
+    model.load_state_dict(_state_dict(torch, model), strict=True)
+    x = torch.from_numpy(np.random.RandomState(0).rand(
+        1, 3, *VOV_SIZE).astype(np.float32))
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        ref = model(x)
+    cpu_s = time.perf_counter() - t0
+    model.to(dev)
+    xb = x.to(dev, torch.bfloat16)
+    with torch.inference_mode():
+        ms = median_ms(torch, lambda: model(xb), 5)
+        got = model(xb)
+    errs = [((g.float().cpu() - r).abs().max() / r.abs().max()).item()
+            for g, r in zip(got, ref)]
+    print(f"[vovnet] V2-39 B=1 {VOV_SIZE}: stages "
+          f"{[tuple(r.shape) for r in ref]}; bf16 card vs fp32 CPU max err "
+          f"of each stage's largest value {[f'{e:.3g}' for e in errs]} "
+          f"(rtol {VOV_RTOL}); card ms={ms:.3f}; CPU fp32 {cpu_s:.2f}s")
+    if not all(e <= VOV_RTOL for e in errs) or not all(
+            bool(torch.isfinite(g).all()) for g in got):
+        fail(f"vovnet: bf16 card vs fp32 CPU {errs}")
+    del model
+    torch.cuda.empty_cache()
+
+
+def options(torch, dev, report):
+    """Phases 67-71 (see the module docstring); returns their launches."""
+    shutil.rmtree(OPTIONS_DIR, ignore_errors=True)
+    runs, t = [], [time.perf_counter()]
+    runs += soft_nms_phase(torch, dev, report)
+    t.append(time.perf_counter())
+    for phase in (rdiou_cli_phase, dense_phase, ov_sweep_phase):
+        runs += phase(torch, dev)
+        t.append(time.perf_counter())
+    vovnet_phase(torch, dev)
+    t.append(time.perf_counter())
+    print("[options] s: " + ", ".join(
+        f"{n} {b - a:.1f}" for n, a, b in zip(
+            ("soft-nms", "rdiou-cli", "dense", "ov-sweeps", "vovnet"), t,
+            t[1:])))
+    shutil.rmtree(OPTIONS_DIR, ignore_errors=True)
+    return runs
+
+
 def main():
     import torch
 
@@ -4232,6 +4719,8 @@ def main():
     t.append(time.perf_counter())
     runs += onramps(torch, dev)
     t.append(time.perf_counter())
+    runs += options(torch, dev, report)
+    t.append(time.perf_counter())
     # the NMS kernels' numbers at uni3detr_scannet's 5000 boxes
     for name in ("iou3d_rotated", "nms_greedy"):
         report[name] = scan_reports[0][name]
@@ -4240,7 +4729,8 @@ def main():
         for k, v in run.items():
             launches[k] = launches.get(k, 0) + v
     names = ("flagship", "nuscenes", "scannet", "scannet_large", "kitti_car",
-             "kitti_3classes", "ov", "cli", "train_cli", "ddp", "onramps")
+             "kitti_3classes", "ov", "cli", "train_cli", "ddp", "onramps",
+             "options")
     print("[time] " + ", ".join(f"{n} {t[i + 1] - t[i]:.1f}s"
                                 for i, n in enumerate(names))
           + f"; the whole smoke {time.perf_counter() - T_START:.1f}s")
@@ -4262,6 +4752,7 @@ def main():
         "iou3d_rotated_sets": ("nms.cu", "uni3detr_tpu/geom/iou.py:120"),
         "iou_bev_rotated_sets": ("nms.cu", "uni3detr_tpu/geom/iou.py:107"),
         "iou_bev_rotated_mask": ("nms.cu", "uni3detr_tpu/geom/iou.py:107"),
+        "soft_nms": ("nms.cu", "uni3detr_tpu/ops/nms.py:103"),
     }
     kernels = [dict(name=name, route="cuda",
                     source=f"uni3detr_tpu_torch/csrc/{src}", replaces=rep,

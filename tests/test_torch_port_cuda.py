@@ -1683,3 +1683,26 @@ def test_trace_context_names_the_kernels(dev, tmp_path):
     traced = forward_launches(counts)
     assert traced == {k: launched[k] for k in traced}
     assert traced["gather_conv"] > 0 and traced["fps_pair"] == 1
+
+
+@pytest.mark.parametrize("N,C", [(1, 3), (65, 3), (1000, 10), (5000, 18)])
+def test_soft_nms_kernel_equals_plain(dev, N, C):
+    """N3 against ``soft_nms_plain`` on the card on N1's matrix: equal
+    keep masks and steps, scores bit-equal (the same fp32 operations in
+    the same order), one launch for every scene and class; scores
+    rounded to 1/8 so that many ties break by index."""
+    from uni3detr_tpu_torch.geom.iou import iou3d_rotated_pairwise
+    from uni3detr_tpu_torch.ops import nms
+
+    boxes, scores, labels, valid = (t.to(dev) for t in _nms_scenes(2, N))
+    labels = labels % C
+    for sc in (scores, torch.round(scores * 8) / 8):
+        iou = iou3d_rotated_pairwise(boxes)
+        before = nms.soft_nms.launches
+        got = nms.soft_nms(iou, sc, labels, valid, C, 0.3, 1e-3, N)
+        torch.cuda.synchronize()
+        assert nms.soft_nms.launches == before + 1
+        ref = nms.soft_nms_plain(iou, sc, labels, valid, C, 0.3, 1e-3, N)
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r)
+        assert got[1].sum() > 0

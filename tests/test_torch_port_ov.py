@@ -442,8 +442,9 @@ def test_sample_camera_features_matches_jax():
 def test_view_trans_sweep_modes_match_jax(fusion):
     """Two sweeps of one camera, a rotated point cloud (``uni_rot_aug``),
     each sweep mode; the JAX Dense of ``trans_conv`` / ``time_conv``
-    goes through the weight bridge (BN as the identity) and back:
-    fp32 1e-5."""
+    goes through the weight bridge to the port's 1x1 conv ``.0`` and
+    back (through the reference layout's BN ``.1``, given as the
+    identity, which the JAX importer folds): fp32 1e-5."""
     from uni3detr_tpu_torch.weights import _Out, _view_trans
     from uni3detr_tpu.train.torch_import import _SD, _import_view_trans
     rng = np.random.RandomState(30)
@@ -471,8 +472,19 @@ def test_view_trans_sweep_modes_match_jax(fusion):
     o = _Out()
     cfg = dataclasses.replace(OV_TINY, num_view_convs=1)
     _view_trans(o, cfg, v["params"], v["batch_stats"], "vt")
-    # the bridge is the importer's inverse here too
-    p_back, s_back = _import_view_trans(_SD(o.sd), cfg, "vt")
+    # the bridge is the importer's inverse here too, given the
+    # reference's BN after each sweep conv as the identity
+    ref_sd = dict(o.sd)
+    for name in ("trans_conv", "time_conv"):
+        if f"vt.{name}.0.bias" in ref_sd:
+            assert not any(k.startswith(f"vt.{name}.1.") for k in o.sd)
+            ones = np.ones(C, np.float32)
+            ref_sd.update({
+                f"vt.{name}.1.weight": ones, f"vt.{name}.1.bias": ones * 0,
+                f"vt.{name}.1.running_mean": ones * 0,
+                f"vt.{name}.1.running_var": ones * (
+                    np.float32(1.0) - np.float32(1e-5))})
+    p_back, s_back = _import_view_trans(_SD(ref_sd), cfg, "vt")
     for a, b in ((p_back, v["params"]), (s_back, v["batch_stats"])):
         jax.tree_util.tree_map(np.testing.assert_array_equal, a, b)
     tvt = TViewTrans((5, 4, 3), pr, embed_dims=C, num_convs=1,

@@ -803,28 +803,71 @@ def _resume(cfg, fresh, batch, tmp_path):
 
 @pytest.mark.parametrize("fusion", ["sweep_sum", "sweep_cat", "with_time"])
 def test_sweep_modes_train_or_refuse(fusion):
-    """With two sweeps, ``sweep_cat`` and ``with_time`` refuse to train
-    (the port's Conv + BN and the JAX package's Dense agree in eval
-    only); ``sweep_sum`` trains."""
+    """Every sweep fusion trains, and matches JAX: the view transformer
+    with two sweeps in train mode (``sweep_cat`` / ``with_time``: the 1x1
+    conv + ReLU, JAX's Dense) against JAX's, on the same weights: the
+    volume within 1e-5 of its largest value, the gradients of a weighted
+    sum of it with respect to every parameter within 1e-5 of the largest
+    gradient entry (the conv bias before the train-mode BN has gradient
+    0 in theory and rounding noise on both sides), and the BN batch
+    statistics within rtol 1e-5."""
+    from uni3detr_tpu.models.view_trans import Uni3DViewTrans as JVT
     from uni3detr_tpu_torch.models.view_trans import Uni3DViewTrans
+    from uni3detr_tpu_torch.weights import _view_trans
     rng = np.random.RandomState(6)
-    C = 6
-    vt = Uni3DViewTrans((5, 4, 3), (-2.0, 0.0, -1.0, 2.0, 4.0, 1.0),
-                        embed_dims=C, num_convs=1, num_sweeps=2,
-                        sweep_fusion=fusion).train()
-    feats = [_t(rng.randn(1, 2, 8, 10, C).astype(np.float32))]
-    depths = [torch.softmax(_t(rng.randn(1, 2, 8, 10, 5).astype(
-        np.float32)), -1)]
-    l2i = _t(np.broadcast_to(np.array(
+    C, S = 6, 2
+    pr = (-2.0, 0.0, -1.0, 2.0, 4.0, 1.0)
+    feats = [rng.randn(1, S, 8, 10, C).astype(np.float32)]
+    d = rng.randn(1, S, 8, 10, 5).astype(np.float32)
+    depths = [np.exp(d) / np.exp(d).sum(-1, keepdims=True)]
+    l2i = np.broadcast_to(np.array(
         [[9.0, 0, 5, 0], [0, 0, -9.0, 4], [0, 1, 0, 0.5], [0, 0, 0, 1]],
-        np.float32), (1, 2, 4, 4)).copy())
-    args = (feats, depths, l2i, torch.eye(3)[None], (8, 10))
-    if fusion == "sweep_sum":
-        assert vt(*args).shape == (1, 3, 4, 5, C)
-    else:
-        with pytest.raises(NotImplementedError, match="eval only"):
-            vt(*args)
-        assert vt.eval()(*args).shape == (1, 3, 4, 5, C)
+        np.float32), (1, S, 4, 4)).copy()
+    times = np.array([[0.0, 0.05]], np.float32)
+    args = (feats, depths, l2i, np.eye(3, dtype=np.float32)[None], (8, 10))
+    jvt = JVT(voxel_shape=(5, 4, 3), pc_range=pr, embed_dims=C, num_convs=1,
+              num_sweeps=S, sweep_fusion=fusion)
+    jargs = ([jnp.asarray(f) for f in feats],
+             [jnp.asarray(x) for x in depths], jnp.asarray(l2i),
+             jnp.asarray(args[3]), args[4])
+    v = jvt.init(jax.random.PRNGKey(0), *jargs, sweep_times=times)
+    w = rng.randn(1, 3, 4, 5, C).astype(np.float32)
+
+    def jfn(params):
+        out, upd = jvt.apply({"params": params,
+                              "batch_stats": v["batch_stats"]}, *jargs,
+                             train=True, sweep_times=times,
+                             mutable=["batch_stats"])
+        return jnp.sum(out * w), (out, upd["batch_stats"])
+
+    jgrad, (jout, jstats) = jax.grad(jfn, has_aux=True)(v["params"])
+    o = _Out()
+    _view_trans(o, dataclasses.replace(OV_TINY, num_view_convs=1),
+                v["params"], v["batch_stats"], "vt")
+    vt = Uni3DViewTrans((5, 4, 3), pr, embed_dims=C, num_convs=1,
+                        num_sweeps=S, sweep_fusion=fusion).train()
+    vt.load_state_dict({k[3:]: _t(a) for k, a in o.sd.items()}, strict=True)
+    out = vt([_t(f) for f in feats], [_t(x) for x in depths], _t(l2i),
+             _t(args[3]), args[4], sweep_times=_t(times))
+    assert out.shape == (1, 3, 4, 5, C)
+    _close(out, jout, rtol=0, atol=1e-5 * np.abs(np.asarray(jout)).max())
+    (out * _t(w)).sum().backward()
+    back = _Out()
+    grads = {k: v_ for k, v_ in jgrad.items()}
+    _view_trans(back, dataclasses.replace(OV_TINY, num_view_convs=1), grads,
+                jstats, "vt")
+    scale = max(np.abs(back.sd[f"vt.{n}"]).max()
+                for n, _ in vt.named_parameters())
+    for name, p in vt.named_parameters():
+        _close(p.grad, back.sd[f"vt.{name}"], rtol=0, atol=1e-5 * scale,
+               msg=name)
+    sd = vt.state_dict()
+    for k in ("running_mean", "running_var"):
+        _close(sd[f"conv_trans_head_1.1.{k}"],
+               back.sd[f"vt.conv_trans_head_1.1.{k}"])
+    if fusion != "sweep_sum":
+        assert not any(".1." in k and k.startswith(("trans", "time"))
+                       for k in sd)
 
 
 def test_ov_train_batch_keeps_the_boxes_the_camera_sees():

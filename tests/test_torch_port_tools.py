@@ -117,12 +117,17 @@ def _ov_state_dict(mode, rng):
 def test_load_reference_matches_jax_import_ov(mode):
     """OV-Uni3DETR: the CLIP text embeddings carried, the dead
     ``pts_conv`` / ``img_conv`` dropped, the sweep modes' conv + BN folded
-    as JAX folds them into its Dense."""
+    into the port's 1x1 conv ``.0`` as JAX folds them into its Dense (the
+    port has no ``.1`` there)."""
     jcfg, tcfg = _ov_cfgs(mode)
     sd = _ov_state_dict(mode, np.random.RandomState(2))
     want = state_dict_from_jax_ov(import_torch_state_dict_ov(sd, jcfg), jcfg)
     got = load_reference_state_dict(sd, tcfg)
     _assert_state_dicts_equal(got, want)
+    sweep = {"sweep_cat": "trans_conv", "with_time": "time_conv"}.get(mode)
+    if sweep:
+        assert f"view_trans.{sweep}.0.weight" in got
+        assert not any(k.startswith(f"view_trans.{sweep}.1.") for k in got)
     assert got["pts_bbox_head.zs_weights"].numpy().tobytes() == \
         sd["pts_bbox_head.zs_weights"].tobytes()
 
@@ -262,6 +267,8 @@ def _plain_cases(shape):
     bitmask = nms.overlap_mask(boxes, labels, 0.2)
     order = torch.arange(N).expand(B, N).contiguous()
     benefit = torch.rand(3, N // 4, N, generator=g)
+    soft = (iou.iou3d_rotated_pairwise(boxes), torch.rand(B, N, generator=g),
+            labels, torch.ones(B, N, dtype=torch.bool), 3, 0.3, 1e-3, N)
     return [
         ("match_positions", sc.match_positions_plain, (sid, qids, V)),
         ("gather_conv", sc.gather_conv_plain, (feats, nb, w)),
@@ -277,6 +284,7 @@ def _plain_cases(shape):
         ("iou_bev_rotated_mask", nms.overlap_mask_plain,
          (boxes, labels, 0.2, "bottom", True)),
         ("nms_greedy", nms.greedy_scan_plain, (bitmask, labels, order)),
+        ("soft_nms", nms.soft_nms_plain, soft),
         ("iou3d_rotated_matrix", iou.iou3d_rotated_pairwise, (boxes,)),
         ("iou3d_rotated_sets", iou.iou3d_rotated_sets, (boxes, boxes2)),
         ("iou_bev_rotated_sets", iou.iou_bev_rotated_sets, (boxes, boxes2)),

@@ -256,14 +256,34 @@ def test_uni3detr_loss_and_grads_match_jax(types):
 
 @pytest.mark.parametrize("name", ["rdiou", "axis_aligned_iou3d"])
 def test_unported_iou_types_raise(name):
+    """Once refused, now ported: the IoU slot of the matching cost of
+    these two types (the RDIoU penalty, minus the axis-aligned 3D IoU on
+    decoded boxes) and the whole matching cost within 1e-5 of JAX's, and
+    the assignment on it equal (scipy on both sides)."""
+    jcfg = dataclasses.replace(TINY, num_query=8, matcher="scipy",
+                               iou_cost_type=name)
     cfg = dataclasses.replace(tpresets.TINY_SYNTHETIC, num_query=8,
                               matcher="scipy", iou_cost_type=name)
     rng = np.random.RandomState(6)
-    outs = {k: _t(v[0]) for k, v in _head_outputs(rng, cfg, 1, 1, 8).items()}
+    outs = _head_outputs(rng, cfg, 1, 1, 8)
+    cls, box = outs["all_cls_scores"][0, 0], outs["all_bbox_preds"][0, 0]
     gt, labels, mask = _gt(rng, cfg, 1, 4, 3)
-    with pytest.raises(NotImplementedError):
-        tl.hungarian_assign(outs["all_cls_scores"], outs["all_bbox_preds"],
-                            _t(gt), _t(labels), _t(mask), cfg)
+    dec = tboxes.decode_boxes(_t(box))
+    _close(tl.iou_match_cost(dec, _t(gt[0]), cfg),
+           jl.iou_match_cost(jboxes.decode_boxes(jnp.asarray(box)), None,
+                             gt[0], None, jcfg), rtol=0, atol=1e-5)
+    _close(tl.match_cost(_t(cls), _t(box), _t(gt[0]), _t(labels[0]), cfg),
+           jl.iou_match_cost(jboxes.decode_boxes(jnp.asarray(box)), None,
+                             gt[0], None, jcfg) * jcfg.iou_cost_weight
+           + jl.focal_cls_cost(cls, labels[0]) * jcfg.cls_cost_weight
+           + jnp.sum(jnp.abs(box[:, None, :8] - jboxes.encode_boxes(
+               jnp.asarray(gt[0]))[None, :, :8]), -1) * jcfg.reg_cost_weight,
+           rtol=0, atol=1e-5)
+    ta = tl.hungarian_assign(_t(cls[None]), _t(box[None]), _t(gt), _t(labels),
+                             _t(mask), cfg)
+    ja = jl.hungarian_assign(cls, box, gt[0], labels[0], mask[0], jcfg)
+    np.testing.assert_array_equal(ta[0].numpy(), np.asarray(ja))
+    assert (ta >= 0).sum() == 3
 
 
 # -- optimizer ---------------------------------------------------------------

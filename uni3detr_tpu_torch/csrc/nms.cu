@@ -65,7 +65,27 @@
 // memory after each chunk, as mmcv's nms3d does, leaves every thread ~60
 // row loads a chunk in a chain: 1.29 ms against 0.19 ms device at ScanNet's
 // 5000 boxes on an H100 80GB HBM3 at 700 W, tools/time_nms.py.)
+//
+// N3 u3d_soft_nms_kernel replaces uni3detr_tpu/ops/nms.py::soft_nms3d
+// (:103-135), XLA's serial fori_loop under the soft_nms branch of
+// train/coder.py::post_process (:73-88, vmapped over the classes). One
+// block per (scene, class) holds the class's live scores in shared memory
+// in fp32 (other classes' and invalid boxes at -inf, as in JAX; 20 KB at
+// ScanNet's 5000 boxes). Each step is a block-wide argmax (ties to the
+// lower index, as jnp.argmax), the prune test, and, while the step keeps
+// a box, live[i] *= expf(-(iou[top, i]^2) / sigma) over the row of N1's
+// matrix, then live[top] = -inf. The loop stops at the first step that
+// keeps nothing: JAX's later steps change nothing. The products and the
+// division are rounded one by one (no FMA, a true division as JAX's),
+// so the kernel equals ops/nms.py::soft_nms_plain run on the card bit for
+// bit. Each box has one label, so no two blocks write one box: each block
+// initialises and writes the outputs of its class's boxes (block 0 those
+// of the boxes of no class), the kept box's score, keep flag and step.
+// Bound: the kept boxes' IoU rows read once (kept x N x 4 bytes) against
+// the chain of steps, each a reduction over N and two barriers; compacting
+// each class's boxes, or computing the rows on the fly, is left for later.
 #include <cuda_runtime.h>
+#include <math_constants.h>
 #include <stdint.h>
 
 namespace {
@@ -74,6 +94,7 @@ constexpr int NV = 8;          // max vertices of a rect-rect intersection
 constexpr int IOU_TILE = 64;   // boxes of a row block and of a column block
 constexpr int IOU_THREADS = 256;
 constexpr int SCAN_THREADS = 256;
+constexpr int SOFT_THREADS = 256;
 typedef unsigned long long u64;
 
 __device__ __forceinline__ float mul(float a, float b) {
@@ -391,6 +412,89 @@ __global__ void __launch_bounds__(SCAN_THREADS) u3d_nms_greedy_kernel(
   }
 }
 
+// (v2, i2) ranks above (v1, i1): a higher score, or an equal one at a
+// lower index.
+__device__ __forceinline__ bool ranks_above(float v2, int i2, float v1,
+                                            int i1) {
+  return v2 > v1 || (v2 == v1 && i2 < i1);
+}
+
+// N3: block (c, b) runs the soft-NMS of class c of scene b. iou (B, N, N)
+// row-major with row i box i's; outputs (B, N).
+__global__ void __launch_bounds__(SOFT_THREADS) u3d_soft_nms_kernel(
+    const float* __restrict__ iou, const float* __restrict__ scores,
+    const int* __restrict__ labels, const unsigned char* __restrict__ valid,
+    int N, int C, float sigma, float prune, int max_out,
+    float* __restrict__ out, unsigned char* __restrict__ keep,
+    int* __restrict__ step) {
+  extern __shared__ float s_live[];
+  __shared__ float s_val[SOFT_THREADS / 32];
+  __shared__ int s_idx[SOFT_THREADS / 32];
+  const int c = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const long long off = (long long)b * N;
+  const float* rows = iou + off * N;
+  for (int i = tid; i < N; i += SOFT_THREADS) {
+    const int lab = labels[off + i];
+    const bool mine = valid[off + i] && lab == c;
+    s_live[i] = mine ? scores[off + i] : -CUDART_INF_F;
+    if ((lab >= 0 && lab < C ? lab : 0) == c) {
+      out[off + i] = 0.f;
+      keep[off + i] = 0;
+      step[off + i] = -1;
+    }
+  }
+  __syncthreads();
+  for (int k = 0; k < max_out; ++k) {
+    // argmax: a -inf entry never wins, so an all -inf block ends at N
+    float bv = -CUDART_INF_F;
+    int bi = N;
+    for (int i = tid; i < N; i += SOFT_THREADS) {
+      const float v = s_live[i];
+      if (v > bv) {
+        bv = v;
+        bi = i;
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const float v = __shfl_xor_sync(0xffffffffu, bv, o);
+      const int i = __shfl_xor_sync(0xffffffffu, bi, o);
+      if (ranks_above(v, i, bv, bi)) {
+        bv = v;
+        bi = i;
+      }
+    }
+    if (lane == 0) {
+      s_val[warp] = bv;
+      s_idx[warp] = bi;
+    }
+    __syncthreads();
+    bv = s_val[0];
+    bi = s_idx[0];
+#pragma unroll
+    for (int w = 1; w < SOFT_THREADS / 32; ++w)
+      if (ranks_above(s_val[w], s_idx[w], bv, bi)) {
+        bv = s_val[w];
+        bi = s_idx[w];
+      }
+    // every thread holds the same (bv, bi): the break is uniform
+    if (bi == N || !(bv > prune)) break;
+    if (tid == 0) {
+      out[off + bi] = fmaxf(bv, 0.f);
+      keep[off + bi] = 1;
+      step[off + bi] = k;
+    }
+    const float* row = rows + (long long)bi * N;
+    for (int i = tid; i < N; i += SOFT_THREADS) {
+      const float r = row[i];
+      const float decay = expf(__fdiv_rn(-mul(r, r), sigma));
+      s_live[i] = i == bi ? -CUDART_INF_F : mul(s_live[i], decay);
+    }
+    __syncthreads();
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -451,6 +555,29 @@ int u3d_nms_greedy(const void* mask, const void* labels, const void* order,
   u3d_nms_greedy_kernel<<<B, SCAN_THREADS, smem, (cudaStream_t)stream>>>(
       (const u64*)mask, (const int*)labels, (const long long*)order, N, W,
       (unsigned char*)keep);
+  return (int)cudaGetLastError();
+}
+
+// iou (B, N, N), scores (B, N) fp32, labels (B, N) int32, valid (B, N)
+// uint8 -> out (B, N) fp32, keep (B, N) uint8, step (B, N) int32.
+int u3d_soft_nms(const void* iou, const void* scores, const void* labels,
+                 const void* valid, int B, int N, int C, float sigma,
+                 float prune, int max_out, void* out, void* keep,
+                 void* step, void* stream) {
+  if (B == 0 || N == 0 || C == 0) return (int)cudaSuccess;
+  if (C > 65535 || B > 65535) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)N * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        u3d_soft_nms_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  u3d_soft_nms_kernel<<<dim3(C, B), SOFT_THREADS, smem,
+                        (cudaStream_t)stream>>>(
+      (const float*)iou, (const float*)scores, (const int*)labels,
+      (const unsigned char*)valid, N, C, sigma, prune, max_out,
+      (float*)out, (unsigned char*)keep, (int*)step);
   return (int)cudaGetLastError();
 }
 

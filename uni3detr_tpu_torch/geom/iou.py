@@ -13,6 +13,11 @@ box sets against each other: the CUDA kernel ``u3d_iou_rotated_sets``
 (``csrc/nms.cu``) for CUDA tensors, the plain :func:`iou3d_rotated` and
 :func:`iou_bev_rotated` for CPU tensors; each one's ``launches``
 attribute counts its kernel launches.
+
+:func:`axis_aligned_iou3d` (pairwise) and :func:`rdiou` (elementwise)
+serve the ``axis_aligned_iou3d`` and ``rdiou`` matching costs and loss;
+they are plain PyTorch on every device, as the JAX package computes
+them in XLA.
 """
 from __future__ import annotations
 
@@ -267,3 +272,55 @@ def z_interval_iou_aligned(boxes1, boxes2, eps: float = 1e-6):
     inter = (torch.minimum(hi1, hi2) - torch.maximum(lo1, lo2)).clamp(min=0.0)
     span = torch.maximum(hi1, hi2) - torch.minimum(lo1, lo2)
     return inter / span.clamp(min=eps)
+
+
+def axis_aligned_iou3d(boxes1, boxes2, eps: float = 1e-6):
+    """Pairwise axis-aligned 3D IoU, yaw ignored: (..., N, >=6) x (...,
+    M, >=6) -> (..., N, M), centre-origin extents."""
+    def _minmax(b):
+        return b[..., :3] - b[..., 3:6] * 0.5, b[..., :3] + b[..., 3:6] * 0.5
+    lo1, hi1 = _minmax(boxes1[..., :, None, :])
+    lo2, hi2 = _minmax(boxes2[..., None, :, :])
+    whd = (torch.minimum(hi1, hi2) - torch.maximum(lo1, lo2)).clamp(min=0.0)
+    inter = whd[..., 0] * whd[..., 1] * whd[..., 2]
+    v1 = torch.prod(boxes1[..., 3:6], dim=-1)[..., :, None]
+    v2 = torch.prod(boxes2[..., 3:6], dim=-1)[..., None, :]
+    return inter / (v1 + v2 - inter).clamp(min=eps)
+
+
+def rdiou(boxes1, boxes2):
+    """Rotation-decoupled IoU, the reference ``get_rdiou``: elementwise
+    over broadcast (..., >=7) boxes with log sizes at dims 3:6 and the
+    raw angle at dim 6. The first set's sizes are ``exp`` clipped at 10,
+    the second's are not; y and z are doubled; the rotation is a fourth
+    axis (t1 = sin a1 cos a2 against t2 = cos a1 sin a2, unit extent).
+    Returns (u, the IoU): u the DIoU-style squared centre distance over
+    the squared enclosing diagonal."""
+    x1, y1, z1 = boxes1[..., 0], boxes1[..., 1] * 2, boxes1[..., 2] * 2
+    l1 = torch.exp(boxes1[..., 3]).clamp(max=10.0)
+    w1 = torch.exp(boxes1[..., 4]).clamp(max=10.0)
+    h1 = torch.exp(boxes1[..., 5]).clamp(max=10.0)
+    t1 = torch.sin(boxes1[..., 6]) * torch.cos(boxes2[..., 6])
+    x2, y2, z2 = boxes2[..., 0], boxes2[..., 1] * 2, boxes2[..., 2] * 2
+    l2 = torch.exp(boxes2[..., 3])
+    w2 = torch.exp(boxes2[..., 4])
+    h2 = torch.exp(boxes2[..., 5])
+    t2 = torch.cos(boxes1[..., 6]) * torch.sin(boxes2[..., 6])
+    j = torch.ones_like(h2)
+
+    def _inter(a1, e1, a2, e2):
+        return (torch.minimum(a1 + e1 / 2, a2 + e2 / 2)
+                - torch.maximum(a1 - e1 / 2, a2 - e2 / 2)).clamp(min=0.0)
+
+    def _span(a1, e1, a2, e2):
+        return (torch.maximum(a1 + e1 / 2, a2 + e2 / 2)
+                - torch.minimum(a1 - e1 / 2, a2 - e2 / 2)).clamp(min=0.0)
+
+    inter = (_inter(x1, l1, x2, l2) * _inter(y1, w1, y2, w2)
+             * _inter(z1, h1, z2, h2) * _inter(t1, j, t2, j))
+    inter_diag = ((x2 - x1) ** 2 + (y2 - y1) ** 2 + (z2 - z1) ** 2
+                  + (t2 - t1) ** 2)
+    c_diag = (_span(x1, l1, x2, l2) ** 2 + _span(y1, w1, y2, w2) ** 2
+              + _span(z1, h1, z2, h2) ** 2 + _span(t1, j, t2, j) ** 2)
+    union = l1 * w1 * h1 + l2 * w2 * h2 - inter
+    return inter_diag / c_diag, inter / union

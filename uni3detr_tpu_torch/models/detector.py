@@ -31,12 +31,11 @@ def _minmax_norm(pts: torch.Tensor) -> torch.Tensor:
 class PointBranch:
     """The point branch shared by ``Uni3DETR`` and ``OV_Uni3DETR``:
     voxelize, sparse encoder, SECOND3D, SECOND3DFPN and the paired FPS
-    seeds, under the reference names ``pts_*``."""
+    seeds, under the reference names ``pts_*``. ``cfg.encoder_impl``
+    picks the encoder's route on the same parameters: ``gather`` (K1-K3)
+    or ``dense`` (masked dense convs, no sparse-conv kernel)."""
 
     def _build_point_branch(self, cfg: Uni3DETRConfig):
-        if cfg.encoder_impl != "gather":
-            raise NotImplementedError("the port runs the gather encoder "
-                                      "only")
         self.pts_middle_encoder = SparseEncoderHD(
             cfg.in_point_features, tuple(cfg.grid_size),
             base_channels=cfg.encoder_base_channels,
@@ -45,7 +44,7 @@ class PointBranch:
             downsample_paddings=cfg.encoder_downsample_paddings,
             budget_shrink=cfg.encoder_budget_shrink,
             budget_caps=cfg.encoder_budget_caps,
-            compute_dtype=cfg.torch_dtype)
+            compute_dtype=cfg.torch_dtype, impl=cfg.encoder_impl)
         self.pts_backbone = SECOND3D(
             cfg.encoder_out_channels, cfg.backbone_channels,
             cfg.backbone_layers, cfg.backbone_strides)

@@ -94,21 +94,56 @@ class MaskedBatchNorm(nn.BatchNorm1d):
         super().__init__(num_features, eps=eps, momentum=momentum)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
+        """x (..., C) with mask (...): the normalized x, 0 where masked."""
         if self.training:
-            m = mask[..., None].float()
-            red = tuple(range(x.dim() - 1))
-            s, n = dist.batch_sum((xf * m).sum(dim=red), m.sum())
-            cnt = n.clamp(min=1.0)
-            mean = s / cnt
-            (ss,) = dist.batch_sum((((xf - mean) ** 2) * m).sum(dim=red))
-            var = ss / cnt
-            _update_running(self, mean, var)
-        else:
-            mean, var = self.running_mean, self.running_var
-        y = (xf - mean) * torch.rsqrt(var + self.eps)
+            return _MaskedBNTrain.apply(x, mask, self.weight, self.bias, self)
+        y = (x.float() - self.running_mean) * torch.rsqrt(
+            self.running_var + self.eps)
         y = y * self.weight + self.bias
         return (y * mask[..., None]).to(x.dtype)
+
+
+class _MaskedBNTrain(torch.autograd.Function):
+    """Train-mode :class:`MaskedBatchNorm` with the batch statistics (over
+    the ranks of a sharded batch too) and an analytic backward: with
+    xh = (x - mean) rstd over the n masked entries and dxh = m g weight,
+    dx = m rstd (dxh - sum(dxh) / n - xh sum(dxh xh) / n), the sums over
+    the global batch; masked-out entries touch neither the statistics nor
+    the output, so their gradient is 0."""
+
+    @staticmethod
+    def forward(ctx, x, mask, weight, bias, bn):
+        xf = x.float()
+        m = mask[..., None].float()
+        red = tuple(range(x.dim() - 1))
+        s, n = dist.batch_sum((xf * m).sum(dim=red), m.sum())
+        cnt = n.clamp(min=1.0)
+        mean = s / cnt
+        (ss,) = dist.batch_sum((((xf - mean) ** 2) * m).sum(dim=red))
+        var = ss / cnt
+        _update_running(bn, mean, var)
+        rstd = torch.rsqrt(var + bn.eps)
+        y = (xf - mean) * rstd
+        y = y * weight + bias
+        ctx.save_for_backward(x, mask, weight, mean, rstd, cnt)
+        ctx.global_sums = dist.batch_ranks() > 1
+        return (y * m).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, mask, weight, mean, rstd, cnt = ctx.saved_tensors
+        m = mask[..., None].float()
+        red = tuple(range(x.dim() - 1))
+        xh = (x.float() - mean) * rstd
+        gm = g.float() * m
+        dw = (gm * xh).sum(dim=red)
+        db = gm.sum(dim=red)
+        dxh = gm * weight
+        sums = torch.stack([dxh.sum(dim=red), (dxh * xh).sum(dim=red)])
+        if ctx.global_sums:
+            sums = dist.all_reduce_sum(sums)
+        dx = (dxh - sums[0] / cnt - xh * (sums[1] / cnt)) * (rstd * m)
+        return dx.to(x.dtype), None, dw, db, None
 
 
 class MLP(nn.Module):

@@ -1,4 +1,4 @@
-"""Depth-preserving sparse middle encoder (port of the gather route of
+"""Depth-preserving sparse middle encoder (port of
 ``uni3detr_tpu/models/sparse_encoder.py::SparseEncoderHD``).
 
 An input submanifold conv, four stages of residual SparseBasicBlocks
@@ -13,6 +13,15 @@ route of ``downsample_sites``, cut to the per-stage budget. The convs go
 through ``GatherConvFn`` / ``GatherConvIdsFn``, whose backward runs K2 /
 K3 for the feature gradient and K7 / K10 for the weight gradient; the
 site sets and rulebooks are integer work, built without autograd.
+
+``impl="dense"`` (the JAX package's ``encoder_impl='dense'``) runs the
+same parameters as masked dense convs over the scattered volume: the
+voxels scatter once into (B, D, H, W, C) with their occupancy, every
+conv is ``F.conv3d`` (cuDNN on the card, as XLA's convolution in JAX),
+the batch norms run over the occupied cells and zero the others, and
+each strided conv's occupancy is a 3x3x3 stride-2 max-pool of the one
+before with the conv's padding. At the active sites that equals the
+gather route wherever its budgets cut no site: inactive cells hold zeros.
 """
 from __future__ import annotations
 
@@ -21,6 +30,7 @@ from typing import Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from ..ops.sparse_conv import (downsample_sites, linear_ids,
                                strided_inverse_query_ids, strided_query_ids,
@@ -47,6 +57,15 @@ class SparseConvWeight(nn.Module):
         k = self.weight.shape
         return self.weight.reshape(k[0] * k[1] * k[2], k[3], k[4])
 
+    def dense(self, x, stride: int = 1, padding=(1, 1, 1)):
+        """The conv over a channels-last volume (B, D, H, W, in) -> (B, D',
+        H', W', out) in x's dtype: a cross-correlation over (z, y, x),
+        as the sparse conv computes it, so the taps are not flipped."""
+        w = self.weight.permute(4, 3, 0, 1, 2).to(x.dtype)
+        y = F.conv3d(x.permute(0, 4, 1, 2, 3), w, stride=stride,
+                     padding=tuple(padding))
+        return y.permute(0, 2, 3, 4, 1)
+
 
 class SparseBasicBlock(nn.Module):
     """conv1-bn1-relu-conv2-bn2 + identity, relu (submanifold)."""
@@ -62,6 +81,12 @@ class SparseBasicBlock(nn.Module):
         y = GatherConvFn.apply(x, nb, self.conv1.kernel())
         y = torch.relu(self.bn1(y, mask))
         y = self.bn2(GatherConvFn.apply(y, nb, self.conv2.kernel()), mask)
+        return torch.relu(y + x)
+
+    def dense(self, x, occ):
+        """The block over a channels-last volume with occupancy ``occ``."""
+        y = torch.relu(self.bn1(self.conv1.dense(x), occ))
+        y = self.bn2(self.conv2.dense(y), occ)
         return torch.relu(y + x)
 
 
@@ -81,8 +106,12 @@ class SparseEncoderHD(nn.Module):
                      (1, 1, 1), (1, 1, 1), (0, 1, 1)),
                  budget_shrink: Sequence[float] = (1.0, 0.5, 0.25),
                  budget_caps: Sequence[int] | None = None,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 impl: str = "gather"):
         super().__init__()
+        if impl not in ("gather", "dense"):
+            raise ValueError(f"encoder impl {impl!r} not in gather, dense")
+        self.impl = impl
         self.sparse_shape = tuple(sparse_shape)
         self.encoder_channels = tuple(tuple(b) for b in encoder_channels)
         self.downsample_paddings = tuple(downsample_paddings)
@@ -149,6 +178,8 @@ class SparseEncoderHD(nn.Module):
         linear id with invalid rows last, vmask (B, V).
 
         Returns (volume (B, D', H', W', Cout), out_grid)."""
+        if self.impl == "dense":
+            return self.dense_forward(feats, coords, vmask)
         sets = self.site_sets(coords, vmask, backward=torch.is_grad_enabled())
         x = feats.to(self.compute_dtype)
         for i, s in enumerate(sets):
@@ -174,3 +205,36 @@ class SparseEncoderHD(nn.Module):
         x = torch.relu(bn(x, last["mask"]))
         return (scatter_to_dense(x, last["coords"], last["mask"],
                                  last["grid"]), last["grid"])
+
+    def dense_forward(self, feats, coords, vmask):
+        """The masked-dense route (``impl="dense"``; see the module
+        docstring), same arguments and results as :meth:`forward`. The
+        occupancy has no budget, so it is the any-covered-input set of
+        each strided conv."""
+        grid = self.sparse_shape
+        x = scatter_to_dense(feats.to(self.compute_dtype), coords, vmask,
+                             grid)
+        with torch.no_grad():
+            occ = scatter_to_dense(vmask[..., None].float(), coords, vmask,
+                                   grid)[..., 0] > 0
+        conv, bn, _ = self.conv_input
+        x = torch.relu(bn(conv.dense(x), occ))
+        n_stages = len(self.encoder_channels)
+        for i in range(n_stages):
+            mods = self.encoder_layers[f"encoder_layer{i + 1}"]
+            strided = i < n_stages - 1
+            for block in (mods[:-1] if strided else mods):
+                x = block.dense(x, occ)
+            if strided:
+                pad = tuple(self.downsample_paddings[i])
+                conv, bn, _ = mods[-1]
+                x = conv.dense(x, stride=2, padding=pad)
+                with torch.no_grad():
+                    occ = F.max_pool3d(occ[:, None].float(), 3, stride=2,
+                                       padding=pad)[:, 0] > 0
+                x = torch.relu(bn(x, occ))
+        # conv_out: a per-cell matmul in fp32, as the gather route's
+        conv, bn, _ = self.conv_out
+        x = x.float() @ conv.kernel()[0].float()
+        x = torch.relu(bn(x, occ))
+        return x, tuple(x.shape[1:4])

@@ -93,19 +93,21 @@ def sample_camera_features(mlvl_feats, depths, ref_voxels, lidar2img,
     return out * mask[..., None].to(out.dtype)
 
 
-class _Conv1x1BN(nn.Sequential):
-    """The reference's Sequential(Conv3d 1x1x1, BatchNorm3d, ReLU) applied
-    to a (..., C) voxel list (keys ``.0`` and ``.1``); the JAX package
-    folds the eval-mode BN into a Dense at import."""
+class _Conv1x1(nn.Sequential):
+    """The JAX package's ``Dense`` + ReLU over a (..., C) voxel list, its
+    weight held as the reference's 1x1x1 Conv3d (key ``.0``). The
+    reference puts a BatchNorm3d before the ReLU; the JAX package has
+    none and folds the reference's eval-mode BN into the Dense at import,
+    as ``train.torch_import`` folds it into ``.0``, so the port trains
+    what the JAX package trains."""
 
     def __init__(self, cin, cout):
-        super().__init__(nn.Conv3d(cin, cout, 1), nn.BatchNorm3d(cout),
-                         nn.ReLU())
+        super().__init__(nn.Conv3d(cin, cout, 1))
 
     def forward(self, x):
-        shape = x.shape
-        y = x.reshape(-1, shape[-1], 1, 1, 1)
-        return super().forward(y).reshape(*shape[:-1], -1)
+        conv = self[0]
+        w = conv.weight.reshape(conv.out_channels, conv.in_channels)
+        return torch.relu(nn.functional.linear(x, w, conv.bias))
 
 
 class Uni3DViewTrans(nn.Module):
@@ -115,10 +117,8 @@ class Uni3DViewTrans(nn.Module):
     each sweep's cameras sum into a volume, then ``sweep_fusion``
     ("sweep_sum", "sweep_cat" or "with_time") combines the sweeps;
     ``with_time`` appends each sweep's time as a channel and maps back to
-    C (``time_conv``), ``sweep_cat`` concatenates them (``trans_conv``).
-    Those two are the reference's Conv + BN here and a Dense in the JAX
-    package, which agree in eval only (the importer folds the BN), so
-    training them raises."""
+    C (``time_conv``), ``sweep_cat`` concatenates them (``trans_conv``),
+    each a 1x1 conv with bias and a ReLU, the JAX package's Dense."""
 
     def __init__(self, voxel_shape: Tuple[int, int, int],
                  pc_range: Sequence[float], embed_dims: int = 256,
@@ -135,9 +135,9 @@ class Uni3DViewTrans(nn.Module):
         self.sweep_fusion = sweep_fusion
         C = embed_dims
         if num_sweeps > 1 and "with_time" in sweep_fusion:
-            self.time_conv = _Conv1x1BN(C + 1, C)
+            self.time_conv = _Conv1x1(C + 1, C)
         if num_sweeps > 1 and "sweep_cat" in sweep_fusion:
-            self.trans_conv = _Conv1x1BN(num_sweeps * C, C)
+            self.trans_conv = _Conv1x1(num_sweeps * C, C)
         pad = tuple((s - 1) // 2 for s in kernel_size)
         for k in range(num_convs):
             self.add_module(f"conv_trans_head_{k + 1}", nn.Sequential(
@@ -167,12 +167,6 @@ class Uni3DViewTrans(nn.Module):
         """-> (B, D, H, W, C) (and the lifted (B, N, V, C) voxel features
         with ``return_lifted``)."""
         S = self.num_sweeps
-        if self.training and S > 1 and ("with_time" in self.sweep_fusion
-                                        or "sweep_cat" in self.sweep_fusion):
-            raise NotImplementedError(
-                f"training with {S} sweeps in {self.sweep_fusion!r}: the "
-                f"port's trans_conv / time_conv are the reference's Conv + "
-                f"BN and the JAX package's a Dense, which agree in eval only")
         per_cam = self.lift(mlvl_feats, depths, lidar2img, uni_rot_aug,
                             img_shape, img_rot_aug, img_trans_aug)
         B, _, V, C = per_cam.shape

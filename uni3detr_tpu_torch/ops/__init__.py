@@ -7,7 +7,8 @@ def kernel_wrappers():
     reports, each with its ``launches`` count (one a kernel launch on
     the card): K1-K4 and N1/N2 in inference, K1-K4 and K7/K10/K12 in
     training; N1 as the NMS bitmask, its BEV bitmask (TTA), its matrix
-    (box merging) and its two-set 3D and BEV forms (the metrics)."""
+    (box merging and soft-NMS) and its two-set 3D and BEV forms (the
+    metrics); N3 in the coder's ``soft_nms`` post-processing."""
     from ..geom import iou
     from . import fps, matching, nms, sparse_conv_cuda as sc
     return {"match_positions": sc.match_positions,
@@ -17,6 +18,7 @@ def kernel_wrappers():
             "iou3d_rotated": nms.overlap_mask,
             "iou_bev_rotated_mask": nms.overlap_mask_bev,
             "nms_greedy": nms.greedy_scan,
+            "soft_nms": nms.soft_nms,
             "iou3d_rotated_matrix": iou.iou3d_rotated_pairwise,
             "iou3d_rotated_sets": iou.iou3d_rotated_sets,
             "iou_bev_rotated_sets": iou.iou_bev_rotated_sets,

@@ -20,7 +20,8 @@ The FLOPs (what the plain versions' products count, 2 a multiply-add):
 - N1 (every IoU form): ``IOU_PAIR_FLOPS`` (2048) a box pair (four
   half-plane clips, each a (16 x 16) 0/1 product that counts the
   emitted vertices);
-- K1, K4 / K11, K12 and N2: 0 (searches, comparisons and reductions).
+- K1, K4 / K11, K12, N2 and N3: 0 (searches, comparisons, reductions
+  and elementwise decays, which ``FlopCounterMode`` does not count).
 """
 from __future__ import annotations
 
@@ -114,7 +115,7 @@ _FLOPS = {
     "gather_conv_dw": _conv,
     "gather_conv_ids_dw": lambda f, site_ids, qids, g: _conv(f, qids, g),
     "fps_pair": _none, "fps": _none, "auction_lap": _none,
-    "nms_greedy": _none,
+    "nms_greedy": _none, "soft_nms": _none,
     "iou3d_rotated": _iou_self, "iou_bev_rotated_mask": _iou_self,
     "iou3d_rotated_matrix": _iou_self, "iou3d_rotated_sets": _iou_sets,
     "iou_bev_rotated_sets": _iou_sets,

@@ -47,6 +47,8 @@ _SIGNATURES = {
     "u3d_iou3d_rotated_mask": [_P, _P, _P, _I, _I, ctypes.c_float, _I, _I,
                                _P],
     "u3d_nms_greedy": [_P, _P, _P, _P, _I, _I, _P],
+    "u3d_soft_nms": [_P] * 4 + [_I] * 3 + [ctypes.c_float] * 2
+    + [_I] + [_P] * 4,
 }
 _ERROR_STRING = "u3d_error_string"
 KERNEL_PREFIX = "u3d_"

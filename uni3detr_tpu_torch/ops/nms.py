@@ -1,6 +1,8 @@
 """Per-class rotated 3D and BEV NMS (port of ``uni3detr_tpu/ops/nms.py``,
 of the NMS of ``uni3detr_tpu/train/coder.py::post_process`` and of the
-per-class ``nms_bev_rotated`` loop of ``train/tta.py``).
+per-class ``nms_bev_rotated`` loop of ``train/tta.py``), and the
+gaussian soft-NMS of ``ops/nms.py::soft_nms3d`` as the coder's
+``soft_nms`` branch runs it.
 
 :func:`nms_keep` runs the greedy per-class NMS of a batch of scenes. For
 CUDA tensors it makes two launches for all scenes and no host round
@@ -26,6 +28,11 @@ is the longest suppression chain, not the number of boxes.
 :func:`_greedy_suppress_serial` is the one-box-per-step oracle. All rank
 boxes by descending score with a stable sort (lower index first on
 ties), as ``jnp.argsort`` does.
+
+:func:`soft_nms` runs the gaussian soft-NMS of every (scene, class) of a
+batch on a precomputed IoU matrix: N3 (``u3d_soft_nms`` in
+``csrc/nms.cu``, one block per scene and class) for CUDA tensors,
+:func:`soft_nms_plain` for CPU tensors.
 """
 from __future__ import annotations
 
@@ -283,3 +290,99 @@ def nms_bev_keep(boxes, scores, labels, valid, iou_thr: float,
     order, lab = nms_order(scores, labels, valid)
     bx = torch.gather(boxes[..., :7], 1, order[..., None].expand(-1, -1, 7))
     return greedy_scan(overlap_mask_bev(bx, lab, iou_thr), lab, order)
+
+
+def _soft_nms_args(iou, scores, labels, valid, name):
+    B, N = scores.shape
+    if iou.shape != (B, N, N) or labels.shape != (B, N) or \
+            valid.shape != (B, N):
+        raise ValueError(f"{name}: iou (B, N, N), scores, labels and valid "
+                         f"(B, N)")
+
+
+def soft_nms_plain(iou, scores, labels, valid, num_classes: int,
+                   sigma: float, prune: float, max_out: int):
+    """Gaussian soft-NMS of B scenes x ``num_classes`` classes at once:
+    the JAX package's ``soft_nms3d`` (``ops/nms.py:103-135``) on each
+    class's boxes (``valid`` and ``labels == c``), given the IoU matrix
+    ``iou`` (B, N, N) whose row i is box i's (N1's orientation).
+
+    Each class's loop takes the box of highest live score (ties to the
+    lower index, as ``jnp.argmax``); while that score is above ``prune``
+    the box is kept with it and every live score is multiplied by
+    ``exp(-iou[top]^2 / sigma)``; the box then leaves the live set. The
+    loop stops at the first step that keeps nothing (JAX's later steps
+    change nothing) or after ``max_out`` steps. Returns (B, N) tensors:
+    the kept boxes' scores (at least 0, as the coder's scatter-max into
+    zeros) and 0 elsewhere, the keep mask, and each kept box's step in
+    its class's loop (int32, -1 elsewhere), which orders a class's kept
+    boxes as JAX's ``idxs``."""
+    _soft_nms_args(iou, scores, labels, valid, "soft_nms_plain")
+    B, N = scores.shape
+    dev = scores.device
+    neg = torch.full((), -float("inf"), device=dev)
+    cls = torch.arange(num_classes, device=dev)
+    member = valid[:, None, :] & (labels.long()[:, None, :]
+                                  == cls[None, :, None])
+    live = torch.where(member, scores.float()[:, None, :], neg)  # (B, C, N)
+    # a tensor divisor: PyTorch multiplies by the reciprocal of a Python
+    # scalar on the card, where JAX and N3 divide
+    sig = torch.full((), sigma, dtype=torch.float32, device=dev)
+    out = torch.zeros((B, N), dtype=torch.float32, device=dev)
+    keep = torch.zeros((B, N), dtype=torch.bool, device=dev)
+    step = torch.full((B, N), -1, dtype=torch.int32, device=dev)
+    for k in range(max_out):
+        top = live.argmax(dim=-1)                               # (B, C)
+        top_score = live.gather(-1, top[..., None])[..., 0]
+        ok = top_score > prune
+        if not bool(ok.any()):
+            break
+        row = torch.gather(iou.float(), 1,
+                           top[..., None].expand(B, num_classes, N))
+        decay = torch.exp(-(row * row) / sig)
+        live = torch.where(ok[..., None], live * decay, live)
+        live = live.scatter(-1, top[..., None], torch.where(
+            ok, neg, top_score)[..., None])
+        bi, ci = ok.nonzero(as_tuple=True)
+        ti = top[bi, ci]
+        out[bi, ti] = top_score[bi, ci].clamp(min=0.0)
+        keep[bi, ti] = True
+        step[bi, ti] = k
+    return out, keep, step
+
+
+def soft_nms(iou, scores, labels, valid, num_classes: int, sigma: float,
+             prune: float, max_out: int):
+    """N3: :func:`soft_nms_plain` for every (scene, class) in one launch
+    on CUDA tensors (one block each, the class's live scores in shared
+    memory), with no host synchronisation; the plain version on CPU
+    tensors. Same arguments and results. The third result, each kept
+    box's step, is for checking the kept order against the plain version
+    (the tests and the smoke); ``post_process`` discards it."""
+    _soft_nms_args(iou, scores, labels, valid, "soft_nms")
+    if all(t.device.type == "cpu" for t in (iou, scores, labels, valid)):
+        return soft_nms_plain(iou, scores, labels, valid, num_classes,
+                              sigma, prune, max_out)
+    m = iou.float().contiguous()
+    sc = scores.float().contiguous()
+    lab = labels.to(torch.int32).contiguous()
+    val = valid.to(torch.uint8).contiguous()
+    if not all(t.is_cuda and t.device == m.device for t in (sc, lab, val)):
+        raise ValueError("soft_nms: tensors on one CUDA device")
+    B, N = sc.shape
+    out = torch.empty((B, N), dtype=torch.float32, device=m.device)
+    keep = torch.empty((B, N), dtype=torch.bool, device=m.device)
+    step = torch.empty((B, N), dtype=torch.int32, device=m.device)
+    with torch.cuda.device(m.device):
+        status = cuda_lib.library().u3d_soft_nms(
+            m.data_ptr(), sc.data_ptr(), lab.data_ptr(), val.data_ptr(), B,
+            N, int(num_classes), float(sigma), float(prune), int(max_out),
+            out.data_ptr(), keep.data_ptr(), step.data_ptr(),
+            torch.cuda.current_stream(m.device).cuda_stream)
+    cuda_lib.check(status, "u3d_soft_nms")
+    soft_nms.launches += 1
+    cost.record("soft_nms", (m, sc, lab, val), out, keep, step)
+    return out, keep, step
+
+
+soft_nms.launches = 0

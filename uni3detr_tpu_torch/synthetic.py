@@ -143,7 +143,8 @@ def ov_scene(seed: int, cfg, distribution: str = "clustered"):
     reads: the points of ``clustered_scene(seed, cfg, distribution)``
     (``cfg.use_lidar``) and, with ``cfg.use_camera``, a uniform [0, 1)
     RGB image of ``cfg.img_size`` per camera and sweep, the synthetic
-    camera's ``lidar2img`` and an identity ``uni_rot_aug``.
+    camera's ``lidar2img``, an identity ``uni_rot_aug`` and, with several
+    sweeps, ``sweep_times`` (:func:`sweep_times`).
 
     Returns (batch dict, random query points (1, nq, 3))."""
     pts, rnd = clustered_scene(seed, cfg, distribution)
@@ -159,7 +160,16 @@ def ov_scene(seed: int, cfg, distribution: str = "clustered"):
         batch["lidar2img"] = np.broadcast_to(
             lidar2img(cfg.img_size), (1, N, 4, 4)).copy()
         batch["uni_rot_aug"] = np.eye(3, dtype=np.float32)[None]
+        if cfg.num_sweeps > 1:
+            batch["sweep_times"] = sweep_times(cfg, 1)
     return batch, rnd
+
+
+def sweep_times(cfg, batch: int) -> np.ndarray:
+    """(batch, num_sweeps) float32: each sweep's time before the key
+    frame, 0.05 s apart (a 20 Hz sensor), the key frame's 0."""
+    t = np.arange(cfg.num_sweeps, dtype=np.float32) * np.float32(0.05)
+    return np.broadcast_to(t, (batch, cfg.num_sweeps)).copy()
 
 
 def in_camera_frame(points, l2i, img_size) -> np.ndarray:
@@ -180,7 +190,8 @@ def ov_train_batch(seed: int, cfg, batch: int):
     ``clustered_train_batch(seed, cfg, batch)`` (the points with
     ``cfg.use_lidar``) and, with ``cfg.use_camera``, a uniform [0, 1) RGB
     image of ``cfg.img_size`` per camera and sweep, the synthetic
-    camera's ``lidar2img`` and an identity ``uni_rot_aug``. Only the GT
+    camera's ``lidar2img``, an identity ``uni_rot_aug`` and, with several
+    sweeps, ``sweep_times``. Only the GT
     boxes whose gravity centre the camera sees (in front of it, inside
     its frame) are kept, packed to the front of their ``max_gt`` rows.
 
@@ -198,6 +209,8 @@ def ov_train_batch(seed: int, cfg, batch: int):
         out["lidar2img"] = np.broadcast_to(l2i, (batch, N, 4, 4)).copy()
         out["uni_rot_aug"] = np.broadcast_to(
             np.eye(3, dtype=np.float32), (batch, 3, 3)).copy()
+        if cfg.num_sweeps > 1:
+            out["sweep_times"] = sweep_times(cfg, batch)
     boxes, labels, gmask = base["gt_boxes"], base["gt_labels"], \
         base["gt_mask"]
     centre = boxes[..., :3].copy()          # bottom -> gravity centre

@@ -1,17 +1,24 @@
-"""NMS-free decode, per-class NMS and the score / count thresholds (port
-of the ``nms``, ``none`` and ``box_merging`` branches of
-``uni3detr_tpu/train/coder.py``).
+"""NMS-free decode, per-class NMS or soft-NMS and the score / count
+thresholds (port of ``uni3detr_tpu/train/coder.py``).
 
 Decode averages decoder layers 1..L-1, takes the ``max_num`` best flat
 class scores, denormalizes the boxes, masks them by
 ``post_center_range`` and blends ``score = cls^alpha * iou^(1-alpha)``.
 Post-processing shifts z to the bottom face, runs rotated 3D-IoU NMS
 per class for all scenes at once (``post_processing="nms"``,
-``ops.nms.nms_keep``: two kernel launches on the card; ``none`` and
+``ops.nms.nms_keep``: two kernel launches on the card), or gaussian
+soft-NMS per class (``soft_nms``: N1's IoU matrix, then
+``ops.nms.soft_nms``, N3, one launch each on the card; ``none`` and
 ``box_merging`` pass the boxes through, box merging runs on the host
 afterwards in ``eval.postprocess``) and applies ``score_thr`` and
 ``num_thr``. Outputs stay fixed-size with validity masks; nothing here
 waits on the device.
+
+The JAX coder's soft-NMS drops box 0 (the scene's best candidate)
+whenever its class's loop ends before ``max_out`` steps: its keep-mask
+scatter writes False to index 0 for every step that keeps nothing. The
+port keeps box 0 when its class's soft-NMS keeps it, as the reference
+does (ROADMAP Queue 3).
 """
 from __future__ import annotations
 
@@ -19,7 +26,8 @@ import torch
 
 from ..config import Uni3DETRConfig
 from ..geom.boxes import bottom_center_boxes, decode_boxes
-from ..ops.nms import _rank_order, nms_keep
+from ..geom.iou import iou3d_rotated_pairwise
+from ..ops.nms import _rank_order, nms_keep, soft_nms
 
 
 def decode_predictions(outs, cfg: Uni3DETRConfig):
@@ -50,23 +58,28 @@ def decode_predictions(outs, cfg: Uni3DETRConfig):
 
 
 def post_process(boxes, scores, labels, valid, cfg: Uni3DETRConfig):
-    """Per-class NMS, then the score and count thresholds; boxes
-    gravity-centred.
+    """Per-class NMS or soft-NMS, then the score and count thresholds;
+    boxes gravity-centred.
 
-    ``score_thr`` (scalar, or one per class) keeps scores strictly above
-    it; ``num_thr`` keeps the ``num_thr`` best surviving boxes, ties to
-    the lower index as ``jnp.argsort``. Returns (boxes with bottom z,
-    scores, labels, valid), still fixed size. ``none`` and
-    ``box_merging`` skip the NMS, as the JAX coder does; ``soft_nms`` is
-    not ported.
+    ``soft_nms`` runs ``min(max_num, N)`` steps at most per class on the
+    bottom-z IoU matrix: the kept boxes take their decayed scores, the
+    others score 0 and turn invalid. ``score_thr`` (scalar, or one per
+    class) keeps scores strictly above it; ``num_thr`` keeps the
+    ``num_thr`` best surviving boxes, ties to the lower index as
+    ``jnp.argsort``. Returns (boxes with bottom z, scores, labels,
+    valid), still fixed size. ``none`` and ``box_merging`` skip the NMS,
+    as the JAX coder does.
     """
-    if cfg.post_processing not in ("nms", "none", "box_merging"):
-        raise NotImplementedError(
-            f"post_processing={cfg.post_processing!r} is not ported")
     boxes = bottom_center_boxes(boxes)
     if cfg.post_processing == "nms":
         valid = nms_keep(boxes, scores, labels, valid, cfg.nms_thr,
                          cfg.num_classes, z_origin="bottom")
+    elif cfg.post_processing == "soft_nms":
+        N = scores.shape[1]
+        scores, valid, _ = soft_nms(
+            iou3d_rotated_pairwise(boxes[..., :7], "bottom"), scores,
+            labels, valid, cfg.num_classes, cfg.soft_nms_sigma,
+            cfg.soft_nms_prune, min(cfg.max_num, N))
     if cfg.score_thr is not None:
         thr = cfg.score_thr
         if isinstance(thr, (tuple, list)):

@@ -2,13 +2,15 @@
 
 Per decoder layer and sample, the queries are matched to the ground
 truth by a Hungarian assignment on a detached cost (focal or soft-focal
-class cost, L1 on the first 8 code dims, 1 - nearest-BEV IoU or the
-rotated 3D IoU; the costs of all layers are matched in one call), then:
+class cost, L1 on the first 8 code dims, and an IoU cost: 1 -
+nearest-BEV IoU, the rotated 3D IoU, minus the axis-aligned 3D IoU or the
+RDIoU penalty; the costs of all layers are matched in one call), then:
 
 - soft focal classification loss against the IoU-aware quality
   (nearest-BEV IoU + z-IoU) / 2;
 - L1 on the normalized code, weighted by ``code_weights``;
-- IoU loss (1 - nearest-BEV IoU, or 1 - rotated 3D IoU) plus 1 - z-IoU;
+- IoU loss (1 - nearest-BEV IoU, 1 - rotated 3D IoU, or the RDIoU
+  penalty) plus 1 - z-IoU;
 - BCE of the IoU branch against the detached rotated 3D IoU, x 1.2;
 - with the OV head's uncertainty stack: each query's sigma (its label's
   column, background the last; at least 0.01, with no gradient below)
@@ -22,8 +24,7 @@ package's one jit over the sharded batch, the reference's
 ``reduce_mean``) and each rank's sums are multiplied by W, so that the
 mean of the ranks' gradients is the global loss's; ``loss_consistency``,
 a mean over equal-sized batches, needs no factor. Batched over
-B; padded GT rows (``gt_mask`` False) never match. The ``rdiou`` and
-``axis_aligned_iou3d`` cost/loss types are not ported.
+B; padded GT rows (``gt_mask`` False) never match.
 """
 from __future__ import annotations
 
@@ -35,13 +36,12 @@ import torch.nn.functional as F
 
 from ..config import Uni3DETRConfig
 from ..geom.boxes import decode_boxes, encode_boxes
-from ..geom.iou import (iou3d_rotated, iou3d_rotated_aligned,
-                        nearest_bev_iou, nearest_bev_iou_aligned,
+from ..geom.iou import (axis_aligned_iou3d, iou3d_rotated,
+                        iou3d_rotated_aligned, nearest_bev_iou,
+                        nearest_bev_iou_aligned, rdiou,
                         z_interval_iou_aligned)
 from ..ops.matching import match_queries_to_gt
 from ..parallel import dist
-
-_NOT_PORTED = ("axis_aligned_iou3d", "rdiou")
 
 
 def focal_cls_cost(cls_logits, gt_labels, alpha: float = 0.25,
@@ -87,17 +87,32 @@ def soft_focal_loss(logits, labels, quality, num_classes: int,
     return torch.sum(bce * focal_w, dim=-1)
 
 
+def rdiou_penalty(pred, target):
+    """1 - clamp(rdiou - u, -1, 1), the reference's RDIoU cost and loss
+    (rdiouloss.py:12-32, match_cost.py:72-83), over broadcast boxes fed
+    as they are: ``rdiou`` takes ``exp`` of dims 3:6 of whatever arrives,
+    as the reference does."""
+    u, rd = rdiou(pred, target)
+    return 1.0 - (rd - u).clamp(-1.0, 1.0)
+
+
 def iou_match_cost(decoded, gt_boxes, cfg: Uni3DETRConfig):
     """The IoU slot of the matching cost (..., Q, Gt), by
-    ``cfg.iou_cost_type``, with the reference costs' signs."""
+    ``cfg.iou_cost_type``, with the reference costs' signs, on decoded
+    boxes: 1 - nearest-BEV IoU (``iou3d``), + the rotated 3D IoU
+    (``rotated_iou3d``), - the axis-aligned 3D IoU
+    (``axis_aligned_iou3d``) or the RDIoU penalty (``rdiou``)."""
     t = cfg.iou_cost_type
     if t == "iou3d":
         return 1.0 - nearest_bev_iou(decoded, gt_boxes)
     if t == "rotated_iou3d":
         return iou3d_rotated(decoded[..., :7], gt_boxes[..., :7],
                              z_origin="center")
-    if t in _NOT_PORTED:
-        raise NotImplementedError(f"iou_cost_type {t!r} is not ported")
+    if t == "axis_aligned_iou3d":
+        return -axis_aligned_iou3d(decoded[..., :7], gt_boxes[..., :7])
+    if t == "rdiou":
+        return rdiou_penalty(decoded[..., :, None, :7],
+                             gt_boxes[..., None, :, :7])
     raise ValueError(f"unknown iou_cost_type {t!r}")
 
 
@@ -198,8 +213,8 @@ def _layer_loss(cls_scores, bbox_preds, iou_preds, gt_boxes, gt_labels,
     elif t == "rotated_iou3d":
         iou_term = 1.0 - iou3d_rotated_aligned(
             decoded[..., :7], tgt[..., :7], z_origin="center")
-    elif t in _NOT_PORTED:
-        raise NotImplementedError(f"iou_loss_type {t!r} is not ported")
+    elif t == "rdiou":
+        iou_term = rdiou_penalty(decoded[..., :7], tgt[..., :7])
     else:
         raise ValueError(f"unknown iou_loss_type {t!r}")
     # the reference collapses the (rows, code) weight by its mean for the

@@ -16,9 +16,9 @@ the rest:
   apart by where the output channels sit, as the JAX importer does) and
   raising on any other layout;
 - folds the eval-mode BN of the view transformer's ``trans_conv`` /
-  ``time_conv`` into its 1x1 conv and leaves the BN the identity, as the
-  JAX importer folds them into a Dense, so both packages hold the same
-  numbers;
+  ``time_conv`` into its 1x1 conv ``.0`` and drops the BN ``.1``, which
+  the port does not have, as the JAX importer folds them into a Dense,
+  so both packages hold the same numbers;
 - carries the OV head's ``zs_weights`` buffer;
 - drops the reference's unused ``pts_conv`` / ``img_conv`` modules of
   OV-Uni3DETR, and the BN ``num_batches_tracked`` counts (the port's BN
@@ -41,10 +41,10 @@ import torch
 EXPECTED_LEFTOVERS = ("num_batches_tracked", "code_weights")
 # OV-Uni3DETR modules the reference builds but never calls
 DEAD_PREFIXES = ("pts_conv.", "img_conv.")
-# the eps of the folded BN and the variance that makes the identity BN
-# exactly 1 in fp32 (1 / sqrt(var + 1e-5) == 1)
+# the eps of the folded BN
 _BN_EPS = 1e-5
-_UNIT_VAR = np.float32(1.0) - np.float32(1e-5)
+# the view transformer's 1x1 convs whose reference BN folds into them
+_FOLDED = ("view_trans.trans_conv", "view_trans.time_conv")
 
 
 def unwrap_checkpoint(raw) -> Dict:
@@ -94,9 +94,9 @@ def _spconv(key: str, w: np.ndarray, shape: tuple) -> np.ndarray:
 
 
 def _fold_conv_bn(sd: Dict[str, np.ndarray], prefix: str, out: Dict):
-    """``prefix`` = Sequential(Conv3d 1x1x1, BN3d, ReLU): the conv takes
-    the eval BN (a = gamma / sqrt(var + eps), W a, (b - mean) a + beta),
-    the BN becomes the identity."""
+    """``prefix`` = the reference's Sequential(Conv3d 1x1x1, BN3d, ReLU):
+    the conv ``.0`` takes the eval BN (a = gamma / sqrt(var + eps), W a,
+    (b - mean) a + beta)."""
     w = sd[f"{prefix}.0.weight"].astype(np.float32)       # (out, in, 1,1,1)
     b = sd[f"{prefix}.0.bias"].astype(np.float32)
     g = sd[f"{prefix}.1.weight"].astype(np.float32)
@@ -107,11 +107,6 @@ def _fold_conv_bn(sd: Dict[str, np.ndarray], prefix: str, out: Dict):
     kern = w.reshape(w.shape[0], w.shape[1]).T * a[None, :]   # (in, out)
     out[f"{prefix}.0.weight"] = kern.T.reshape(w.shape)
     out[f"{prefix}.0.bias"] = (b - mean) * a + beta
-    c = w.shape[0]
-    out[f"{prefix}.1.weight"] = np.ones(c, np.float32)
-    out[f"{prefix}.1.bias"] = np.zeros(c, np.float32)
-    out[f"{prefix}.1.running_mean"] = np.zeros(c, np.float32)
-    out[f"{prefix}.1.running_var"] = np.full(c, _UNIT_VAR, np.float32)
 
 
 def load_reference_state_dict(sd: Mapping, cfg) -> Dict[str, torch.Tensor]:
@@ -122,9 +117,11 @@ def load_reference_state_dict(sd: Mapping, cfg) -> Dict[str, torch.Tensor]:
     src = {k: _np(v) for k, v in unwrap_checkpoint(sd).items()}
     want = model_keys(cfg)
     out: Dict[str, np.ndarray] = {}
-    for prefix in ("view_trans.trans_conv", "view_trans.time_conv"):
+    folded = []
+    for prefix in _FOLDED:
         if f"{prefix}.0.weight" in want and f"{prefix}.0.weight" in src:
             _fold_conv_bn(src, prefix, out)
+            folded.append(f"{prefix}.1.")
     missing = []
     for key, (shape, dtype) in want.items():
         if key in out:
@@ -144,7 +141,7 @@ def load_reference_state_dict(sd: Mapping, cfg) -> Dict[str, torch.Tensor]:
                        f"the model, e.g. {missing[:8]}")
     leftovers = sorted(
         k for k in src if k not in want
-        and not k.startswith(DEAD_PREFIXES)
+        and not k.startswith(DEAD_PREFIXES + tuple(folded))
         and not any(s in k for s in EXPECTED_LEFTOVERS))
     if leftovers:
         raise ValueError(f"{len(leftovers)} checkpoint keys were not "

@@ -7,6 +7,9 @@
 - :func:`state_dict_from_jax_ov` does the same for ``OV_Uni3DETR``
   (``{"params", "batch_stats", "constants"}``): the inverse of
   ``import_torch_state_dict_ov``.
+- :func:`state_dict_from_jax_vovnet` does the same for the JAX
+  package's ``VoVNet`` (``models/vovnet.py``), whose keys are its module
+  names.
 - :func:`random_state_dict` makes seeded random weights for a model
   (numpy's generator, so every device gets the same numbers).
 """
@@ -212,11 +215,6 @@ def _resnet(o: _Out, cfg, p, s, prefix):
                 o.bn(f"{src}.downsample.1", bp["ds_bn"], bs["ds_bn"])
 
 
-# the BN variance that the JAX importer's eps 1e-5 turns into a scale of
-# exactly 1 in fp32 (1 / sqrt(var + 1e-5) == 1)
-_UNIT_VAR = np.float32(1.0) - np.float32(1e-5)
-
-
 def _view_trans(o: _Out, cfg, p, s, prefix):
     for k in range(cfg.num_view_convs):
         src = f"{prefix}.conv_trans_head_{k + 1}"
@@ -225,16 +223,11 @@ def _view_trans(o: _Out, cfg, p, s, prefix):
         o.bn(f"{src}.1", p[f"bn{k + 1}"], s[f"bn{k + 1}"])
     for name in ("trans_conv", "time_conv"):
         if name in p:
-            # the JAX Dense holds the reference's conv with its eval BN
-            # folded in: the conv takes the Dense, the BN is the identity
+            # the JAX Dense is the port's 1x1 conv ``.0``
             kern = np.asarray(p[name]["kernel"])          # (in, out)
             o.sd[f"{prefix}.{name}.0.weight"] = _f32(kern.T.reshape(
                 kern.shape[1], kern.shape[0], 1, 1, 1))
             o.sd[f"{prefix}.{name}.0.bias"] = _f32(p[name]["bias"])
-            c = kern.shape[1]
-            o.bn(f"{prefix}.{name}.1",
-                 {"scale": np.ones(c), "bias": np.zeros(c)},
-                 {"mean": np.zeros(c), "var": np.full(c, _UNIT_VAR)})
 
 
 def _head_clip(o: _Out, cfg, p, c, prefix):
@@ -290,6 +283,28 @@ def state_dict_from_jax_ov(variables: Mapping, cfg
 
 
 DCN_OFFSET_SCALE = 0.02
+
+
+def state_dict_from_jax_vovnet(variables: Mapping
+                               ) -> Dict[str, np.ndarray]:
+    """JAX ``{"params", "batch_stats"}`` of ``VoVNet`` -> the
+    ``state_dict`` of ``models.vovnet.VoVNet``, module by module under
+    the same names: each flax ConvBNReLU's ``Conv_0`` / ``BatchNorm_0``
+    to ``.conv`` / ``.bn``, each eSE's ``Dense_0`` to ``.ese.fc``."""
+    o = _Out()
+    p, s = variables["params"], variables["batch_stats"]
+    for name, sub in p.items():
+        if name.startswith("stem"):
+            sub, stats = {"": sub}, {"": s[name]}
+        else:
+            o.linear(f"{name}.ese.fc", sub["ese"]["Dense_0"])
+            stats = s[name]
+        for c, pp in sub.items():
+            if c != "ese":
+                k = f"{name}.{c}".rstrip(".")
+                _conv2d(o, f"{k}.conv", pp["Conv_0"])
+                o.bn(f"{k}.bn", pp["BatchNorm_0"], stats[c]["BatchNorm_0"])
+    return o.sd
 
 
 def random_state_dict(model: nn.Module, seed: int) -> Dict[str, np.ndarray]:
