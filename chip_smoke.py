@@ -350,13 +350,42 @@ full width, each phase printing its host seconds:
 71. VoVNet-V2-39 at B=1 on a 480x640 image: bf16 on the card against
     fp32 on the CPU, ms.
 
+Then spatial sharding (``spatial``): ranks sharing the card over gloo in
+a (data, spatial) layout, the dense volume split along H
+(``parallel/spatial.py``), each phase printing its host seconds:
+
+72. two spatial ranks x one data group: the flagship's fp32 step (TF32
+    off, dropout 0) at B=4 on one process's matching
+    (``pinned_matching``) and weights against that process: the
+    gathered fused volume within SPATIAL_FUSED_ATOL, the loss and the
+    gradient norm by phase 60's rules, each module's largest relative
+    gradient error within SPATIAL_GRAD_RTOL's rule, the BN running
+    statistics; a planted fault (the sliced conv weights' gradients
+    without the spatial sum) must land outside; each rank's launches
+    (one process's step: K1-K4, K7, K10, K12), ms/step and the
+    all-reduces' share;
+73. two x two (four ranks, B=2 a data group) against the same process,
+    checked as 72;
+74. ``uni3detr_kitti_car`` at bf16, B=4: one process (spatial 1), then
+    two spatial ranks (the encoder output's H 200 as 2 x 100): the loss
+    within KITTI_SPATIAL_LOSS_RTOL of one process on the same matching
+    with the sharded step's BN formula (``global_bn_formula``; the gap to
+    cuDNN's printed), each rank's peak memory and ms/step, launches;
+75. the dense encoder at the flagship's width in train mode, fp32,
+    spatial 2 against 1 (the volume within SPATIAL_DENSE_RTOL, each
+    rank's peak); ``cli.train --spatial-shard 2 --num-processes 2`` on a
+    written SUN RGB-D root for one epoch (2 steps) and its eval: rank 0
+    holds the gathered detections and the metric, both ranks the same
+    weights, launches asserted; ``graft_entry.dryrun_multichip(4)`` in
+    the (2, 2) layout.
+
 Then one JSON line of the kernels (launches summed over every path's
 run: the inference and train runs of all six Lidar presets, the three
 OV presets' inference and train runs, K11's own call, the three
 ``cli.test`` runs and the train CLI's runs (phases 54, 55, 57 and 58:
 their steps and evals; phase 56's ``cli.test``), every rank's runs
-of phases 59-62 and the runs of phases 63-66 and 67-70, each read right
-after its run; times, errors,
+of phases 59-62 and 72-75 and the runs of phases 63-66 and 67-70, each
+read right after its run; times, errors,
 ``bound_ms`` with
 ``bound_by``, ``library_ms`` (null where no single PyTorch call
 computes the kernel's function) and, for the convs, ``gemm_ms``, at the
@@ -3343,39 +3372,8 @@ def ddp_step_rank(cfg, sd, batch_np, assigned, config, root, timed,
     first = launch_counts()
     out["logs"] = {k: float(v) for k, v in logs.items()}
     out["first"] = {k: first[k] - start[k] for k in first}
-    ms = []
-    for _ in range(timed):
-        t0 = time.perf_counter()
-        train_step(model, opt, batch)
-        sync()
-        ms.append((time.perf_counter() - t0) * 1e3)
-    real, calls = tdist.all_reduce, []
-
-    def timed_all_reduce(t, *a, **k):
-        sync()
-        t0 = time.perf_counter()
-        r = real(t, *a, **k)
-        sync()
-        calls.append((t.numel() * t.element_size(),
-                      time.perf_counter() - t0))
-        return r
-
-    tdist.all_reduce = timed_all_reduce
-    ms_timed = []
-    try:
-        for _ in range(timed):
-            t0 = time.perf_counter()
-            train_step(model, opt, batch)
-            sync()
-            ms_timed.append((time.perf_counter() - t0) * 1e3)
-    finally:
-        tdist.all_reduce = real
-    big = max(c[0] for c in calls)
-    out.update(ms=ms, ms_with_timers=ms_timed,
-               all_reduce_s=sum(c[1] for c in calls),
-               all_reduce_calls=len(calls) // timed,
-               grad_bytes=big,
-               grad_s=sum(c[1] for c in calls if c[0] == big),
+    out.update(timed_steps(torch, lambda: train_step(model, opt, batch),
+                           timed, sync),
                steps=1 + 2 * timed,
                peak=torch.cuda.max_memory_allocated(dev) if cuda else 0)
     del model, opt, batch
@@ -3604,8 +3602,8 @@ def ddp_step_phase(torch, dev, n, B, backend, root, config, tag, cfg=None):
               f"({[round(t, 3) for t in rk['ms']]}); with the all-reduce "
               f"timed: {rk['all_reduce_calls']} all-reduces a step, "
               f"{rk['all_reduce_s'] * 1e3 / DDP_TIMED:.3f} ms a step (the "
-              f"gradients' {rk['grad_bytes']} B "
-              f"{rk['grad_s'] * 1e3 / DDP_TIMED:.3f} ms), share "
+              f"gradients' {rk['big_bytes']} B "
+              f"{rk['big_s'] * 1e3 / DDP_TIMED:.3f} ms), share "
               f"{ar:.3f} of {statistics.median(rk['ms_with_timers']):.3f} "
               f"ms/step ({card}); peak_mem_bytes={rk['peak']}; launches "
               f"step 1 {rk['first']}, over {rk['steps']} steps and "
@@ -3769,7 +3767,8 @@ def ddp(torch, dev):
     t0 = time.perf_counter()
     res = graft_entry.dryrun_multichip(DDP_RANKS, device="cuda")
     dcfg = graft_entry.dryrun_config()
-    n_eval = 2 * DDP_RANKS + 1
+    # the JAX dry run's (data, spatial) layout: (1, 2), the eval over 3
+    n_eval = 2 * graft_entry.dryrun_layout(DDP_RANKS)[0] + 1
     for rk in res:
         shard = len(range(rk["rank"], n_eval, DDP_RANKS))
         want = _sum_launches(train_per_step(dcfg), _times(
@@ -3779,6 +3778,7 @@ def ddp(torch, dev):
                  f"!= {want}")
         runs.append(rk["launches"])
     print(f"[ddp-dryrun] dryrun_multichip({DDP_RANKS}) on the card in "
+          f"layout {res[0]['layout']} (data x spatial) in "
           f"{time.perf_counter() - t0:.1f}s, launches a rank as one tiny "
           f"step and its eval shard")
     shutil.rmtree(DDP_DIR, ignore_errors=True)
@@ -4668,6 +4668,695 @@ def options(torch, dev, report):
     return runs
 
 
+# -- spatial sharding: the dense volume split along H (phases 72-75) -------
+SPATIAL_DIR = os.path.join(_ROOT, "build", "chip_smoke_spatial")
+SPATIAL_B = 4         # phases 72-74: the global batch (73: 2 a data group)
+SPATIAL_TIMED = 1     # phases 72 and 74: timed steps a rank, then as many
+                      # with each all-reduce timed (73: none)
+# phases 72-73: the gathered fused volume, of its largest value
+# (tests/test_parallel.py's 2e-5 at the tiny model's unit scale; the
+# flagship's volume reaches ~1e2, where an fp32 ulp is ~1e-5)
+SPATIAL_FUSED_RTOL = 2e-5
+# phases 72-73: each module's relative gradient error (the L2 norm of the
+# difference over the module's gradient's): twice that of two one-process
+# runs, at least 1e-3, never looser than 5e-2. (The largest entry of a
+# deep layer differs by ~5% between two one-process runs on the card:
+# atomics and cuDNN's algorithms; the L2 norm averages that out.)
+SPATIAL_GRAD_RTOL = (1e-3, 5e-2)
+SPATIAL_BN_RTOL = 1e-4   # phases 72-73: BN running statistics, of the largest
+# phase 74: KITTI car's bf16 loss at spatial 2 against one process on the
+# same matching that takes its batch statistics as the sharded step does
+# (``global_bn_formula``: E[x^2] - E[x]^2, JAX's formula, where cuDNN's
+# one-rank kernel differs in the last bits and nine chaotic decoder
+# layers at random weights carry that to ~1% of the loss)
+KITTI_SPATIAL_LOSS_RTOL = 1e-3
+SPATIAL_DENSE_B = 1      # phase 75: scenes of the dense encoder's batch
+SPATIAL_DENSE_RTOL = 1e-4   # phase 75: of the volume's largest value
+SLICED_MODULES = ("pts_backbone", "pts_neck")   # run on H slices
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _reset_peak(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _peak(torch, dev):
+    """Peak device memory since the last reset (0 on the CPU)."""
+    return torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+
+
+@contextlib.contextmanager
+def global_bn_formula():
+    """Within: a train-mode ``FlaxBatchNormStats`` BN of one process takes
+    its statistics as the sharded step's does (``_global_forward``), not
+    from cuDNN's kernel."""
+    from uni3detr_tpu_torch.models import layers
+
+    real = layers.FlaxBatchNormStats.forward
+
+    def forward(self, x):
+        return self._global_forward(x) if self.training else real(self, x)
+
+    layers.FlaxBatchNormStats.forward = forward
+    try:
+        yield
+    finally:
+        layers.FlaxBatchNormStats.forward = real
+
+
+def first_layer_loss(logs):
+    """The first decoder layer's loss (its ``d0.*`` terms)."""
+    return sum(v for k, v in logs.items() if k.startswith("d0."))
+
+
+def module_errors(got, ref):
+    """Each top-level module's relative gradient error: the L2 norm of
+    ``got - ref`` over its parameters over that of ``ref``."""
+    num, den = {}, {}
+    for k, r in ref.items():
+        m = k.split(".")[0]
+        num[m] = num.get(m, 0.0) + float(((got[k] - r) ** 2).sum())
+        den[m] = den.get(m, 0.0) + float((r ** 2).sum())
+    return {m: math.sqrt(num[m] / den[m]) if den[m] else math.sqrt(num[m])
+            for m in num}
+
+
+def bn_error(got, ref):
+    """(The largest error of the BN running statistics, of each buffer's
+    largest value; its buffer)."""
+    return max((float((got[k] - r).abs().max())
+                / max(float(r.abs().max()), 1e-12), k)
+               for k, r in ref.items())
+
+
+def captured_step(torch, model, opt, batch, fixed=None, seen=None,
+                  plant=False):
+    """One ``train_step`` (the loss on ``fixed``'s matching where given;
+    ``seen`` collects the matcher's): the logs, and on the host the head's
+    input (the gathered fused volume), every gradient after the
+    reduction (before the clip) by name and the BN running statistics
+    after. ``plant``: the sliced layers' conv weights leave the reduction,
+    each rank keeping its own partial gradient (a planted fault)."""
+    from uni3detr_tpu_torch.parallel import dist
+    from uni3detr_tpu_torch.train.step import train_step
+
+    name_of = {id(p): n for n, p in model.named_parameters()}
+    names = [name_of[id(p)] for p in opt.params]
+    convs = {f"{n}.weight" for n, m in model.named_modules()
+             if n.startswith(SLICED_MODULES)
+             and isinstance(m, (torch.nn.Conv3d, torch.nn.ConvTranspose3d))}
+    cap = {}
+
+    def hook(mod, args):
+        cap.setdefault("fused", args[0].detach().float().cpu().clone())
+
+    real = dist.average_gradients
+
+    def reduce(grads, *a, **k):
+        real([g for g, n in zip(grads, names) if not (plant and n in convs)],
+             *a, **k)
+        cap["grads"] = {n: g.detach().float().cpu().clone()
+                        for n, g in zip(names, grads)}
+
+    handle = model.pts_bbox_head.register_forward_pre_hook(hook)
+    dist.average_gradients = reduce
+    try:
+        with pinned_matching(fixed, seen):
+            logs = train_step(model, opt, batch)
+    finally:
+        dist.average_gradients = real
+        handle.remove()
+    cap["logs"] = {k: float(v) for k, v in logs.items()}
+    cap["bn"] = {k: v.detach().float().cpu().clone()
+                 for k, v in model.state_dict().items() if "running_" in k}
+    cap["planted"] = len(convs) if plant else 0
+    return cap
+
+
+def timed_steps(torch, step, n, sync):
+    """``n`` calls of ``step`` timed on the host after a sync each, then
+    ``n`` more with each ``torch.distributed.all_reduce`` timed between
+    two syncs: (ms, ms with the timers, all-reduce calls a step, their
+    seconds, the largest one's bytes and its seconds)."""
+    import torch.distributed as tdist
+
+    ms = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        step()
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    real, calls = tdist.all_reduce, []
+
+    def timed_all_reduce(t, *a, **k):
+        sync()
+        t0 = time.perf_counter()
+        r = real(t, *a, **k)
+        sync()
+        calls.append((t.numel() * t.element_size(),
+                      time.perf_counter() - t0))
+        return r
+
+    tdist.all_reduce = timed_all_reduce
+    ms_timed = []
+    try:
+        for _ in range(n):
+            t0 = time.perf_counter()
+            step()
+            sync()
+            ms_timed.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        tdist.all_reduce = real
+    big = max(c[0] for c in calls)
+    return dict(ms=ms, ms_with_timers=ms_timed,
+                all_reduce_calls=len(calls) // n,
+                all_reduce_s=sum(c[1] for c in calls), big_bytes=big,
+                big_s=sum(c[1] for c in calls if c[0] == big))
+
+
+def step_times(r):
+    """A rank's ms/step and its all-reduces' share, as printed (empty when
+    it timed no step)."""
+    if not r.get("ms"):
+        return ""
+    n = len(r["ms"])
+    share = r["all_reduce_s"] / (sum(r["ms_with_timers"]) / 1e3)
+    return (f"ms/step median {statistics.median(r['ms']):.3f} over {n} "
+            f"({[round(t, 3) for t in r['ms']]}); with the all-reduces "
+            f"timed: {r['all_reduce_calls']} a step, "
+            f"{r['all_reduce_s'] * 1e3 / n:.3f} ms a step (the largest, "
+            f"{r['big_bytes']} B: {r['big_s'] * 1e3 / n:.3f} ms), share "
+            f"{share:.3f} of {statistics.median(r['ms_with_timers']):.3f} "
+            f"ms/step; ")
+
+
+def spatial_step_task(torch, dev, cfg, sd, batch_np, assigned, timed,
+                      plant=False):
+    """Phases 72-74, one rank: the step of ``cfg`` from ``sd`` on this
+    data group's slice of ``batch_np``, the loss on its slice of
+    ``assigned`` (one process's matching), captured (``captured_step``;
+    the host copies on rank 0 only); ``timed`` steps and as many with the
+    all-reduces timed (none with 0); the peak; with ``plant`` the first
+    step again from ``sd`` with the planted fault. Returns host
+    objects."""
+    import torch.distributed as tdist
+    from uni3detr_tpu_torch.parallel import dist
+    from uni3detr_tpu_torch.train.step import make_optimizer, train_step
+
+    sync = functools.partial(_sync, torch, dev)
+    counters = kernel_wrappers()
+    sl = dist.local_slice(len(batch_np["points"]))
+    batch = {k: torch.from_numpy(v[sl]).to(dev) for k, v in batch_np.items()}
+    mine = torch.from_numpy(assigned[:, sl])
+
+    def fresh():
+        model = build_model(cfg)
+        model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
+        model.to(dev)
+        return model, make_optimizer(model, TRAIN_LR)
+
+    model, opt = fresh()
+    _reset_peak(torch, dev)
+    start = {k: fn.launches for k, fn in counters.items()}
+    cap = captured_step(torch, model, opt, batch, fixed=mine)
+    sync()
+    first = {k: fn.launches - start[k] for k, fn in counters.items()}
+    out = timed_steps(torch, lambda: train_step(model, opt, batch), timed,
+                      sync) if timed else {}
+    out.update(rank=dist.rank(), backend=tdist.get_backend(),
+               layout=(dist.data_size(), dist.spatial_size()),
+               logs=cap["logs"], first=first, steps=1 + 2 * timed,
+               peak=_peak(torch, dev),
+               launches={k: fn.launches - start[k]
+                         for k, fn in counters.items()})
+    if dist.rank() == 0:
+        out["cap"] = {k: cap[k] for k in ("fused", "grads", "bn")}
+    del model, opt, cap
+    if plant:
+        model, opt = fresh()
+        before = {k: fn.launches for k, fn in counters.items()}
+        cap = captured_step(torch, model, opt, batch, fixed=mine,
+                            plant=True)
+        sync()
+        out["planted_launches"] = {k: fn.launches - before[k]
+                                   for k, fn in counters.items()}
+        if dist.rank() == 0:
+            out["planted"] = {k: cap[k] for k in ("grads", "planted")}
+        del model, opt, cap
+    torch.cuda.empty_cache()
+    return out
+
+
+def dense_encoder_run(torch, dev, enc_cfg, enc_sd, voxels_np):
+    """The dense encoder (``enc_cfg``: a Uni3DETRConfig with
+    ``encoder_impl="dense"``) from ``enc_sd`` in train mode on
+    ``voxels_np`` inside ``dist.sharded_batch()`` (split along H over the
+    spatial ranks of a process group), then the backward of ``sum(volume
+    * w)`` for a seeded normal w of the whole volume's shape (over S
+    where the volume is whole): (this rank's volume on the host, the
+    global grid, ms, the peak)."""
+    from uni3detr_tpu_torch.parallel import dist, spatial
+
+    enc = build_model(enc_cfg).pts_middle_encoder
+    enc.load_state_dict({k: torch.from_numpy(v) for k, v in enc_sd.items()})
+    enc.train().to(dev)
+    f, co, m = (torch.from_numpy(a).to(dev) for a in voxels_np)
+    _reset_peak(torch, dev)
+    t0 = time.perf_counter()
+    with dist.sharded_batch():
+        vol, grid = enc(f, co, m, spatial=True)
+        w = torch.randn((vol.shape[0], *grid, vol.shape[-1]),
+                        generator=torch.Generator().manual_seed(3)).to(dev)
+        if vol.shape[2] != grid[1]:
+            (vol * spatial.shard(w, 2)).sum().backward()
+        else:
+            (vol * w).sum().div(dist.spatial_size()).backward()
+    _sync(torch, dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    out = (vol.detach().cpu(), tuple(grid), ms, _peak(torch, dev))
+    del enc, vol, f, co, m, w
+    torch.cuda.empty_cache()
+    return out
+
+
+def spatial_rank(tasks, device="cuda"):
+    """One rank of phases 72-75 (in a process group of a (data, spatial)
+    layout): each of ``tasks`` ((phase, kind, kwargs); kind "step" runs
+    ``spatial_step_task``, "dense" ``dense_encoder_run``) in turn, fp32
+    tasks with TF32 off; returns {phase: result} with each task's host
+    seconds. ``device="cpu"`` runs it on the CPU (a rehearsal)."""
+    import torch
+
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if device == "cuda" else torch.device("cpu")
+    out = {}
+    for phase, kind, kw in tasks:
+        t0 = time.perf_counter()
+        fp32 = kw.pop("fp32")
+        torch.backends.cudnn.allow_tf32 = not fp32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        if kind == "step":
+            res = spatial_step_task(torch, dev, **kw)
+        else:
+            vol, grid, ms, peak = dense_encoder_run(torch, dev, **kw)
+            res = dict(vol=vol, grid=grid, ms=ms, peak=peak)
+        torch.backends.cudnn.allow_tf32 = True
+        res["s"] = time.perf_counter() - t0
+        out[phase] = res
+    return out
+
+
+def spatial_cli_rank(config, root, work_dir, coordinator, device="cuda"):
+    """Phase 75, one rank: ``cli.train CONFIG --spatial-shard 2
+    --num-processes 2`` for one epoch (2 steps) and its eval, the JAX
+    CLI's flags; returns the summary, this rank's launches, the gathered
+    detections' count and, on rank 0, the GT and detections, and a digest
+    of the weights after."""
+    import hashlib
+    from uni3detr_tpu_torch.cli import train as cli_train
+    from uni3detr_tpu_torch.train import evaluator
+    from uni3detr_tpu_torch.train import step as step_mod
+
+    seen = {}
+    real_step, real_eval = step_mod.train_step, \
+        evaluator.run_inference_distributed
+
+    def watch_step(model, opt, batch, **kw):
+        seen["model"] = model
+        return real_step(model, opt, batch, **kw)
+
+    def watch_eval(*a, **k):
+        dets, gts = real_eval(*a, **k)
+        seen["eval"] = (dets, gts)
+        return dets, gts
+
+    step_mod.train_step = watch_step
+    evaluator.run_inference_distributed = watch_eval
+    try:
+        res = cli_train.main([
+            config, "--work-dir", work_dir, "--spatial-shard", "2",
+            "--num-processes", os.environ["WORLD_SIZE"], "--process-id",
+            os.environ["RANK"], "--coordinator", coordinator, "--device",
+            device,
+            "--cfg-options", f"data.data_root={root}", "data.repeat=1",
+            "total_epochs=1", "evaluation.interval=1",
+            "log_config.interval=1"])
+    finally:
+        step_mod.train_step = real_step
+        evaluator.run_inference_distributed = real_eval
+    digest = hashlib.sha256()
+    for k, v in seen["model"].state_dict().items():
+        digest.update(k.encode())
+        digest.update(v.detach().cpu().numpy().tobytes())
+    dets, gts = seen["eval"]
+    out = {k: res[k] for k in ("epoch", "step", "evals", "rank",
+                               "world_size", "launches")}
+    out.update(n_dets=len(dets), digest=digest.hexdigest())
+    if res["rank"] == 0:
+        out["sets"] = sum(bool(len(g["boxes"]) and len(d["boxes"]))
+                          for g, d in zip(gts, dets))
+    return out
+
+
+def spatial_reference(torch, dev, cfg, sd, batch_np, tag):
+    """One process's first step of ``cfg`` (fp32; TF32 off) from ``sd``
+    on the whole ``batch_np``, twice, the second on the first's matching
+    (``captured_step``): the first run's capture with its matching
+    (``assigned``, numpy) and the tolerances from the two runs' spread:
+    the loss's and the gradient norm's (phase 60's rules) and each
+    module's gradient error (SPATIAL_GRAD_RTOL's rule)."""
+    from uni3detr_tpu_torch.train.step import make_optimizer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runs, seen = [], []
+    for i in range(2):
+        model = build_model(cfg)
+        model.load_state_dict(sd, strict=True)
+        model.to(dev)
+        opt = make_optimizer(model, TRAIN_LR)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
+        runs.append(captured_step(torch, model, opt, batch,
+                                  fixed=seen[0] if i else None,
+                                  seen=None if i else seen))
+        del model, opt, batch
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = True
+    one, two = runs
+    loss, gnorm = one["logs"]["total_loss"], one["logs"]["grad_norm"]
+    again = abs(two["logs"]["total_loss"] - loss) / abs(loss)
+    gspread = abs(two["logs"]["grad_norm"] - gnorm) / gnorm
+    spread = module_errors(two["grads"], one["grads"])
+    fspread = float((two["fused"] - one["fused"]).abs().max())
+    ref = dict(one=one, assigned=seen[0].numpy(), B=len(batch_np["points"]),
+               scale=float(one["fused"].abs().max()),
+               ltol=min(max(2 * again, DDP_LOSS_RTOL[0]), DDP_LOSS_RTOL[1]),
+               gtol=min(max(2 * gspread, DDP_GNORM_RTOL[0]),
+                        DDP_GNORM_RTOL[1]),
+               mtol={m: min(max(2 * e, SPATIAL_GRAD_RTOL[0]),
+                            SPATIAL_GRAD_RTOL[1]) for m, e in spread.items()})
+    print(f"[{tag}] one process at B={ref['B']}, fp32, TF32 off, twice on "
+          f"one matching: total_loss {loss!r} (again {again:.3g}: loss rtol "
+          f"{ref['ltol']:.3g}), grad_norm {gnorm!r} (again {gspread:.3g}: "
+          f"rtol {ref['gtol']:.3g}); the fused volume's largest value "
+          f"{ref['scale']:.4g}, again {fspread:.3g} apart; relative "
+          f"gradient error between the two runs by module "
+          f"{({m: f'{e:.3g}' for m, e in spread.items()})} -> tolerance "
+          f"{({m: f'{e:.3g}' for m, e in ref['mtol'].items()})}")
+    return ref
+
+
+def check_spatial_step(tag, ranks, key, ref, per_step, cuda, backend):
+    """The ranks' ``spatial_step_task`` results (``ranks[i][key]``)
+    against one process's (``spatial_reference``): each rank's loss and
+    gradient norm, its launches (on the card), ms/step and the
+    all-reduces' share printed; rank 0's gathered fused volume (its data
+    group's scenes), BN running statistics and each module's gradient
+    error. Returns the ranks' launches."""
+    one, runs = ref["one"], []
+    r0 = ranks[0][key]
+    G = r0["layout"][0]
+    fe = float((r0["cap"]["fused"] - one["fused"][:ref["B"] // G])
+               .abs().max())
+    errs = module_errors(r0["cap"]["grads"], one["grads"])
+    be, bkey = bn_error(r0["cap"]["bn"], one["bn"])
+    ok = fe <= SPATIAL_FUSED_RTOL * ref["scale"] and be <= SPATIAL_BN_RTOL \
+        and all(errs[m] <= ref["mtol"][m] for m in errs)
+    for rk in ranks:
+        r = rk[key]
+        logs = r["logs"]
+        el = abs(logs["total_loss"] - one["logs"]["total_loss"]) \
+            / abs(one["logs"]["total_loss"])
+        eg = abs(logs["grad_norm"] - one["logs"]["grad_norm"]) \
+            / one["logs"]["grad_norm"]
+        print(f"[{tag}] rank {r['rank']} ({r['backend']}), layout "
+              f"{r['layout']} (data x spatial), B={ref['B'] // G} a data "
+              f"group: total_loss={logs['total_loss']!r} (relative {el:.3g},"
+              f" rtol {ref['ltol']:.3g}), grad_norm={logs['grad_norm']!r} "
+              f"(relative {eg:.3g}, rtol {ref['gtol']:.3g}); "
+              f"{step_times(r)}peak_mem_bytes={r['peak']}; launches step 1 "
+              f"{r['first']}, over {r['steps']} steps {r['launches']} "
+              f"({r['s']:.1f}s)")
+        if not (el <= ref["ltol"] and eg <= ref["gtol"]) or (
+                backend and r["backend"] != backend):
+            fail(f"{tag} rank {r['rank']}: loss, grad norm or backend")
+        if cuda and (r["first"] != per_step or r["launches"] != _times(
+                per_step, r["steps"])):
+            fail(f"{tag} rank {r['rank']}: launches {r['launches']} != "
+                 f"{per_step} a step")
+        runs.append(r["launches"])
+        if "planted_launches" in r:
+            runs.append(r["planted_launches"])
+    print(f"[{tag}] rank 0 against one process: the gathered fused volume "
+          f"{tuple(r0['cap']['fused'].shape)} max abs err {fe:.3g} (rtol "
+          f"{SPATIAL_FUSED_RTOL} of {ref['scale']:.4g}); BN running "
+          f"statistics {be:.3g} at {bkey} (rtol {SPATIAL_BN_RTOL}); relative"
+          f" gradient error by module "
+          f"{({m: f'{e:.3g}' for m, e in errs.items()})}: within the "
+          f"tolerance {ok}")
+    if not ok:
+        fail(f"{tag}: fused volume, BN statistics or gradients off one "
+             f"process")
+    return runs
+
+
+def spatial(torch, dev, flagship_cfg=None, kitti_cfg=None):
+    """Phases 72-75: spatial sharding on the card, ranks sharing it over
+    gloo (``flagship_cfg`` / ``kitti_cfg`` replace the presets, and a CPU
+    ``dev`` runs it all on the CPU without the launch checks: a
+    rehearsal). 72 two spatial ranks x one data group against one process: the
+    flagship's fp32 step at B=4 on one matching; 73 two x two (four
+    ranks, B=2 a data group); 74 KITTI car, bf16, B=4, spatial 1 and 2:
+    loss, each rank's peak and ms/step; 75 the dense encoder at the
+    flagship's width, spatial 2 against 1, ``cli.train --spatial-shard 2
+    --num-processes 2``, ``graft_entry.dryrun_multichip(4)`` ((2, 2)).
+    Returns the launches of every rank's runs."""
+    from uni3detr_tpu_torch import graft_entry
+    from uni3detr_tpu_torch.config_file import (build_model_config,
+                                                load_config,
+                                                merge_cfg_options)
+    from uni3detr_tpu_torch.parallel.launch import spawn
+    from uni3detr_tpu_torch.presets import KITTI_CAR, SUNRGBD
+    from uni3detr_tpu_torch.synthetic import clustered_train_batch
+    from uni3detr_tpu_torch.train.step import make_optimizer, train_step
+
+    shutil.rmtree(SPATIAL_DIR, ignore_errors=True)
+    cuda = dev.type == "cuda"
+    card = card_line() if cuda else "CPU"
+    runs, secs = [], {}
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(flagship_cfg or SUNRGBD,
+                              compute_dtype="float32", dropout=0.0)
+    per_step = train_per_step(cfg)
+    sd = _state_dict(torch, build_model(cfg))
+    sd_np = {k: v.numpy() for k, v in sd.items()}
+    batch_np = clustered_train_batch(DDP_BATCH_SEED, cfg, SPATIAL_B)
+    ref = spatial_reference(torch, dev, cfg, sd, batch_np, "spatial")
+    assigned = ref["assigned"]
+
+    kcfg = dataclasses.replace(kitti_cfg or KITTI_CAR, dropout=0.0)
+    kper_step = train_per_step(kcfg)
+    ksd = {k: v.numpy() for k, v in _state_dict(
+        torch, build_model(kcfg)).items()}
+    kbatch_np = clustered_train_batch(0, kcfg, SPATIAL_B)
+    kone, kseen = [], []
+    for i in range(2):
+        model = build_model(kcfg)
+        model.load_state_dict({k: torch.from_numpy(v)
+                               for k, v in ksd.items()})
+        model.to(dev)
+        opt = make_optimizer(model, TRAIN_LR)
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in kbatch_np.items()}
+        _reset_peak(torch, dev)
+        # the second run takes the sharded step's statistics formula
+        with pinned_matching(kseen[0] if i else None, None if i else kseen), \
+                global_bn_formula() if i else contextlib.nullcontext():
+            logs = train_step(model, opt, batch)
+        res = {"loss": float(logs["total_loss"]),
+               "d0": first_layer_loss({k: float(v) for k, v in logs.items()})}
+        if i == 0:
+            ms = []
+            for _ in range(SPATIAL_TIMED):
+                t1 = time.perf_counter()
+                train_step(model, opt, batch)
+                _sync(torch, dev)
+                ms.append((time.perf_counter() - t1) * 1e3)
+            res.update(ms=ms, peak=_peak(torch, dev))
+        kone.append(res)
+        del model, opt, batch
+        torch.cuda.empty_cache()
+    kassigned = kseen[0].numpy()
+    kform = abs(kone[1]["loss"] - kone[0]["loss"]) / abs(kone[0]["loss"])
+    print(f"[spatial-kitti] one process (spatial 1), uni3detr_kitti_car "
+          f"bf16 at B={SPATIAL_B}: total_loss {kone[0]['loss']!r}, first "
+          f"decoder layer {kone[0]['d0']!r}; on its matching with the "
+          f"sharded step's BN formula {kone[1]['loss']!r} ({kform:.3g} "
+          f"apart); ms/step {[round(t, 3) for t in kone[0]['ms']]} after a "
+          f"first; peak_mem_bytes={kone[0]['peak']} ({card})")
+
+    dcfg = dataclasses.replace(cfg, encoder_impl="dense")
+    pts = torch.from_numpy(clustered_train_batch(
+        0, dcfg, SPATIAL_DENSE_B)["points"]).to(dev)
+    voxels = tuple(a.cpu().numpy() for a in build_model(dcfg).train()
+                   .voxelize(pts, torch.ones(pts.shape[:2], dtype=torch.bool,
+                                             device=dev)))
+    prefix = "pts_middle_encoder."
+    enc_sd = {k[len(prefix):]: v.numpy() for k, v in sd.items()
+              if k.startswith(prefix)}
+    torch.backends.cudnn.allow_tf32 = False
+    dvol, dgrid, dms, dpeak = dense_encoder_run(torch, dev, dcfg, enc_sd,
+                                                voxels)
+    torch.backends.cudnn.allow_tf32 = True
+    print(f"[spatial-dense] one process (spatial 1), the dense encoder at "
+          f"the flagship's width, fp32, TF32 off, train mode, B="
+          f"{SPATIAL_DENSE_B} ({int(voxels[2].sum())} voxels): volume "
+          f"{tuple(dvol.shape)}, forward + backward ms={dms:.3f} "
+          f"peak_mem_bytes={dpeak}")
+    secs["reference"] = time.perf_counter() - t0
+
+    # -- 72, 74 and 75's encoder: two spatial ranks x one data group
+    t0 = time.perf_counter()
+    tasks = [
+        ("72", "step", dict(cfg=cfg, sd=sd_np, batch_np=batch_np,
+                            assigned=assigned, timed=SPATIAL_TIMED,
+                            plant=True, fp32=True)),
+        ("74", "step", dict(cfg=kcfg, sd=ksd, batch_np=kbatch_np,
+                            assigned=kassigned, timed=SPATIAL_TIMED,
+                            fp32=False)),
+        ("75", "dense", dict(enc_cfg=dcfg, enc_sd=enc_sd,
+                             voxels_np=voxels, fp32=True))]
+    two = spawn("chip_smoke:spatial_rank", 2, (tasks, dev.type),
+                device=dev.type, timeout=DDP_TIMEOUT, spatial=2)
+    secs["1x2 ranks"] = time.perf_counter() - t0
+    # -- 73: two x two
+    t0 = time.perf_counter()
+    four = spawn("chip_smoke:spatial_rank", 4, ([
+        ("73", "step", dict(cfg=cfg, sd=sd_np, batch_np=batch_np,
+                            assigned=assigned, timed=0, fp32=True))],
+        dev.type), device=dev.type, timeout=DDP_TIMEOUT, spatial=2)
+    secs["2x2 ranks"] = time.perf_counter() - t0
+
+    runs += check_spatial_step("spatial-72", two, "72", ref, per_step, cuda,
+                               "gloo")
+    planted = two[0]["72"]["planted"]
+    perrs = module_errors(planted["grads"], ref["one"]["grads"])
+    outside = [m for m in SLICED_MODULES if perrs[m] > ref["mtol"][m]]
+    print(f"[spatial-72] the planted fault (the {planted['planted']} sliced "
+          f"conv weights' gradients without the spatial sum, rank 0's "
+          f"partial one): relative gradient error by module "
+          f"{({m: f'{e:.3g}' for m, e in perrs.items()})}; outside the "
+          f"tolerance in {outside}")
+    if set(outside) != set(SLICED_MODULES):
+        fail("spatial-72: the gradient tolerance passes a step without "
+             "the spatial sum of the sliced conv weights")
+    runs += check_spatial_step("spatial-73", four, "73", ref, per_step,
+                               cuda, "gloo")
+
+    for rk in two:
+        r = rk["74"]
+        loss = r["logs"]["total_loss"]
+        el = abs(loss - kone[1]["loss"]) / abs(kone[1]["loss"])
+        e1 = abs(loss - kone[0]["loss"]) / abs(kone[0]["loss"])
+        e0 = abs(first_layer_loss(r["logs"]) - kone[0]["d0"]) \
+            / abs(kone[0]["d0"])
+        print(f"[spatial-kitti] rank {r['rank']} of 2 (spatial 2, the "
+              f"encoder output's H 200 as 2 x 100): total_loss={loss!r} "
+              f"(one process with its BN formula: relative {el:.3g}, rtol "
+              f"{KITTI_SPATIAL_LOSS_RTOL}; with cuDNN's: {e1:.3g}, the first "
+              f"decoder layer's {e0:.3g}); {step_times(r)}spatial 1 ms/step "
+              f"{[round(t, 3) for t in kone[0]['ms']]}; "
+              f"peak_mem_bytes={r['peak']} (spatial 1 {kone[0]['peak']}: "
+              f"{r['peak'] / max(kone[0]['peak'], 1):.3f}); launches "
+              f"{r['launches']} ({r['s']:.1f}s; {card})")
+        if not el <= KITTI_SPATIAL_LOSS_RTOL or cuda and (
+                r["first"] != kper_step
+                or r["launches"] != _times(kper_step, r["steps"])):
+            fail(f"spatial-kitti rank {r['rank']}: loss or launches")
+        runs.append(r["launches"])
+
+    got = [rk["75"] for rk in two]
+    if any(tuple(g["grid"]) != tuple(dgrid) for g in got):
+        fail("spatial-dense: grids differ")
+    vol = torch.cat([g["vol"] for g in got], 2) \
+        if got[0]["vol"].shape[2] != dgrid[1] else got[0]["vol"]
+    scale = float(dvol.abs().max())
+    active = dvol.abs().sum(-1) > 0
+    err = float((vol - dvol).abs().max())
+    print(f"[spatial-dense] two spatial ranks: each rank's volume "
+          f"{tuple(got[0]['vol'].shape)}, ms {[round(g['ms'], 3) for g in got]}"
+          f", peak_mem_bytes {[g['peak'] for g in got]} (spatial 1 {dpeak}); "
+          f"against spatial 1 at its {int(active.sum())} active sites: max "
+          f"abs err {err:.3g} (rtol {SPATIAL_DENSE_RTOL} of {scale:.3g}), "
+          f"{int((vol.abs().sum(-1) > 0).logical_xor(active).sum())} sites "
+          f"active in one alone ({got[0]['s']:.1f}s)")
+    if err > SPATIAL_DENSE_RTOL * scale or not scale > 0 or bool(
+            (vol.abs().sum(-1) > 0).logical_xor(active).any()):
+        fail("spatial-dense: the split encoder differs from the whole one")
+
+    # -- 75: cli.train --spatial-shard 2 on two ranks, the dry run (2, 2)
+    t0 = time.perf_counter()
+    root = ddp_root(os.path.join(SPATIAL_DIR, "sunrgbd"), DDP_SCENES)
+    cfile = merge_cfg_options(load_config(SUNRGBD_CONFIG),
+                              [f"data.data_root={root}"])
+    mc = build_model_config(cfile)
+    bs = cfile.data["samples_per_gpu"]
+    wd = os.path.join(SPATIAL_DIR, "cli")
+    ranks = spawn("chip_smoke:spatial_cli_rank", 2,
+                  (SUNRGBD_CONFIG, root, wd, f"127.0.0.1:{free_port()}",
+                   dev.type), device=dev.type, init=False,
+                  timeout=DDP_TIMEOUT)
+    for r in ranks:
+        shard = len(range(r["rank"], DDP_SCENES, 2))
+        want = _sum_launches(_times(train_per_step(mc), DDP_SCENES // bs),
+                             _times(infer_per_batch(mc), -(-shard // bs)))
+        if r["rank"] == 0:
+            want["iou3d_rotated_sets"] = r["sets"]
+        print(f"[spatial-cli] rank {r['rank']}: {r['step']} steps, epoch "
+              f"{r['epoch']}, world size {r['world_size']}, eval "
+              f"{r['n_dets']} detections gathered, metric "
+              f"{_metric_summary(r['evals'][1]) if r['evals'] else 'none'}; "
+              f"weights {r['digest'][:16]}; launches {r['launches']}")
+        if cuda and r["launches"] != want or r["step"] != DDP_SCENES // bs:
+            fail(f"spatial-cli rank {r['rank']}: steps or launches "
+                 f"{r['launches']} != {want}")
+        runs.append(r["launches"])
+    r0, r1 = ranks
+    if not (r0["n_dets"] == DDP_SCENES and r1["n_dets"] == 0
+            and r0["evals"] and not r1["evals"]
+            and r0["digest"] == r1["digest"]
+            and os.path.isdir(os.path.join(wd, "latest"))):
+        fail("spatial-cli: rank 0's gather, the metric, equal weights or "
+             "the checkpoint")
+    secs["cli"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = graft_entry.dryrun_multichip(4, device=dev.type)
+    gcfg = graft_entry.dryrun_config()
+    data, _ = graft_entry.dryrun_layout(4)
+    for rk in res:
+        shard = len(range(rk["rank"], 2 * data + 1, 4))
+        want = _sum_launches(train_per_step(gcfg), _times(
+            infer_per_batch(gcfg), -(-shard // 2)))
+        if rk["layout"] != (2, 2) or cuda and rk["launches"] != want:
+            fail(f"spatial-dryrun rank {rk['rank']}: layout {rk['layout']} "
+                 f"launches {rk['launches']} != {want}")
+        runs.append(rk["launches"])
+    secs["dryrun (2, 2)"] = time.perf_counter() - t0
+    print(f"[spatial] cli.train --spatial-shard 2: both ranks' weights "
+          f"equal, rank 0 holds the {r0['n_dets']} detections and the "
+          f"checkpoint; dryrun_multichip(4) in (2, 2), launches a rank as "
+          f"one tiny step and its eval shard; host s: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+    shutil.rmtree(SPATIAL_DIR, ignore_errors=True)
+    return runs
+
+
 def main():
     import torch
 
@@ -4721,6 +5410,8 @@ def main():
     t.append(time.perf_counter())
     runs += options(torch, dev, report)
     t.append(time.perf_counter())
+    runs += spatial(torch, dev)
+    t.append(time.perf_counter())
     # the NMS kernels' numbers at uni3detr_scannet's 5000 boxes
     for name in ("iou3d_rotated", "nms_greedy"):
         report[name] = scan_reports[0][name]
@@ -4730,7 +5421,7 @@ def main():
             launches[k] = launches.get(k, 0) + v
     names = ("flagship", "nuscenes", "scannet", "scannet_large", "kitti_car",
              "kitti_3classes", "ov", "cli", "train_cli", "ddp", "onramps",
-             "options")
+             "options", "spatial")
     print("[time] " + ", ".join(f"{n} {t[i + 1] - t[i]:.1f}s"
                                 for i, n in enumerate(names))
           + f"; the whole smoke {time.perf_counter() - T_START:.1f}s")

@@ -33,7 +33,10 @@ which is what JAX's one jit over the sharded batch computes:
   pkl, rank 1 its ``train.rank1.log``; the gathered GT in dataset order;
 - ``graft_entry.entry(device="cpu")`` against JAX's ``entry()`` on the
   same zero weights (both at the tiny preset); ``dryrun_multichip(2,
-  device="cpu")``; ``--spatial-shard 2`` still raising.
+  device="cpu")`` in the (1, 2) layout and its (2, 2) on four ranks;
+  ``cli.train --spatial-shard 2`` on two ranks
+  (``tests/torch_spatial_workers.py``; the parity of the spatially
+  sharded step is ``test_torch_port_spatial.py``'s).
 """
 import os
 import pickle
@@ -275,10 +278,19 @@ def _torch_tree(cfg, sd, mu=None):
 
 
 def test_dp_step_grads_and_updates_match_jax_mesh(dp_steps):
+    check_step_against_jax(dp_steps["cfg"], dp_steps["v"], dp_steps["state"],
+                           dp_steps["ranks"])
+
+
+def check_step_against_jax(cfg, v, state, ranks, lr=1e-4):
+    """The ranks' ``torch_ddp_workers.train_step`` results against JAX's
+    updated ``state`` from the variables ``v``: every rank's weights
+    equal, the BN statistics and updated parameters within rtol 1e-4
+    (atol 1e-6), the gradients (AdamW's first moments) within
+    ``_grad_tol``."""
     import jax
-    cfg, state = dp_steps["cfg"], dp_steps["state"]
-    _, sd0, mu0, _ = dp_steps["ranks"][0]
-    for _, sd, mu, _ in dp_steps["ranks"][1:]:     # the ranks agree
+    _, sd0, mu0, _ = ranks[0]
+    for _, sd, mu, _ in ranks[1:]:     # the ranks agree
         for k in sd:
             np.testing.assert_array_equal(sd[k], sd0[k], err_msg=k)
     back = _torch_tree(cfg, sd0)
@@ -286,7 +298,7 @@ def test_dp_step_grads_and_updates_match_jax_mesh(dp_steps):
                            back["batch_stats"], state.batch_stats)
     tmu = _torch_tree(cfg, sd0, mu0)["params"]
     leaves = [dict(jax.tree_util.tree_flatten_with_path(t)[0]) for t in
-              (back["params"], state.params, dp_steps["v"]["params"],
+              (back["params"], state.params, v["params"],
                state.opt_state[1][0].mu, tmu)]
     n_free = n_all = 0
     for path in leaves[0]:
@@ -300,7 +312,6 @@ def test_dp_step_grads_and_updates_match_jax_mesh(dp_steps):
         n_free += int(free.sum())
         n_all += free.size
         _close(got[~free], ref[~free], rtol=1e-4, atol=1e-6, msg=key)
-        lr = 1e-4
         for a in (got, ref):
             assert np.all(np.abs(a - init)[free] <= 1.1 * lr + 1e-7), key
     assert n_free <= 0.01 * n_all, (n_free, n_all)
@@ -410,15 +421,52 @@ def test_graft_entry_matches_jax_entry(monkeypatch):
 
 
 def test_dryrun_multichip_on_cpu():
+    """Two ranks in the JAX dry run's (1, 2) layout: 2 scenes, the
+    volume split along H, the eval over 3."""
     res = graft_entry.dryrun_multichip(2, device="cpu", timeout=TIMEOUT)
     assert [r["rank"] for r in res] == [0, 1]
-    assert res[0]["n_eval"] == 5 and res[1]["n_eval"] == 0
+    assert [r["layout"] for r in res] == [(1, 2)] * 2
+    assert res[0]["n_eval"] == 3 and res[1]["n_eval"] == 0
     assert res[0]["loss"] == res[1]["loss"] and np.isfinite(res[0]["loss"])
 
 
-def test_spatial_shard_still_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli_train.main([TINY, "--device", "cpu", "--spatial-shard", "2"])
+def test_dryrun_multichip_four_ranks_on_cpu():
+    """Four ranks in the (2, 2) layout: 4 scenes, the eval over 5."""
+    res = spawn("uni3detr_tpu_torch.graft_entry:_dryrun_rank", 4,
+                kwargs={"device": "cpu"}, device="cpu", threads=1,
+                timeout=TIMEOUT, spatial=2)
+    assert graft_entry.dryrun_layout(4) == (2, 2)
+    assert [r["layout"] for r in res] == [(2, 2)] * 4
+    assert [r["n_eval"] for r in res] == [5, 0, 0, 0]
+    assert len({r["loss"] for r in res}) == 1 and np.isfinite(res[0]["loss"])
+
+
+def test_spatial_shard_still_raises(tmp_path):
+    """``cli.train --spatial-shard 2 --num-processes 2 --device cpu`` end
+    to end (what once raised): 3 steps with an eval after the first
+    epoch, the two ranks of the group on the same batches and with equal
+    weights after, rank 0's checkpoint holding them, its log the layout."""
+    from uni3detr_tpu_torch.train.checkpoint import load_checkpoint
+    wd = str(tmp_path / "wd")
+    ranks = spawn("torch_spatial_workers:cli_spatial", 2,
+                  (wd, f"file://{tmp_path / 'rendezvous'}"), device="cpu",
+                  init=False, threads=2, timeout=TIMEOUT)
+    (r0, sd0, b0), (r1, sd1, b1) = ranks
+    assert (r0["rank"], r1["rank"], r0["world_size"]) == (0, 1, 2)
+    assert r0["step"] == r1["step"] == 3
+    assert set(r0["evals"]) == {1} and r1["evals"] == {}
+    assert len(b0) == len(b1) == 3
+    for x, y in zip(b0, b1):
+        for k in x:
+            np.testing.assert_array_equal(x[k], y[k], err_msg=k)
+    ckpt = load_checkpoint(os.path.join(wd, "latest"))[0]["model"]
+    for k in sd0:
+        np.testing.assert_array_equal(sd1[k], sd0[k], err_msg=k)
+        np.testing.assert_array_equal(np.asarray(ckpt[k]), sd0[k], err_msg=k)
+    with open(os.path.join(wd, "train.log")) as f:
+        text = f.read()
+    assert "2 processes (1 data x 2 spatial)" in text
+    assert "eval epoch 1 | " in text
 
 
 def test_step_seed_keeps_one_process_and_splits_ranks():

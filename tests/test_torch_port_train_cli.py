@@ -20,8 +20,8 @@ CPU.
   step's loss equal to a direct ``train_step`` on the same batch and the
   seed's weights; each step's lr against JAX's schedule; the OV tiny
   config's staged branch loading, lr multipliers and frozen stages.
-- ``--spatial-shard 2`` raises; without a card and without ``--device
-  cpu`` the CLI exits non-zero.
+- ``--spatial-shard 2`` refused on one process and on 3; without a card
+  and without ``--device cpu`` the CLI exits non-zero.
 """
 import glob
 import os
@@ -303,10 +303,17 @@ def test_ov_cli_staged_loading_on_cpu(tmp_path, monkeypatch):
 
 
 def test_cli_refuses_unported_options_and_a_missing_card(monkeypatch):
-    # data parallelism is ported (tests/test_torch_port_ddp.py); spatial
-    # sharding is not
-    with pytest.raises(NotImplementedError, match="ROADMAP.*spatial"):
+    # spatial sharding needs S to divide the processes
+    # (tests/test_torch_port_spatial.py): one process, or 3 at S = 2,
+    # is refused before any process group starts
+    with pytest.raises(ValueError, match="--spatial-shard 2 must divide "
+                                         "the number of processes 1"):
         cli_train.main([TINY, "--device", "cpu", "--spatial-shard", "2"])
+    with pytest.raises(ValueError, match="--spatial-shard 2 must divide "
+                                         "the number of processes 3"):
+        cli_train.main([TINY, "--device", "cpu", "--spatial-shard", "2",
+                        "--num-processes", "3", "--process-id", "0",
+                        "--coordinator", "127.0.0.1:1"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit) as e:
         cli_train.main([TINY])

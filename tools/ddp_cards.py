@@ -2,6 +2,7 @@
 """Data parallelism over the cards of one host, one rank a card (NCCL).
 
     python3 tools/ddp_cards.py [N]        # N ranks, default every card
+    python3 tools/ddp_cards.py N --spatial-shard S   # (N / S, S) layout
     python3 tools/ddp_cards.py --seeds A-B  # one card: batch seeds A..B
 
 1. One process on one card: the flagship's fp32 train step (TF32 off,
@@ -14,6 +15,15 @@
    ``run_inference``.
 3. ``chip_smoke.ddp_cli_phase`` on N ranks: ``cli.train`` / resume /
    ``cli.test`` with the JAX CLI's flags, launches asserted.
+
+With ``--spatial-shard S`` (S > 1) it runs instead the spatially sharded
+step over NCCL, a card a rank in N / S data groups of S: the flagship's
+fp32 step at 2 scenes a data group (``chip_smoke.spatial_step_task``)
+against one process on the global batch of 2 N / S scenes
+(``chip_smoke.spatial_reference``, ``check_spatial_step``: the gathered
+fused volume, loss, gradient norm and each module's gradients, BN
+statistics), each rank's ms/step, all-reduces and their share, peak
+memory and launches.
 
 With ``--seeds`` it only runs ``chip_smoke.one_process_steps`` on one
 card for each batch seed of the range: the flagship's first fp32 step at
@@ -94,6 +104,31 @@ def seed_scan(torch, dev, seeds):
                   f"{NUDGE}) {moved[1]:.3g} {moved[2]:.3g}")
 
 
+def spatial_cards(torch, dev, n, S):
+    """The spatially sharded flagship step on n cards, (n / S, S), over
+    NCCL, against one process on the global batch."""
+    import dataclasses
+    from uni3detr_tpu_torch.parallel.launch import spawn
+    from uni3detr_tpu_torch.presets import SUNRGBD
+    from uni3detr_tpu_torch.synthetic import clustered_train_batch
+
+    tag = f"ddp-cards-{n // S}x{S}"
+    cfg = dataclasses.replace(SUNRGBD, compute_dtype="float32", dropout=0.0)
+    sd = c._state_dict(torch, c.build_model(cfg))
+    batch_np = clustered_train_batch(c.DDP_BATCH_SEED, cfg, 2 * (n // S))
+    ref = c.spatial_reference(torch, dev, cfg, sd, batch_np, tag)
+    t0 = time.perf_counter()
+    ranks = spawn("chip_smoke:spatial_rank", n, ([
+        ("cards", "step", dict(cfg=cfg, sd={k: v.numpy()
+                                            for k, v in sd.items()},
+                               batch_np=batch_np, assigned=ref["assigned"],
+                               timed=c.DDP_TIMED, fp32=True))],),
+        device="cuda", timeout=c.DDP_TIMEOUT, spatial=S)
+    c.check_spatial_step(tag, ranks, "cards", ref, c.train_per_step(cfg),
+                         True, "nccl")
+    print(f"[{tag}] {n} ranks in {time.perf_counter() - t0:.1f}s")
+
+
 def main():
     import torch
 
@@ -104,12 +139,24 @@ def main():
         print(f"[ddp-seeds] {c.card_line()}")
         seed_scan(torch, torch.device("cuda", 0), range(lo, hi + 1))
         return
-    n = int(sys.argv[1]) if len(sys.argv) > 1 else torch.cuda.device_count()
+    args = sys.argv[1:]
+    S = 1
+    if "--spatial-shard" in args:
+        i = args.index("--spatial-shard")
+        S = int(args[i + 1])
+        del args[i:i + 2]
+    n = int(args[0]) if args else torch.cuda.device_count()
     if not 1 < n <= torch.cuda.device_count():
         c.fail(f"{n} ranks for {torch.cuda.device_count()} cards: one a card")
+    if n % S:
+        c.fail(f"--spatial-shard {S} must divide the {n} ranks")
     dev = torch.device("cuda", 0)
     print(f"[ddp-cards] {c.card_line()} x {torch.cuda.device_count()}; "
           f"torch {torch.__version__} cuda {torch.version.cuda}")
+    if S > 1:
+        spatial_cards(torch, dev, n, S)
+        print(c.card_line())
+        return
     work = os.path.join(ROOT, "build", "ddp_cards")
     shutil.rmtree(work, ignore_errors=True)
     root = c.ddp_root(os.path.join(work, "sunrgbd"), c.DDP_SCENES)

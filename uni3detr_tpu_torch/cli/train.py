@@ -3,6 +3,7 @@
     python -m uni3detr_tpu_torch.cli.train CONFIG [--work-dir DIR] \\
         [--resume-from CKPT] [--seed N] [--max-steps N] \\
         [--num-processes W --process-id R --coordinator HOST:PORT] \\
+        [--spatial-shard S] \\
         [--cfg-options k=v ...] [--device cuda|cpu]
     torchrun --nproc_per_node W -m uni3detr_tpu_torch.cli.train CONFIG ...
 
@@ -43,8 +44,18 @@ positive counts, averaged gradients), the OV modality draw is seeded
 from (seed, step) on every rank and dropout from (seed, step, rank).
 Rank 0 writes ``train.log`` and the checkpoints; rank r > 0 logs
 warnings to ``train.rank{r}.log``. The eval hook runs a shard a rank
-(``run_inference_distributed``) and the metric on rank 0. Spatial
-sharding (``--spatial-shard`` > 1) is not ported (ROADMAP Queue 1).
+(``run_inference_distributed``) and the metric on rank 0.
+
+Spatial sharding (``--spatial-shard S``, the JAX CLI's flag): the W
+ranks form W // S data groups of S ranks (``parallel.dist.set_layout``,
+rank r in group r // S at spatial index r % S; S must divide W, else the
+CLI refuses, one process included). The global batch is
+``samples_per_gpu`` x (W // S); the S ranks of a group load the group's
+slice and take the batch of its first rank (a broadcast over the
+group: the train pipeline's draws are unseeded), and in the step each
+holds an H slice of the dense volume (``parallel/spatial.py``). Dropout
+is seeded from (seed, step, data group), so the S ranks of a group draw
+the same masks. The eval hook runs whole, a round-robin shard a rank.
 """
 from __future__ import annotations
 
@@ -69,7 +80,9 @@ def parse_args(argv=None):
     p.add_argument("--max-steps", type=int, default=None,
                    help="cap total steps (smoke runs)")
     p.add_argument("--spatial-shard", type=int, default=1,
-                   help="spatial sharding (not ported: ROADMAP Queue 1)")
+                   help="the ranks along the spatial axis: W // S data "
+                        "groups of S ranks that split the dense volume's "
+                        "H (must divide the number of processes)")
     add_dist_args(p)
     p.add_argument("--cfg-options", nargs="*", default=[])
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
@@ -94,17 +107,31 @@ def add_dist_args(p):
 def start_distributed(args):
     """(device, whether this call started the process group): the
     process group of the flags or of torchrun's environment, or none
-    (one process on ``args.device``)."""
+    (one process on ``args.device``), with the (data, spatial) layout of
+    ``args.spatial_shard`` (default 1); raises ValueError before joining
+    when S does not divide the number of processes."""
     from ..parallel import dist
 
     wanted = args.num_processes not in (None, 1) or args.coordinator \
         or args.process_id is not None \
         or ("RANK" in os.environ and "WORLD_SIZE" in os.environ)
+    S = getattr(args, "spatial_shard", 1)
+    if torch.distributed.is_initialized():
+        world = torch.distributed.get_world_size()
+    elif not wanted:
+        world = 1
+    else:
+        world = args.num_processes if args.num_processes is not None \
+            else int(os.environ.get("WORLD_SIZE", "1"))
+    err = dist.layout_error(world, S)
+    if err:
+        raise ValueError(err)
     if not wanted:
         return torch.device(args.device), False
     started = not torch.distributed.is_initialized()
     dev = dist.init_distributed(args.coordinator, args.num_processes,
-                                args.process_id, device=args.device)
+                                args.process_id, device=args.device,
+                                spatial=S)
     return dev, started
 
 
@@ -190,12 +217,13 @@ def build_optimizer(cfg, model, steps_per_epoch: int):
                           lr_mult=dict(cfg.get("lr_mult") or {}))
 
 
-def step_seed(seed: int, step: int, rank=None) -> int:
+def step_seed(seed: int, step: int, group=None) -> int:
     """The seed of the generators of step ``step``: of (seed, step) alone
-    for the OV modality draw and a single process's dropout, of (seed,
-    step, rank) for a rank's dropout under data parallelism (the ranks
-    do not draw the same masks)."""
-    key = [seed, step] if rank is None else [seed, step, rank]
+    for the OV modality draw and a single data group's dropout, of (seed,
+    step, data group) for a group's dropout over several (the groups do
+    not draw the same masks; the S ranks of one, which run the same
+    decoder, do)."""
+    key = [seed, step] if group is None else [seed, step, group]
     return int(np.random.SeedSequence(key).generate_state(
         1, np.uint64)[0])
 
@@ -222,11 +250,6 @@ def main(argv=None):
     the host) in ``log_s``; ``launches``: this rank's kernel launches in
     the run by kernel (``ops.launch_counts``)."""
     args = parse_args(argv)
-    if args.spatial_shard > 1:
-        raise NotImplementedError(
-            "spatially sharded training (--spatial-shard > 1) is not "
-            "ported: the port is data parallel only (ROADMAP.md, Queue 1: "
-            "spatial sharding)")
     if args.device == "cuda" and not torch.cuda.is_available():
         sys.exit("cli.train: no CUDA device; pass --device cpu to run the "
                  "plain versions of the kernels on the CPU")
@@ -270,20 +293,21 @@ def _train(args, cfg, model_cfg, work_dir, log, device):
     from .test import build_model
 
     cuda = device.type == "cuda"
-    W, rank = dist.world_size(), dist.rank()
+    W, G, S = dist.world_size(), dist.data_size(), dist.spatial_size()
     log.info("config: %s", args.config)
-    log.info("device: %s%s, %d process%s", device,
+    log.info("device: %s%s, %d process%s (%d data x %d spatial)", device,
              f" ({torch.cuda.get_device_name(device)})" if cuda else "", W,
-             "es" if W > 1 else "")
+             "es" if W > 1 else "", G, S)
     seed = args.seed if args.seed is not None else cfg.get("seed", 0)
     rng = np.random.RandomState(seed)
     dataset = build_dataset(cfg.data, cfg.class_names, model_cfg.pc_range,
                             "train")
     bs = cfg.data.get("samples_per_gpu", 2)
-    # the global batch over the ranks (the reference's samples_per_gpu x
-    # world size); the schedules count whole global batches, as the JAX
-    # CLI's (the iterator pads the tail batch)
-    gbs = bs * W
+    # the global batch over the data groups (the reference's
+    # samples_per_gpu x world size; the JAX CLI's x devices // spatial);
+    # the schedules count whole global batches, as the JAX CLI's (the
+    # iterator pads the tail batch)
+    gbs = bs * G
     local = dist.local_slice(gbs)
     steps_per_epoch = max(len(dataset) // gbs, 1)
     epochs = cfg.get("total_epochs", 40)
@@ -292,8 +316,9 @@ def _train(args, cfg, model_cfg, work_dir, log, device):
 
     model = build_model(model_cfg, None, device, log.info, seed).train()
     opt = build_optimizer(cfg, model, steps_per_epoch)
-    log.info("train split: %d samples, batch %d (%d a rank), %d steps an "
-             "epoch, %d epochs", len(dataset), gbs, bs, steps_per_epoch,
+    log.info("train split: %d samples, batch %d (%d a data group), %d "
+             "steps an epoch, %d epochs", len(dataset), gbs, bs,
+             steps_per_epoch,
              epochs)
 
     # OV staged init: separately trained branches by key prefix
@@ -348,10 +373,11 @@ def _train(args, cfg, model_cfg, work_dir, log, device):
                 batch_iterator(dataset, gbs, model_cfg, rng, pool, local),
                 cuda, stats["load_ms"])
             for batch in prefetch(batches):
-                batch = {k: v.to(device, non_blocking=True)
-                         for k, v in batch.items()}
-                torch.manual_seed(step_seed(seed, gstep,
-                                            rank if W > 1 else None))
+                batch = dist.group_broadcast(
+                    {k: v.to(device, non_blocking=True)
+                     for k, v in batch.items()})
+                torch.manual_seed(step_seed(
+                    seed, gstep, dist.data_index() if G > 1 else None))
                 if modality_gen is not None:
                     modality_gen.manual_seed(step_seed(seed, gstep))
                 logs = step_mod.train_step(model, opt, batch,

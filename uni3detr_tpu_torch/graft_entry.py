@@ -1,6 +1,7 @@
 """The port's check entry points (counterpart of the JAX package's
 ``__graft_entry__.py``): the flagship eval forward with example
-arguments, and a data-parallel dry run on n ranks.
+arguments, and a dry run on n ranks over the JAX dry run's (data,
+spatial) layout.
 
     python -c "from uni3detr_tpu_torch import graft_entry as g; \\
         g.dryrun_multichip(2)"
@@ -76,22 +77,32 @@ def dryrun_batch(B: int):
     }
 
 
+def dryrun_layout(n_devices: int):
+    """(data, spatial) of the JAX dry run: spatial 2 when n is even."""
+    spatial = 2 if n_devices % 2 == 0 and n_devices >= 2 else 1
+    return n_devices // spatial, spatial
+
+
 def dryrun_multichip(n_devices: int, device="cuda", timeout: float = 600.0):
     """Run n ranks (``parallel.launch.spawn``; ranks share the cards
     round-robin when there are fewer, over gloo; ``device="cpu"`` runs
-    them on the CPU): one data-parallel train step of the tiny model on
-    a global batch of 2n scenes, then ``run_inference_distributed`` over
-    2n + 1 scenes (an unequal tail). Prints each rank's loss and scene
-    counts; raises when a rank fails. Returns the ranks' results."""
+    them on the CPU) in the (data, spatial) layout of ``dryrun_layout``:
+    one train step of the tiny model on a global batch of 2 x data
+    scenes (the volume split along H over the spatial ranks), then
+    ``run_inference_distributed`` over 2 x data + 1 scenes (a shard a
+    rank, whole). Prints each rank's loss and scene counts; raises when
+    a rank fails. Returns the ranks' results."""
     from .parallel.launch import spawn
 
+    data, spatial = dryrun_layout(n_devices)
     res = spawn("uni3detr_tpu_torch.graft_entry:_dryrun_rank", n_devices,
-                kwargs={"device": device}, device=device, timeout=timeout)
+                kwargs={"device": device}, device=device, timeout=timeout,
+                spatial=spatial)
     loss = res[0]["loss"]
     assert all(r["loss"] == loss for r in res), [r["loss"] for r in res]
-    print(f"dryrun_multichip({n_devices}): {n_devices} ranks on {device}, "
-          f"loss={loss:.4f}, {res[0]['n_eval']} scenes gathered, "
-          f"{res[0]['n_det']} dets OK")
+    print(f"dryrun_multichip({n_devices}): mesh=({data},{spatial}), "
+          f"{n_devices} ranks on {device}, loss={loss:.4f}, "
+          f"{res[0]['n_eval']} scenes gathered, {res[0]['n_det']} dets OK")
     return res
 
 
@@ -104,11 +115,11 @@ def _dryrun_rank(device):
     from .train.step import make_optimizer, train_step
     from .weights import random_state_dict
 
-    W, r = dist.world_size(), dist.rank()
+    W, r, G = dist.world_size(), dist.rank(), dist.data_size()
     dev = torch.device("cuda", torch.cuda.current_device()) \
         if device == "cuda" else torch.device("cpu")
     cfg = dryrun_config()
-    B = 2 * W
+    B = 2 * G
     batch = dryrun_batch(B)
     model = Uni3DETR(cfg)
     model.load_state_dict({k: torch.from_numpy(v) for k, v in
@@ -121,10 +132,11 @@ def _dryrun_rank(device):
                                    for k, v in batch.items()})
     loss = float(logs["total_loss"])
     assert np.isfinite(loss), loss
-    print(f"rank {r}/{W}: train step on {B // W} of {B} scenes, "
+    print(f"rank {r}/{W}: train step on {B // G} of {B} scenes (spatial "
+          f"{dist.spatial_index()} of {dist.spatial_size()}), "
           f"loss={loss:.4f}")
 
-    n_eval = 2 * W + 1
+    n_eval = 2 * G + 1
     eval_ds = [{"points": batch["points"][i % B],
                 "gt_boxes": batch["gt_boxes"][i % B],
                 "gt_labels": batch["gt_labels"][i % B]}
@@ -133,6 +145,7 @@ def _dryrun_rank(device):
                                           device=dev, batch_size=2)
     after = launch_counts()
     out = {"rank": r, "loss": loss, "n_eval": len(dets), "n_det": 0,
+           "layout": (G, dist.spatial_size()),
            "launches": {k: after[k] - before[k] for k in after}}
     if r == 0:
         assert len(dets) == n_eval and len(gts) == n_eval, \

@@ -16,6 +16,7 @@ from torch import nn
 from ..config import Uni3DETRConfig
 from ..ops.fps import farthest_point_sample_pair
 from ..ops.voxelize import dynamic_voxelize, hard_voxelize
+from ..parallel import dist, spatial as spatial_ops
 from .head import Uni3DETRHead
 from .second3d import SECOND3D, SECOND3DFPN
 from .sparse_encoder import SparseEncoderHD
@@ -65,16 +66,37 @@ class PointBranch:
         return hard_voxelize(points, pts_mask,
                              max_points=cfg.max_points_per_voxel, **kw)
 
-    def point_volume(self, points, pts_mask):
+    def point_volume(self, points, pts_mask, spatial: bool = True):
         """-> (fused volume (B, D, H, W, C) channels-last in the compute
         dtype, FPS seeds (B, 2*nq, 3) in [0, 1], the encoder's output grid
-        (D, H, W), intermediates: voxels and FPS indices)."""
+        (D, H, W), intermediates: voxels and FPS indices).
+
+        With ``spatial`` in a spatially sharded train step
+        (``parallel/spatial.py``) the dense part runs on H slices, as the
+        JAX detector's ``constrain`` calls place it: the gather-route
+        encoder runs whole on every rank of the group and its output is
+        cut (the dense route cuts its own), SECOND3D and the FPN run on
+        the slices, and the fused volume is gathered whole before the
+        head samples it; FPS, the head and the loss run whole."""
         cfg = self.cfg
         dtype = cfg.torch_dtype
+        on = spatial and dist.spatial_active()
         feats, coords, vmask = self.voxelize(points, pts_mask)
-        volume, grid = self.pts_middle_encoder(feats, coords, vmask)
-        ms = self.pts_backbone(volume.to(dtype).permute(0, 4, 1, 2, 3))
-        fused = self.pts_neck(ms).to(dtype)
+        volume, grid = self.pts_middle_encoder(feats, coords, vmask,
+                                               spatial=on)
+        x = volume.to(dtype)
+        if on:
+            h = grid[1]
+            if x.shape[2] == h and spatial_ops.divides(h):
+                x = spatial_ops.shard(x, 2)
+            hs = self.pts_backbone.heights(h)
+            ms = self.pts_backbone(x.permute(0, 4, 1, 2, 3), h)
+            fused = self.pts_neck(ms, hs)
+            if fused.shape[3] != self.pts_neck.height(hs):
+                fused = spatial_ops.gather(fused, 3)
+        else:
+            fused = self.pts_neck(self.pts_backbone(x.permute(0, 4, 1, 2, 3)))
+        fused = fused.to(dtype)
         fused = fused.permute(0, 2, 3, 4, 1).contiguous()   # (B, D, H, W, C)
 
         nq = cfg.num_query

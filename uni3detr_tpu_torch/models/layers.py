@@ -24,8 +24,10 @@ class FlaxBatchNormStats:
     the output is the bias), where torch refuses. Normalization, eval mode
     and the state_dict keys are torch's. Inside ``dist.sharded_batch()``
     over several ranks (the train step's) the statistics are the global
-    batch's (``_global_forward``), as the JAX package's; the reference's
-    SyncBN-less DDP would take each card's (ROADMAP Queue 3)."""
+    batch's (``_global_forward``), as the JAX package's: summed over
+    every rank for an H slice of the volume (``dist.spatial_slices()``),
+    else over the data axis; the reference's SyncBN-less DDP would take
+    each card's (ROADMAP Queue 3)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
@@ -47,23 +49,55 @@ class FlaxBatchNormStats:
         """Train mode over the ranks of a sharded batch: flax's
         statistics of the global batch, as the JAX package's one jit over
         the sharded batch takes them (E[x^2] - E[x]^2, biased, at least
-        0), from one differentiable sum of (sum x, sum x^2, count) over
-        the ranks; computed in fp32, returned in the input dtype. One
-        rank keeps torch's fused kernel above, which normalizes with the
-        same biased variance."""
+        0), from one sum of (sum x, sum x^2, count) over the ranks
+        (``_GlobalBNTrain``); computed in fp32, returned in the input
+        dtype. One rank keeps torch's fused kernel above, which
+        normalizes with the same biased variance."""
+        return _GlobalBNTrain.apply(x, self.weight, self.bias, self)
+
+
+class _GlobalBNTrain(torch.autograd.Function):
+    """Train-mode BN over the ranks of ``dist.batch_group()`` with an
+    analytic backward that keeps only x (autograd through the
+    normalization kept two more fp32 copies of every activation): with
+    xh = (x - mean) rstd over the n entries a channel of the global batch
+    and dxh = g weight, dx = rstd (dxh - sum(dxh) / n - xh sum(dxh xh) /
+    n), the sums over the same ranks as the forward's."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, bn):
         dims = (0,) + tuple(range(2, x.dim()))
-        xf = x.float()
-        cnt = torch.full((1,), x.numel() // x.shape[1], dtype=torch.float32,
-                         device=x.device)
-        s, s2, n = dist.batch_sum(xf.sum(dim=dims), (xf * xf).sum(dim=dims),
-                                  cnt)
-        mean = s / n
-        var = (s2 / n - mean * mean).clamp(min=0.0)
-        _update_running(self, mean, var)
         shape = (1, -1) + (1,) * (x.dim() - 2)
-        y = (xf - mean.view(shape)) * torch.rsqrt(var.view(shape) + self.eps)
-        return (y * self.weight.view(shape) + self.bias.view(shape)).to(
-            x.dtype)
+        xf = x.float()
+        (sums,) = dist.batch_sum(torch.cat([
+            xf.sum(dim=dims), (xf * xf).sum(dim=dims),
+            xf.new_full((1,), x.numel() // x.shape[1])]))
+        C = x.shape[1]
+        n = sums[2 * C:]
+        mean = sums[:C] / n
+        var = (sums[C:2 * C] / n - mean * mean).clamp(min=0.0)
+        _update_running(bn, mean, var)
+        rstd = torch.rsqrt(var + bn.eps)
+        y = (xf - mean.view(shape)) * rstd.view(shape)
+        ctx.save_for_backward(x, weight, mean, rstd, n)
+        ctx.group = dist.batch_group()
+        return (y * weight.view(shape) + bias.view(shape)).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight, mean, rstd, n = ctx.saved_tensors
+        dims = (0,) + tuple(range(2, x.dim()))
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        xh = (x.float() - mean.view(shape)) * rstd.view(shape)
+        gf = g.float()
+        dw = (gf * xh).sum(dim=dims)
+        db = gf.sum(dim=dims)
+        dxh = gf * weight.view(shape)
+        sums = dist.all_reduce_sum(torch.stack(
+            [dxh.sum(dim=dims), (dxh * xh).sum(dim=dims)]), ctx.group)
+        dx = (dxh - (sums[0] / n).view(shape)
+              - xh * (sums[1] / n).view(shape)) * rstd.view(shape)
+        return dx.to(x.dtype), dw, db, None
 
 
 def _update_running(bn, mean, var) -> None:
@@ -85,8 +119,10 @@ class MaskedBatchNorm(nn.BatchNorm1d):
     values (flax's rule; ``nn.BatchNorm1d`` would store the unbiased
     variance). The state_dict keys are those of ``nn.BatchNorm1d``.
     Inside ``dist.sharded_batch()`` over several ranks (the train
-    step's) the sums run over the valid rows of the global batch, every
-    rank's, the count clamped after the sum (ROADMAP Queue 3).
+    step's) the sums run over the valid rows of the global batch, the
+    count clamped after the sum (ROADMAP Queue 3): over every rank for an
+    H slice of the dense volume (``dist.spatial_slices()``), each rank
+    counting its own rows, else over the data axis.
     """
 
     def __init__(self, num_features: int, eps: float = 1e-3,
@@ -126,7 +162,9 @@ class _MaskedBNTrain(torch.autograd.Function):
         y = (xf - mean) * rstd
         y = y * weight + bias
         ctx.save_for_backward(x, mask, weight, mean, rstd, cnt)
-        ctx.global_sums = dist.batch_ranks() > 1
+        # the backward's sums run over the forward's ranks
+        ctx.sum_over = (dist.batch_group(),) if dist.batch_ranks() > 1 \
+            else None
         return (y * m).to(x.dtype)
 
     @staticmethod
@@ -140,8 +178,8 @@ class _MaskedBNTrain(torch.autograd.Function):
         db = gm.sum(dim=red)
         dxh = gm * weight
         sums = torch.stack([dxh.sum(dim=red), (dxh * xh).sum(dim=red)])
-        if ctx.global_sums:
-            sums = dist.all_reduce_sum(sums)
+        if ctx.sum_over is not None:
+            sums = dist.all_reduce_sum(sums, ctx.sum_over[0])
         dx = (dxh - sums[0] / cnt - xh * (sums[1] / cnt)) * (rstd * m)
         return dx.to(x.dtype), None, dw, db, None
 

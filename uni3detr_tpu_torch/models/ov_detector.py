@@ -156,8 +156,10 @@ class OV_Uni3DETR(PointBranch, nn.Module):
         inter = {}
         fpsbpts = None
         if use_pts:
+            # JAX's OV detector constrains nothing on its point branch:
+            # under --spatial-shard it runs whole on each rank of a group
             pts_feat, fpsbpts, grid, inter = self.point_volume(
-                batch["points"], batch["pts_mask"])
+                batch["points"], batch["pts_mask"], spatial=False)
             if use_img and tuple(grid) != encoder_grid(cfg):
                 raise ValueError(f"encoder grid {grid} is not the image "
                                  f"volume's {encoder_grid(cfg)}")

@@ -22,6 +22,13 @@ the batch norms run over the occupied cells and zero the others, and
 each strided conv's occupancy is a 3x3x3 stride-2 max-pool of the one
 before with the conv's padding. At the active sites that equals the
 gather route wherever its budgets cut no site: inactive cells hold zeros.
+Under spatial sharding (``spatial=True`` in the train step,
+``parallel/spatial.py``) the dense route runs on H slices: the scattered
+volume and its occupancy are cut, every conv and occupancy pooling
+takes its halo, the batch norms sum over every rank's occupied cells,
+and after a strided stage a volume whose H does not divide by S is
+gathered and runs whole (``constrain``'s rule). The gather route always
+runs whole.
 """
 from __future__ import annotations
 
@@ -38,6 +45,7 @@ from ..ops.sparse_conv import (downsample_sites, linear_ids,
 from ..ops.sparse_conv_cuda import (GatherConvFn, GatherConvIdsFn,
                                     match_positions)
 from ..ops.voxelize import scatter_to_dense
+from ..parallel import dist, spatial as spatial_ops
 from .layers import MaskedBatchNorm
 
 
@@ -57,13 +65,18 @@ class SparseConvWeight(nn.Module):
         k = self.weight.shape
         return self.weight.reshape(k[0] * k[1] * k[2], k[3], k[4])
 
-    def dense(self, x, stride: int = 1, padding=(1, 1, 1)):
+    def dense(self, x, stride: int = 1, padding=(1, 1, 1),
+              sliced: bool = False):
         """The conv over a channels-last volume (B, D, H, W, in) -> (B, D',
         H', W', out) in x's dtype: a cross-correlation over (z, y, x),
-        as the sparse conv computes it, so the taps are not flipped."""
+        as the sparse conv computes it, so the taps are not flipped.
+        ``sliced``: x is this rank's H slice (a halo, no H padding)."""
         w = self.weight.permute(4, 3, 0, 1, 2).to(x.dtype)
-        y = F.conv3d(x.permute(0, 4, 1, 2, 3), w, stride=stride,
-                     padding=tuple(padding))
+        xc = x.permute(0, 4, 1, 2, 3)
+        if sliced:
+            y = spatial_ops.conv3d(xc, w, stride, padding)
+        else:
+            y = F.conv3d(xc, w, stride=stride, padding=tuple(padding))
         return y.permute(0, 2, 3, 4, 1)
 
 
@@ -83,10 +96,11 @@ class SparseBasicBlock(nn.Module):
         y = self.bn2(GatherConvFn.apply(y, nb, self.conv2.kernel()), mask)
         return torch.relu(y + x)
 
-    def dense(self, x, occ):
-        """The block over a channels-last volume with occupancy ``occ``."""
-        y = torch.relu(self.bn1(self.conv1.dense(x), occ))
-        y = self.bn2(self.conv2.dense(y), occ)
+    def dense(self, x, occ, sliced: bool = False):
+        """The block over a channels-last volume with occupancy ``occ``
+        (``sliced``: this rank's H slices of both)."""
+        y = torch.relu(self.bn1(self.conv1.dense(x, sliced=sliced), occ))
+        y = self.bn2(self.conv2.dense(y, sliced=sliced), occ)
         return torch.relu(y + x)
 
 
@@ -173,13 +187,14 @@ class SparseEncoderHD(nn.Module):
             s["qids"] = subm_query_ids(s["coords"], s["mask"], s["grid"])
         return sets
 
-    def forward(self, feats, coords, vmask):
+    def forward(self, feats, coords, vmask, spatial: bool = False):
         """feats (B, V, C), coords (B, V, 3) int32 (z, y, x) sorted by
-        linear id with invalid rows last, vmask (B, V).
+        linear id with invalid rows last, vmask (B, V); ``spatial``: the
+        dense route may split the volume along H (``dense_forward``).
 
         Returns (volume (B, D', H', W', Cout), out_grid)."""
         if self.impl == "dense":
-            return self.dense_forward(feats, coords, vmask)
+            return self.dense_forward(feats, coords, vmask, spatial)
         sets = self.site_sets(coords, vmask, backward=torch.is_grad_enabled())
         x = feats.to(self.compute_dtype)
         for i, s in enumerate(sets):
@@ -206,35 +221,58 @@ class SparseEncoderHD(nn.Module):
         return (scatter_to_dense(x, last["coords"], last["mask"],
                                  last["grid"]), last["grid"])
 
-    def dense_forward(self, feats, coords, vmask):
+    def dense_forward(self, feats, coords, vmask, spatial: bool = False):
         """The masked-dense route (``impl="dense"``; see the module
         docstring), same arguments and results as :meth:`forward`. The
         occupancy has no budget, so it is the any-covered-input set of
-        each strided conv."""
+        each strided conv. With ``spatial`` inside the train step
+        (``dist.spatial_active()``) the volume returned is this rank's H
+        slice where the output grid's H divides by S; the grid is the
+        global one."""
         grid = self.sparse_shape
         x = scatter_to_dense(feats.to(self.compute_dtype), coords, vmask,
                              grid)
         with torch.no_grad():
             occ = scatter_to_dense(vmask[..., None].float(), coords, vmask,
                                    grid)[..., 0] > 0
+        on = spatial and dist.spatial_active()
+        h = grid[1]
+        sliced = on and spatial_ops.divides(h)
+        if sliced:
+            x, occ = spatial_ops.shard(x, 2), spatial_ops.shard(occ, 2)
         conv, bn, _ = self.conv_input
-        x = torch.relu(bn(conv.dense(x), occ))
+        with dist.spatial_slices(sliced):
+            x = torch.relu(bn(conv.dense(x, sliced=sliced), occ))
         n_stages = len(self.encoder_channels)
         for i in range(n_stages):
             mods = self.encoder_layers[f"encoder_layer{i + 1}"]
             strided = i < n_stages - 1
-            for block in (mods[:-1] if strided else mods):
-                x = block.dense(x, occ)
-            if strided:
-                pad = tuple(self.downsample_paddings[i])
-                conv, bn, _ = mods[-1]
-                x = conv.dense(x, stride=2, padding=pad)
+            with dist.spatial_slices(sliced):
+                for block in (mods[:-1] if strided else mods):
+                    x = block.dense(x, occ, sliced)
+            if not strided:
+                continue
+            pad = tuple(self.downsample_paddings[i])
+            if sliced and not spatial_ops.aligned(h, 3, 2, pad[1]):
+                x = spatial_ops.gather(x, 2)
                 with torch.no_grad():
-                    occ = F.max_pool3d(occ[:, None].float(), 3, stride=2,
-                                       padding=pad)[:, 0] > 0
+                    occ = spatial_ops.gather(occ.to(torch.uint8), 2) > 0
+                sliced = False
+            conv, bn, _ = mods[-1]
+            x = conv.dense(x, stride=2, padding=pad, sliced=sliced)
+            with torch.no_grad():
+                pool = spatial_ops.max_pool3d if sliced else F.max_pool3d
+                occ = pool(occ[:, None].float(), 3, stride=2,
+                           padding=pad)[:, 0] > 0
+            with dist.spatial_slices(sliced):
                 x = torch.relu(bn(x, occ))
+            h = spatial_ops.conv_out(h, 3, 2, pad[1])
+            if on and not sliced and spatial_ops.divides(h):
+                x, occ = spatial_ops.shard(x, 2), spatial_ops.shard(occ, 2)
+                sliced = True
         # conv_out: a per-cell matmul in fp32, as the gather route's
         conv, bn, _ = self.conv_out
         x = x.float() @ conv.kernel()[0].float()
-        x = torch.relu(bn(x, occ))
-        return x, tuple(x.shape[1:4])
+        with dist.spatial_slices(sliced):
+            x = torch.relu(bn(x, occ))
+        return x, (x.shape[1], h, x.shape[3])

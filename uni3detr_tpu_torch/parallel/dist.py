@@ -1,29 +1,43 @@
-"""Data parallelism over ``torch.distributed`` (counterpart of
-``uni3detr_tpu/parallel/mesh.py``).
+"""Data and spatial parallelism over ``torch.distributed`` (counterpart
+of ``uni3detr_tpu/parallel/mesh.py``).
 
 The JAX package runs one GSPMD program over a (data, spatial) device
 mesh. One jit spans the global batch, so its BN statistics, its loss
 normalizers and its OV modality draw are the global batch's, and XLA
-inserts the gradient psums. The port runs one process per card, as the
-reference's DDP does (SURVEY §2.4), and does each of these by hand:
+inserts the gradient psums and the halo exchanges of the dense volume
+split along H. The port runs one process per rank, as the reference's
+DDP does (SURVEY §2.4), and does each of these by hand.
+
+The rank layout is ``make_mesh``'s: W ranks in W // S data groups of S
+spatial ranks (``set_layout``), rank ``r = g * S + s`` at data index
+``g = r // S`` and spatial index ``s = r % S``. The S ranks of a data
+group hold the same scenes; with S = 1 (the default) it is data
+parallelism. Two kinds of subgroup: the spatial group (the S ranks of
+this data group: ``spatial_group``) and the data-axis group (the W / S
+ranks with this spatial index, which ``batch_group`` names outside
+``spatial_slices``).
 
 - ``sharded_batch``, the context in which the train step runs: inside
   it the train-mode BN statistics (``models/layers.py``) and the positive
   count that divides the set losses (``train/losses.py``) are the global
-  batch's, through ``batch_ranks`` and the differentiable ``batch_sum``;
-  outside it every forward and loss is the rank's own and makes no
-  collective;
-- ``average_gradients`` before the clip, so that the norm and the clip
-  see the global gradient, and ``mean_over_ranks`` for the logged losses
-  (``train/step.py``);
+  batch's, through ``batch_ranks`` and the differentiable ``batch_sum``
+  over ``batch_group``; outside it every forward and loss is the rank's
+  own and makes no collective;
+- ``spatial_slices``, inside it, where the tensors are H slices of the
+  dense volume (``parallel/spatial.py``): a batch statistic then sums
+  over every rank; elsewhere the S ranks of a group hold the same
+  tensor and it sums over the data axis only;
+- ``average_gradients`` before the clip: the sum over every rank divided
+  by the number of data groups (each rank's loss is scaled by 1 / S in
+  ``train/step.py``), so that the norm and the clip see the global
+  gradient; ``mean_over_ranks`` for the logged losses;
 - the modality draw seeded from (seed, step) alone, equal on every rank
   (``cli/train.py``).
 
-``make_mesh``, ``constrain``, ``shard_batch``, ``global_batch`` and
-``to_host`` have no counterpart: without GSPMD there is no mesh to build
-and no sharding to constrain, parameters live whole on every rank, and
-each rank loads its own slice of the global batch (``local_slice``).
-Spatial sharding of the dense volume is not ported (ROADMAP Queue 1).
+``make_mesh``'s counterpart is ``set_layout``; ``constrain``'s is
+``parallel/spatial.py``. ``shard_batch``, ``global_batch`` and
+``to_host`` have none: parameters live whole on every rank, and each
+data group loads its own slice of the global batch (``local_slice``).
 
 Without a process group, or with one rank, every helper is the
 single-process identity and no collective runs.
@@ -45,6 +59,12 @@ _OBJ_GROUP = None
 _OWNED = False
 _TIMEOUT = timedelta(minutes=30)     # a collective's wait for the others
 _SHARDED = False     # inside sharded_batch()
+_SLICES = False      # inside spatial_slices()
+# the (data, spatial) layout: S, and this rank's subgroups (None: the
+# default group)
+_SPATIAL = 1
+_SPATIAL_GROUP = None
+_DATA_GROUP = None
 
 
 def world_size() -> int:
@@ -75,7 +95,7 @@ def init_distributed(coordinator: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None,
                      backend: Optional[str] = None,
-                     device="cuda") -> torch.device:
+                     device="cuda", spatial: int = 1) -> torch.device:
     """Join (or start) the process group and return this rank's device.
 
     ``coordinator`` is the JAX CLI's ``host:port`` (``tcp://`` is put in
@@ -91,7 +111,7 @@ def init_distributed(coordinator: Optional[str] = None,
     device) or run on the CPU. With NCCL a gloo group carries the host
     objects and barriers. On the card the local rank 0 builds the
     kernels before the others load them. A group already up is used as
-    it is."""
+    it is. ``spatial``: the layout's S (``set_layout``)."""
     global _OBJ_GROUP, _OWNED
     env = os.environ
     world = num_processes if num_processes is not None \
@@ -111,6 +131,7 @@ def init_distributed(coordinator: Optional[str] = None,
         dev = torch.device("cpu")
         backend = backend or "gloo"
     if dist.is_initialized():
+        set_layout(spatial)
         return dev
     dist.init_process_group(backend, init_method=_init_method(coordinator),
                             world_size=world, rank=me, timeout=_TIMEOUT)
@@ -122,21 +143,87 @@ def init_distributed(coordinator: Optional[str] = None,
         if local == 0:
             cuda_lib.library()
         barrier()
+    set_layout(spatial)
     return dev
+
+
+def layout_error(world: int, spatial: int) -> Optional[str]:
+    """Why W ranks cannot form a (W // S, S) layout, or None."""
+    if spatial < 1 or world % spatial:
+        return (f"--spatial-shard {spatial} must divide the number of "
+                f"processes {world}: the (data, spatial) layout holds "
+                f"W // S data groups of S ranks each")
+    return None
+
+
+def set_layout(spatial: int = 1) -> None:
+    """Make the (data, spatial) layout of S = ``spatial`` over the ranks:
+    the spatial groups (ranks g*S .. g*S + S-1) and the data-axis groups
+    (ranks s, S + s, ...), created by ``new_group`` in the same order on
+    every rank, which must all call it. S = 1 creates no group (the
+    data-axis group is the default one). Raises ValueError when S does
+    not divide W (one process included)."""
+    global _SPATIAL, _SPATIAL_GROUP, _DATA_GROUP
+    err = layout_error(world_size(), spatial)
+    if err:
+        raise ValueError(err)
+    if spatial == _SPATIAL:
+        return
+    _SPATIAL, _SPATIAL_GROUP, _DATA_GROUP = spatial, None, None
+    if spatial == 1:
+        return
+    w = world_size()
+    g, s = divmod(rank(), spatial)
+    for i in range(w // spatial):
+        grp = dist.new_group(list(range(i * spatial, (i + 1) * spatial)))
+        if i == g:
+            _SPATIAL_GROUP = grp
+    for j in range(spatial):
+        grp = dist.new_group(list(range(j, w, spatial)))
+        if j == s:
+            _DATA_GROUP = grp
+
+
+def spatial_size() -> int:
+    """S: the ranks of a data group (1: data parallel only)."""
+    return _SPATIAL
+
+
+def spatial_index() -> int:
+    """s: this rank's place in its data group."""
+    return rank() % _SPATIAL
+
+
+def data_size() -> int:
+    """W // S: the number of data groups."""
+    return world_size() // _SPATIAL
+
+
+def data_index() -> int:
+    """g: this rank's data group."""
+    return rank() // _SPATIAL
+
+
+def spatial_group():
+    """The process group of this data group's S ranks (None when S = 1:
+    no collective runs over it then)."""
+    return _SPATIAL_GROUP
 
 
 def destroy_distributed() -> None:
     """Tear down the process group if ``init_distributed`` started it."""
-    global _OBJ_GROUP, _OWNED
+    global _OBJ_GROUP, _OWNED, _SPATIAL, _SPATIAL_GROUP, _DATA_GROUP
     if _OWNED and dist.is_initialized():
         dist.destroy_process_group()
     _OBJ_GROUP, _OWNED = None, False
+    _SPATIAL, _SPATIAL_GROUP, _DATA_GROUP = 1, None, None
 
 
 def local_slice(n: int) -> slice:
-    """This rank's contiguous slice of a length-``n`` global batch axis
-    (the ranks' slices in rank order make the global batch)."""
-    w, r = world_size(), rank()
+    """This data group's contiguous slice of a length-``n`` global batch
+    axis (the groups' slices in order make the global batch; the S ranks
+    of a group take the same one)."""
+    w, r = data_size(), data_index()
     per = n // w
     assert per * w == n, f"global batch {n} must divide process count {w}"
     return slice(r * per, (r + 1) * per)
@@ -205,11 +292,26 @@ def broadcast_module(module: torch.nn.Module, src: int = 0) -> None:
                 t.copy_(v)
 
 
+def group_broadcast(tensors: dict) -> dict:
+    """``tensors`` (a dict) as the first rank of this data group holds
+    them, on each of its S ranks (a broadcast over the spatial group,
+    bool as uint8); as they are when S = 1."""
+    if _SPATIAL == 1:
+        return tensors
+    src = data_index() * _SPATIAL
+    out = {}
+    for k, t in tensors.items():
+        wire = t.to(torch.uint8) if t.dtype == torch.bool else t.contiguous()
+        dist.broadcast(wire, src, group=_SPATIAL_GROUP)
+        out[k] = wire.to(t.dtype)
+    return out
+
+
 @contextlib.contextmanager
 def sharded_batch():
-    """Within: each rank's batch is its slice of one global batch, so
-    the train-mode BN statistics and the loss's positive count are
-    summed over the ranks (``batch_ranks``, ``batch_sum``), as the JAX
+    """Within: each data group's batch is its slice of one global batch,
+    so the train-mode BN statistics and the loss's positive count are
+    summed over the groups (``batch_ranks``, ``batch_sum``), as the JAX
     package's one jit over the sharded batch takes them. Every rank must
     make the same calls inside. ``train.step.train_step`` enters it."""
     global _SHARDED
@@ -220,45 +322,79 @@ def sharded_batch():
         _SHARDED = old
 
 
+@contextlib.contextmanager
+def spatial_slices(on: bool = True):
+    """Within (with ``on``, inside ``sharded_batch()``): the tensors are
+    this rank's H slices of the dense volume, the S ranks of a group
+    holding disjoint slices, so the batch statistics sum over every
+    rank. ``on=False`` restores the replicated rule for a tensor whose H
+    does not divide by S."""
+    global _SLICES
+    old, _SLICES = _SLICES, on
+    try:
+        yield
+    finally:
+        _SLICES = old
+
+
+def spatial_active() -> bool:
+    """Whether the dense volume is split along H here: S > 1, inside
+    ``sharded_batch()`` (the train step; an eval forward runs whole)."""
+    return _SHARDED and _SPATIAL > 1
+
+
+def batch_group():
+    """The group a batch statistic sums over: every rank (None, the
+    default group) within ``spatial_slices()``, else the data-axis group
+    (the default group when S = 1)."""
+    return None if _SLICES else _DATA_GROUP
+
+
 def batch_ranks() -> int:
-    """The number of ranks that share the batch: ``world_size()`` inside
-    ``sharded_batch()``, else 1."""
-    return world_size() if _SHARDED else 1
+    """The number of ranks that share the batch, inside
+    ``sharded_batch()``: W within ``spatial_slices()``, else the number
+    of data groups; 1 outside."""
+    if not _SHARDED:
+        return 1
+    return world_size() if _SLICES else data_size()
 
 
 def batch_sum(*ts: torch.Tensor):
     """The sums of ``ts`` over the ranks that share the batch (one
-    collective for all), differentiable: the backward sums the
-    cotangents over the ranks, so the gradient through a global
-    statistic reaches every rank's inputs. ``ts`` themselves when
-    ``batch_ranks()`` is 1."""
+    collective for all, over ``batch_group()``), differentiable: the
+    backward sums the cotangents over the same ranks, so the gradient
+    through a global statistic reaches every rank's inputs. ``ts``
+    themselves when ``batch_ranks()`` is 1."""
     if batch_ranks() == 1:
         return ts
-    flat = _GlobalSum.apply(torch.cat([t.reshape(-1) for t in ts]))
+    flat = _GroupSum.apply(torch.cat([t.reshape(-1) for t in ts]),
+                           batch_group())
     return tuple(v.view_as(t) for v, t in
                  zip(flat.split([t.numel() for t in ts]), ts))
 
 
-class _GlobalSum(torch.autograd.Function):
+class _GroupSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, t):
+    def forward(ctx, t, group):
+        ctx.group = group
         t = t.clone()
-        dist.all_reduce(t)
+        dist.all_reduce(t, group=group)
         return t
 
     @staticmethod
     def backward(ctx, g):
         g = g.clone()
-        dist.all_reduce(g)
-        return g
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
 
 
-def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
-    """The sum of ``t`` over the ranks, outside autograd (a new tensor)."""
+def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of ``t`` over the ranks of ``group`` (None: every rank),
+    outside autograd (a new tensor)."""
     if world_size() == 1:
         return t
     t = t.detach().clone()
-    dist.all_reduce(t)
+    dist.all_reduce(t, group=group)
     return t
 
 
@@ -269,15 +405,17 @@ def mean_over_ranks(t: torch.Tensor) -> torch.Tensor:
 
 
 def average_gradients(grads: List[torch.Tensor]) -> None:
-    """Replace each gradient by its mean over the ranks, in place (one
-    flat all-reduce per dtype). Every rank must pass the same list, a
+    """Replace each gradient by its sum over every rank divided by the
+    number of data groups, in place (one flat all-reduce per dtype):
+    with S = 1 the mean over the ranks; with S > 1 each rank's loss
+    carries 1 / S and the spatial ranks' partial gradients of the sliced
+    layers add up in the same sum. Every rank must pass the same list, a
     gradient the loss did not reach as zeros."""
-    w = world_size()
-    if w == 1:
+    if world_size() == 1:
         return
     from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
     for gs in _by_dtype(grads):
         flat = _flatten_dense_tensors(gs)
         dist.all_reduce(flat)
-        flat.div_(w)
+        flat.div_(data_size())
         torch._foreach_copy_(gs, _unflatten_dense_tensors(flat, gs))

@@ -7,7 +7,8 @@ gives a rank (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
 ``LOCAL_WORLD_SIZE``). With ``init`` the rank joins a process group over
 a ``file://`` rendezvous in a fresh directory before it calls ``target``
 (``dist.init_distributed``: rank r on ``cuda:r % device_count``, gloo
-when ranks share a card or run on the CPU) and leaves it after; without,
+when ranks share a card or run on the CPU; the (data, spatial) layout
+of ``spatial``) and leaves it after; without,
 ``target`` sets up the group itself (a CLI given the flags or torchrun's
 environment), and ``UNI3DETR_RENDEZVOUS`` holds a rendezvous URL it may
 use. Each rank's return value comes back through a pickle (return host
@@ -32,7 +33,7 @@ from typing import List, Optional
 
 def spawn(target: str, n: int, args=(), kwargs=None, *, device="cuda",
           init: bool = True, timeout: float = 900.0,
-          threads: Optional[int] = None) -> List:
+          threads: Optional[int] = None, spatial: int = 1) -> List:
     """Run ``target(*args, **kwargs)`` on n ranks; returns their values.
 
     ``threads`` caps each rank's torch threads (``OMP_NUM_THREADS`` and
@@ -54,7 +55,7 @@ def spawn(target: str, n: int, args=(), kwargs=None, *, device="cuda",
     try:
         ctx = mp.start_processes(
             _rank_entry, args=(tmp, target, tuple(args), dict(kwargs or {}),
-                               device, init, threads),
+                               device, init, threads, spatial),
             nprocs=n, join=False, start_method="spawn")
     finally:
         for k, v in saved.items():
@@ -80,7 +81,8 @@ def spawn(target: str, n: int, args=(), kwargs=None, *, device="cuda",
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def _rank_entry(r, tmp, target, args, kwargs, device, init, threads):
+def _rank_entry(r, tmp, target, args, kwargs, device, init, threads,
+                spatial):
     """Rank ``r``'s process: torchrun's environment, the group if
     ``init``, ``target``'s value pickled to ``tmp/rank{r}.pkl``."""
     os.environ.update(RANK=str(r), LOCAL_RANK=str(r))
@@ -92,7 +94,7 @@ def _rank_entry(r, tmp, target, args, kwargs, device, init, threads):
     fn = getattr(importlib.import_module(module), name)
     if init:
         dist.init_distributed(os.environ["UNI3DETR_RENDEZVOUS"],
-                              device=device)
+                              device=device, spatial=spatial)
     try:
         value = fn(*args, **kwargs)
     finally:

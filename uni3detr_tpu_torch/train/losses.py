@@ -251,14 +251,17 @@ def uni3detr_loss(outs, gt_boxes, gt_labels, gt_mask, cfg: Uni3DETRConfig
                              gt_mask, cfg)
     unc = outs.get("all_uncertainty_preds")
     num_pos = [None] * L
-    W = dist.batch_ranks()
-    if W > 1:
+    G = dist.batch_ranks()
+    if G > 1:
         # inside dist.sharded_batch(), mmdet's reduce_mean: the global
-        # positive count of each layer (at least 1) over W, so that each
-        # rank's loss is W x its sum over the global count and the ranks'
-        # mean gradient is the global loss's
-        counts = dist.all_reduce_sum((assigned >= 0).sum(dim=(1, 2)).float())
-        num_pos = list(counts.clamp(min=1.0) / W)
+        # positive count of each layer (at least 1) over the G data
+        # groups (the data-axis group: the S ranks of a group hold the
+        # same assignments), so that each group's loss is G x its sum
+        # over the global count and the groups' mean gradient is the
+        # global loss's
+        counts = dist.all_reduce_sum(
+            (assigned >= 0).sum(dim=(1, 2)).float(), dist.batch_group())
+        num_pos = list(counts.clamp(min=1.0) / G)
     logs, total = {}, 0.0
     for l in range(L):
         d = _layer_loss(outs["all_cls_scores"][l], outs["all_bbox_preds"][l],

@@ -77,7 +77,8 @@ class Optimizer:
         clip. A parameter the loss did not reach gets a zero gradient, so
         weight decay still applies to it, as in optax. Under a process
         group of several ranks the gradients are first replaced by their
-        mean over the ranks (one flat all-reduce), so that the norm, the
+        sum over the ranks over the number of data groups (one flat
+        all-reduce, ``dist.average_gradients``), so that the norm, the
         clip and the update are the global batch's on every rank; an
         unreached parameter takes part with its zeros (the OV modality
         draw leaves a branch without gradient on every rank alike)."""
@@ -222,14 +223,16 @@ def train_step(model: nn.Module, opt: Optimizer,
 
     Returns detached logs: ``total_loss``, ``grad_norm`` (before the
     clip) and the per-layer loss terms of :func:`uni3detr_loss`. Under a
-    process group of several ranks ``batch`` is this rank's slice of the
-    global batch and every rank must call the step: it is the global
-    batch's (the forward, the loss and the backward run inside
-    ``dist.sharded_batch()``: global BN statistics and positive counts;
-    gradients averaged over the ranks), and the logged losses are their
-    means over the ranks, the global batch's values; every rank must draw
-    the same ``modality``. A train-mode forward or loss outside the step
-    stays the rank's own."""
+    process group of several ranks ``batch`` is this rank's data group's
+    slice of the global batch (the S ranks of a group pass the same one)
+    and every rank must call the step: it is the global batch's (the
+    forward, the loss and the backward run inside
+    ``dist.sharded_batch()``: global BN statistics and positive counts,
+    the dense volume split along H over the S ranks; gradients averaged
+    over the data groups), and the logged losses are their means over
+    the ranks, the global batch's values; every rank must draw the same
+    ``modality``. A train-mode forward or loss outside the step stays
+    the rank's own."""
     cfg = model.cfg
     model.train()
     opt.zero_grad()
@@ -242,7 +245,12 @@ def train_step(model: nn.Module, opt: Optimizer,
         gt = gravity_center_boxes(batch["gt_boxes"])
         total, logs = uni3detr_loss(outs, gt, batch["gt_labels"],
                                     batch["gt_mask"], cfg)
-        total.backward()
+        # the S ranks of a data group each hold the group's loss: each
+        # backpropagates 1 / S of it, so the whole-volume layers' S
+        # gradients add up to one and the sliced layers' partial ones
+        # to the whole (parallel/spatial.py's backward rules)
+        S = dist.spatial_size()
+        (total / S if S > 1 else total).backward()
     grad_norm = opt.step()
     logs = {k: v.detach() for k, v in logs.items()}
     logs["total_loss"] = total.detach()
