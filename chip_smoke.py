@@ -220,7 +220,8 @@ eval's kernel launches asserted (``CliWatch``: the CLI looks up
     K1 4, K2 33, K3 6, K4 1, K7 17, K10 3, K12 1, evals as phase 51 a
     batch (N1's two-set form once a scene in the metric); finite losses
     and both eval lines in ``train.log``; ``epoch_1``, ``epoch_2`` and
-    ``latest`` with the config's classes in ``meta.json``; the first
+    ``latest`` with the config's classes in ``meta.json``; the CLI's
+    first weights ``weights.init_state_dict``'s; the first
     step's loss within CKPT_LOSS_RTOL of a direct ``train_step`` on the
     recorded batch, weights and generator states; host ms/step between
     log lines after the first, the loader's ms a batch and the peak
@@ -379,13 +380,34 @@ a (data, spatial) layout, the dense volume split along H
     weights, launches asserted; ``graft_entry.dryrun_multichip(4)`` in
     the (2, 2) layout.
 
+Then training from scratch (``convergence``), the shipped convergence
+configs as shipped (seed 0, their steps, lr and schedule), each phase
+printing its seconds:
+
+76. ``configs/uni3detr/uni3detr_synthetic_overfit.py``: ``cli.train``
+    (600 steps at B=2, each step's launches asserted: K1-K4, K7, K10,
+    K12), the CLI's first weights equal to ``weights.init_state_dict``,
+    the loss at every log line, steps/s and wall seconds; then
+    ``cli.test CONFIG W/latest --eval bbox`` (launches K1-K4, N1's
+    bitmask and N2 a batch, N1's two-set 3D form a scene in
+    ``indoor_eval``; ``cli.eval_metric`` equal): mAP@0.25 and mAP@0.50
+    at least 0.9, the JAX package's bars (``tests/test_cli_overfit.py``),
+    beside the card line;
+77. ``configs/ov_uni3detr/ov_uni3detr_synthetic_overfit.py`` the same
+    (650 steps, launches by the modality draw ri): mAP@0.25 at least 0.9;
+78. ``uni3detr_sunrgbd`` at full width, B=4, bf16, on one fixed batch:
+    one step from ``random_state_dict`` and one from ``init_state_dict``
+    (their losses and gradient norms printed), then 20 steps from
+    ``init_state_dict`` (launches as phase 7's steps), the total loss
+    at the 20th below the first's.
+
 Then one JSON line of the kernels (launches summed over every path's
 run: the inference and train runs of all six Lidar presets, the three
 OV presets' inference and train runs, K11's own call, the three
 ``cli.test`` runs and the train CLI's runs (phases 54, 55, 57 and 58:
 their steps and evals; phase 56's ``cli.test``), every rank's runs
-of phases 59-62 and 72-75 and the runs of phases 63-66 and 67-70, each
-read right after its run; times, errors,
+of phases 59-62 and 72-75 and the runs of phases 63-66, 67-70 and
+76-78, each read right after its run; times, errors,
 ``bound_ms`` with
 ``bound_by``, ``library_ms`` (null where no single PyTorch call
 computes the kernel's function) and, for the convs, ``gemm_ms``, at the
@@ -1747,10 +1769,11 @@ def auction_check(torch, tag, label, benefit, spread, eps_div, calls, add):
 
 def train_phase(torch, cfg, sd, batch, dev, tag, warmup, steps,
                 lr_schedule, momentum_schedule=None, lr_mult=None,
-                modality_seed=None):
+                modality_seed=None, losses=None):
     """Train steps on one fixed batch, each step's launches asserted;
     returns (launches of the timed steps, model, optimizer, the OV
-    modality generator or None). An OV model trains with the per-module
+    modality generator or None); ``losses``, a list, receives each step's
+    total loss. An OV model trains with the per-module
     multipliers ``lr_mult`` and, with both branches, draws ri from a CPU
     generator seeded ``modality_seed``: each step's launches are those of
     its ri, and ri must take all three values over the run; the frozen
@@ -1769,7 +1792,8 @@ def train_phase(torch, cfg, sd, batch, dev, tag, warmup, steps,
     frozen = {n: p.detach().clone() for n, p in model.named_parameters()
               if not p.requires_grad}
     counters = kernel_wrappers()
-    losses, times, draws = [], [], []
+    losses = [] if losses is None else losses
+    times, draws = [], []
     want = dict.fromkeys(counters, 0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -2650,10 +2674,12 @@ def infer_per_batch(mc):
 
 
 def cli_run(torch, tag, config, root, n_scenes, per_batch, ckpt=None,
-            tta=False, extra=(), metric_kind="indoor", cfg_options=()):
+            tta=False, extra=(), metric_kind="indoor", cfg_options=(),
+            out_dir=None):
     """``cli.test CONFIG [CKPT] --cfg-options data.data_root=ROOT
     [cfg_options] --eval bbox --out ROOT/TAG.pkl`` (with ``--tta`` if
-    asked, then ``extra``) in this process,
+    asked, then ``extra``; for a config with no data root, ``root`` None,
+    no ``data.data_root`` and the pkl under ``out_dir``) in this process,
     decoding, post-processing and the merge under
     ``torch.cuda.set_sync_debug_mode("error")`` (``run_inference``'s
     ``sync_debug_mode``, set by :func:`sync_debug_inference`): the launches of every kernel wrapper over
@@ -2669,9 +2695,10 @@ def cli_run(torch, tag, config, root, n_scenes, per_batch, ckpt=None,
     import numpy as np
     from uni3detr_tpu_torch.cli import eval_metric, test as cli_test
 
-    out = os.path.join(root, f"{tag}.pkl")
+    data = [f"data.data_root={root}"] if root else []
+    out = os.path.join(out_dir or root, f"{tag}.pkl")
     argv = [config] + ([ckpt] if ckpt else []) + [
-        "--cfg-options", f"data.data_root={root}", *cfg_options, "--eval",
+        "--cfg-options", *data, *cfg_options, "--eval",
         "bbox", "--out", out] + (["--tta"] if tta else []) + list(extra)
     wrappers = kernel_wrappers()
     for fn in wrappers.values():
@@ -2700,8 +2727,7 @@ def cli_run(torch, tag, config, root, n_scenes, per_batch, ckpt=None,
             all(counts) or metric_kind == "kitti") or (
             tta and max(counts) > 500):
         fail(f"{tag}: non-finite detections or counts {counts}")
-    metric = eval_metric.main([config, out, "--cfg-options",
-                               f"data.data_root={root}"])
+    metric = eval_metric.main([config, out, "--cfg-options", *data])
     if not same_metric(metric, r["metrics"]):
         fail(f"{tag}: cli.eval_metric {metric} != cli.test {r['metrics']}")
     wall, stream = stats["wall_s"], stats["stream_ms"]
@@ -3003,13 +3029,22 @@ def checkpoints_check(tag, work_dir, names, classes):
 
 
 def first_step_check(torch, cfg, mc, watch, dev, steps_per_epoch):
-    """The CLI's first step against a direct ``train_step`` on the same
-    collated batch, initial weights and generator states: losses within
-    CKPT_LOSS_RTOL (the card's atomics may order sums differently)."""
+    """The CLI's first weights those of ``weights.init_state_dict`` of the
+    config's seed; its first step against a direct ``train_step`` on the
+    same collated batch, initial weights and generator states: losses
+    within CKPT_LOSS_RTOL (the card's atomics may order sums
+    differently)."""
     from uni3detr_tpu_torch.cli import train as cli_train
     from uni3detr_tpu_torch.train.step import train_step
+    from uni3detr_tpu_torch.weights import init_state_dict
 
-    model = build_model(mc).to(dev)
+    model = build_model(mc)
+    want = init_state_dict(model, cfg.get("seed", 0))
+    for k, v in watch.first["state"].items():
+        if not torch.equal(v.cpu(), torch.from_numpy(want[k])):
+            fail(f"{watch.tag}: the CLI's first weights differ from "
+                 f"init_state_dict at {k}")
+    model.to(dev)
     model.load_state_dict(watch.first["state"], strict=True)
     opt = cli_train.build_optimizer(cfg, model, steps_per_epoch)
     torch.set_rng_state(watch.first["rng"][0])
@@ -5357,6 +5392,167 @@ def spatial(torch, dev, flagship_cfg=None, kitti_cfg=None):
     return runs
 
 
+# -- convergence: the shipped convergence configs trained from scratch -------
+
+CONV_DIR = os.path.join(_ROOT, "build", "chip_smoke_convergence")
+LIDAR_OVERFIT_CONFIG = os.path.join(
+    _ROOT, "configs/uni3detr/uni3detr_synthetic_overfit.py")
+OV_OVERFIT_CONFIG = os.path.join(
+    _ROOT, "configs/ov_uni3detr/ov_uni3detr_synthetic_overfit.py")
+# phases 76-77: the JAX package's bars (tests/test_cli_overfit.py)
+CONV_BARS = {"lidar": {"mAP_0.25": 0.9, "mAP_0.50": 0.9},
+             "ov": {"mAP_0.25": 0.9}}
+CONV_KERNELS = {"train": ("match_positions", "gather_conv", "gather_conv_ids",
+                          "fps_pair", "gather_conv_dw", "gather_conv_ids_dw",
+                          "auction_lap"),
+                "test": ("match_positions", "gather_conv", "gather_conv_ids",
+                         "fps_pair", "iou3d_rotated", "nms_greedy",
+                         "iou3d_rotated_sets")}
+INIT_STEPS = 20       # phase 78: flagship steps at B=4 from init_state_dict
+LOG_LINE = re.compile(r"epoch (\d+) step (\d+) \| (\S+) it/s \| lr (\S+) \| "
+                      r"total (\S+) cls (\S+) bbox (\S+) iou (\S+) ioup "
+                      r"(\S+) gnorm (\S+)")
+
+
+def used_kernels(tag, launches, names):
+    """Fail unless every kernel of ``names`` launched in the run."""
+    missing = [k for k in names if not launches.get(k)]
+    if missing:
+        fail(f"{tag}: no launch of {missing} in {launches}")
+
+
+def convergence_phase(torch, tag, config, bars):
+    """One shipped convergence config from scratch: ``cli.train CONFIG
+    --work-dir W`` as shipped (its steps, lr, schedule, seed) under a
+    :class:`CliWatch` (each step's launches, K1-K4, K7, K10 and K12 in
+    the run), the CLI's first weights those of ``init_state_dict(model,
+    seed)``; then ``cli.test CONFIG W/latest --eval bbox`` through
+    :func:`cli_run` (launches a batch, N1's two-set form a scene,
+    ``cli.eval_metric`` equal). Prints the steps, steps/s and wall
+    seconds, the loss at every log line and the metric beside the card
+    line; fails below a bar of ``bars``. Returns the launches of both
+    runs."""
+    import numpy as np
+    from uni3detr_tpu_torch.cli import train as cli_train
+    from uni3detr_tpu_torch.config_file import build_model_config, load_config
+    from uni3detr_tpu_torch.data.datasets import build_dataset
+    from uni3detr_tpu_torch.weights import init_state_dict
+
+    cfg = load_config(config)
+    mc = build_model_config(cfg)
+    n_train = len(build_dataset(cfg.data, cfg.class_names, mc.pc_range,
+                                "train"))
+    steps = cfg.total_epochs * max(n_train // cfg.data["samples_per_gpu"], 1)
+    wd = os.path.join(CONV_DIR, tag)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with CliWatch(torch, mc, f"{tag}-train") as w:
+        r = cli_train.main([config, "--work-dir", wd])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    run = w.launches()
+    if r["step"] != steps or len(w.steps) != steps:
+        fail(f"{tag}: {r['step']} steps ({len(w.steps)} watched), the "
+             f"config's {steps}")
+    used_kernels(f"{tag}-train", run, CONV_KERNELS["train"])
+    want = init_state_dict(build_model(mc), cfg.get("seed", 0))
+    for k, v in w.first["state"].items():
+        if not np.array_equal(v.cpu().numpy(), want[k]):
+            fail(f"{tag}: the CLI's first weights differ from "
+                 f"init_state_dict at {k}")
+    with open(os.path.join(wd, "train.log")) as f:
+        lines = LOG_LINE.findall(f.read())
+    if len(lines) != steps // cfg.log_config["interval"]:
+        fail(f"{tag}: {len(lines)} log lines for {steps} steps")
+    for ep, st, its, lr, tot, cls, bbox, iou, ioup, gn in lines:
+        print(f"[{tag}] step {st}: total {tot} cls {cls} bbox {bbox} iou "
+              f"{iou} ioup {ioup} gnorm {gn} lr {lr} ({its} it/s)")
+    if not all(math.isfinite(float(ln[4])) for ln in lines):
+        fail(f"{tag}: non-finite losses in train.log")
+    print(f"[{tag}] cli.train: {steps} steps in {train_s:.2f} s, "
+          f"{steps / train_s:.3f} steps/s, from init_state_dict (seed "
+          f"{cfg.get('seed', 0)}); launches {run}")
+    t0 = time.perf_counter()
+    test_run, res = cli_run(torch, f"{tag}-test", config, None,
+                            len(build_dataset(cfg.data, cfg.class_names,
+                                              mc.pc_range, "val")),
+                            infer_per_batch(mc), os.path.join(wd, "latest"),
+                            out_dir=wd)
+    used_kernels(f"{tag}-test", test_run, CONV_KERNELS["test"])
+    m = res["metrics"]
+    print(f"[{tag}] cli.test --eval bbox in {time.perf_counter() - t0:.2f} "
+          f"s: " + ", ".join(f"{k} {m[k]:.4f}" for k in sorted(m)
+                             if k.startswith("mAP"))
+          + f" (bars {bars}) | {card_line()}")
+    low = {k: m[k] for k, bar in bars.items() if not m[k] >= bar}
+    if low:
+        fail(f"{tag}: below the JAX package's bars: {low}")
+    return [run, test_run]
+
+
+def init_phase(torch, dev):
+    """Phase 78: ``uni3detr_sunrgbd`` at full width from both init
+    functions on one fixed B=4 batch (bf16, as shipped): one step from
+    each, its losses and gradient norm printed; then INIT_STEPS steps
+    from ``init_state_dict`` (``train_phase``: each step's launches, K1-K4,
+    K7, K10 and K12), the total loss at the last below the first.
+    Returns the launches of the steps from ``init_state_dict``."""
+    from uni3detr_tpu_torch.presets import SUNRGBD
+    from uni3detr_tpu_torch.synthetic import clustered_train_batch
+    from uni3detr_tpu_torch.train.step import make_optimizer, train_step
+    from uni3detr_tpu_torch.weights import init_state_dict, random_state_dict
+
+    cfg = SUNRGBD
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             clustered_train_batch(0, cfg, TRAIN_B).items()}
+    sds = {}
+    for name, fn in (("random_state_dict", random_state_dict),
+                     ("init_state_dict", init_state_dict)):
+        model = build_model(cfg)
+        sds[name] = {k: torch.from_numpy(v) for k, v in
+                     fn(model, WEIGHT_SEED).items()}
+        model.load_state_dict(sds[name], strict=True)
+        model.to(dev).train()
+        logs = train_step(model, make_optimizer(model, TRAIN_LR), batch)
+        print(f"[init] first step from {name}: " + " ".join(
+            f"{k}={float(v):.5f}" for k, v in sorted(logs.items())
+            if "." not in k))
+        del model
+    losses = []
+    launches = train_phase(torch, cfg, sds["init_state_dict"], batch, dev,
+                           "init-train", 0, INIT_STEPS, TRAIN_LR,
+                           losses=losses)[0]
+    used_kernels("init-train", launches, CONV_KERNELS["train"])
+    print(f"[init] total loss from init_state_dict: step 1 {losses[0]:.5f}, "
+          f"step {INIT_STEPS} {losses[-1]:.5f} | {card_line()}")
+    if not losses[-1] < losses[0]:
+        fail(f"init: the loss at step {INIT_STEPS} {losses[-1]} is not below "
+             f"step 1's {losses[0]}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def convergence(torch, dev):
+    """Phases 76-78: the train path from scratch. 76
+    ``uni3detr_synthetic_overfit.py`` (600 steps) and 77
+    ``ov_uni3detr_synthetic_overfit.py`` (650 steps) through ``cli.train``
+    and ``cli.test`` to the JAX package's bars; 78 the flagship from
+    ``init_state_dict``. Returns the launches of every run."""
+    shutil.rmtree(CONV_DIR, ignore_errors=True)
+    runs = []
+    for tag, config in (("lidar", LIDAR_OVERFIT_CONFIG),
+                        ("ov", OV_OVERFIT_CONFIG)):
+        t0 = time.perf_counter()
+        runs += convergence_phase(torch, f"converge-{tag}", config,
+                                  CONV_BARS[tag])
+        print(f"[converge-{tag}] phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    runs.append(init_phase(torch, dev))
+    print(f"[init] phase {time.perf_counter() - t0:.1f}s")
+    shutil.rmtree(CONV_DIR, ignore_errors=True)
+    return runs
+
+
 def main():
     import torch
 
@@ -5412,6 +5608,8 @@ def main():
     t.append(time.perf_counter())
     runs += spatial(torch, dev)
     t.append(time.perf_counter())
+    runs += convergence(torch, dev)
+    t.append(time.perf_counter())
     # the NMS kernels' numbers at uni3detr_scannet's 5000 boxes
     for name in ("iou3d_rotated", "nms_greedy"):
         report[name] = scan_reports[0][name]
@@ -5421,7 +5619,7 @@ def main():
             launches[k] = launches.get(k, 0) + v
     names = ("flagship", "nuscenes", "scannet", "scannet_large", "kitti_car",
              "kitti_3classes", "ov", "cli", "train_cli", "ddp", "onramps",
-             "options", "spatial")
+             "options", "spatial", "convergence")
     print("[time] " + ", ".join(f"{n} {t[i + 1] - t[i]:.1f}s"
                                 for i, n in enumerate(names))
           + f"; the whole smoke {time.perf_counter() - T_START:.1f}s")

@@ -44,7 +44,7 @@ from uni3detr_tpu_torch.models.ov_detector import OV_Uni3DETR
 from uni3detr_tpu_torch.models.resnet import ResNet
 from uni3detr_tpu_torch.train import checkpoint as tcheckpoint
 from uni3detr_tpu_torch.train import step as tstep
-from uni3detr_tpu_torch.weights import random_state_dict
+from uni3detr_tpu_torch.weights import init_state_dict
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 TINY = os.path.join(ROOT, "configs/uni3detr/uni3detr_synthetic_tiny.py")
@@ -230,7 +230,7 @@ def test_cli_end_to_end_on_cpu(tmp_path, monkeypatch):
     # recorded batch and generator state
     mc = tconfig.build_model_config(cfg)
     model = Uni3DETR(mc)
-    want = random_state_dict(model, 0)
+    want = init_state_dict(model, 0)
     for k, v in rec1.first["state"].items():
         np.testing.assert_array_equal(v.numpy(), want[k], err_msg=k)
     model.load_state_dict(rec1.first["state"])

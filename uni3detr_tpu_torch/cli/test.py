@@ -68,11 +68,11 @@ def parse_args(argv=None):
 
 
 def build_model(model_cfg, checkpoint=None, device="cuda", log=print,
-                seed=0):
+                seed=0, init=None):
     """The config's model in eval mode on ``device``: a checkpoint's
-    weights, or random ones (``weights.random_state_dict`` of ``seed``);
-    the CLIP text embeddings from ``zeroshot_path`` where the config
-    names one."""
+    weights, or ``init(model, seed)``'s (default
+    ``weights.random_state_dict``: random ones); the CLIP text embeddings
+    from ``zeroshot_path`` where the config names one."""
     from ..models.detector import Uni3DETR
     from ..models.ov_detector import OV_Uni3DETR
     from ..train.checkpoint import load_checkpoint, restore
@@ -86,8 +86,8 @@ def build_model(model_cfg, checkpoint=None, device="cuda", log=print,
         log(f"loaded checkpoint {checkpoint}")
     else:
         model.load_state_dict({k: torch.from_numpy(v) for k, v in
-                               random_state_dict(model, seed).items()},
-                              strict=True)
+                               (init or random_state_dict)(
+                                   model, seed).items()}, strict=True)
     zs_path = getattr(model_cfg, "zeroshot_path", None)
     if zs_path:
         zs = torch.from_numpy(np.load(zs_path).astype(np.float32))

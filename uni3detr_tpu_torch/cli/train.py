@@ -24,7 +24,11 @@ checkpoints ``epoch_N`` and ``latest`` with ``meta.json`` every
 ``--resume-from`` / ``resume_from``. ``--max-steps`` saves ``latest`` and
 stops.
 
-Weights start from ``weights.random_state_dict`` of the seed. Dropout
+Weights start as the JAX package's ``create_train_state`` starts them:
+``weights.init_state_dict`` of the seed (flax's initialisers, the focal
+prior on the cls branches' last bias, zero cross-attention weights and
+DCN offsets), then a staged branch or ``--resume-from`` overwrites what
+it loads. Dropout
 and the OV modality draw take their generators' seeds from (seed, step),
 so a resumed run steps as an uninterrupted one. The sample order is the
 JAX CLI's: ``RandomState(seed)``'s permutations, the first of them drawn
@@ -290,6 +294,7 @@ def _train(args, cfg, model_cfg, work_dir, log, device):
     from ..parallel import dist
     from ..train.checkpoint import (load_branch, load_checkpoint, restore,
                                     save_checkpoint)
+    from ..weights import init_state_dict
     from .test import build_model
 
     cuda = device.type == "cuda"
@@ -314,7 +319,8 @@ def _train(args, cfg, model_cfg, work_dir, log, device):
     # the JAX CLI draws one order for its init batch before the epochs
     rng.permutation(len(dataset))
 
-    model = build_model(model_cfg, None, device, log.info, seed).train()
+    model = build_model(model_cfg, None, device, log.info, seed,
+                        init=init_state_dict).train()
     opt = build_optimizer(cfg, model, steps_per_epoch)
     log.info("train split: %d samples, batch %d (%d a data group), %d "
              "steps an epoch, %d epochs", len(dataset), gbs, bs,

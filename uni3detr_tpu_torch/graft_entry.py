@@ -113,7 +113,7 @@ def _dryrun_rank(device):
     from .parallel import dist
     from .train.evaluator import run_inference_distributed
     from .train.step import make_optimizer, train_step
-    from .weights import random_state_dict
+    from .weights import init_state_dict
 
     W, r, G = dist.world_size(), dist.rank(), dist.data_size()
     dev = torch.device("cuda", torch.cuda.current_device()) \
@@ -123,7 +123,7 @@ def _dryrun_rank(device):
     batch = dryrun_batch(B)
     model = Uni3DETR(cfg)
     model.load_state_dict({k: torch.from_numpy(v) for k, v in
-                           random_state_dict(model, 0).items()})
+                           init_state_dict(model, 0).items()})
     model.to(dev)
     opt = make_optimizer(model, 1e-3)
     local = dist.local_slice(B)

@@ -10,11 +10,19 @@
 - :func:`state_dict_from_jax_vovnet` does the same for the JAX
   package's ``VoVNet`` (``models/vovnet.py``), whose keys are its module
   names.
+- :func:`init_state_dict` starts a model as the JAX package's
+  ``model.init`` does (``train/step.py::create_train_state``): each
+  leaf from the initialiser of the flax module behind it
+  (:func:`init_plan`), drawn from numpy's generator. ``cli.train`` starts
+  from it.
 - :func:`random_state_dict` makes seeded random weights for a model
-  (numpy's generator, so every device gets the same numbers).
+  (numpy's generator, so every device gets the same numbers): a
+  distribution for parity checks, with no zero or constant leaf to make
+  a kernel's check trivial.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Dict, Mapping
 
@@ -351,4 +359,159 @@ def random_state_dict(model: nn.Module, seed: int) -> Dict[str, np.ndarray]:
                 out[name] *= DCN_OFFSET_SCALE
         out[name] = np.asarray(out[name]).astype(
             np.int64 if leaf == "num_batches_tracked" else np.float32)
+    return out
+
+
+# -- the JAX package's initialisation ----------------------------------------
+
+# the std of N(0, 1) truncated to [-2, 2]: flax's truncated variance
+# scaling divides by it, so that the leaf keeps the std it asks for
+TRUNCATED_STD = 0.87962566103423978
+
+
+@dataclasses.dataclass(frozen=True)
+class Init:
+    """How one leaf of the JAX package's ``model.init`` starts.
+
+    ``kind``: ``"const"`` (every entry ``value``); ``"truncated"`` (flax's
+    ``lecun_normal``, ``variance_scaling(1, "fan_in",
+    "truncated_normal")``: N(0, 1) cut to [-2, 2], times ``std`` /
+    ``TRUNCATED_STD``, so entries lie within 2 ``std`` / ``TRUNCATED_STD``
+    and the leaf's std is ``std``); ``"normal"`` (N(0, ``std``^2));
+    ``"unit_columns"`` (the CLIP text embeddings: N(0, 1), each class's
+    column scaled to norm 1)."""
+    kind: str
+    value: float = 0.0
+    std: float = 1.0
+
+
+def _lecun(fan_in: int) -> Init:
+    return Init("truncated", std=1.0 / math.sqrt(fan_in))
+
+
+def _normal(fan_in: int) -> Init:
+    return Init("normal", std=1.0 / math.sqrt(fan_in))
+
+
+_ZERO, _ONE = Init("const", 0.0), Init("const", 1.0)
+
+
+def _leaf_init(name: str, mod: nn.Module, leaf: str, role) -> Init:
+    """The :class:`Init` of ``mod``'s ``leaf``, by the flax module behind
+    ``mod`` (the comments cite ``uni3detr_tpu/models/``). fan_in is counted in JAX's layout from ``mod``'s weight: a
+    Dense (in, out) is the port's Linear (out, in), a Conv (k.., in, out)
+    its (out, in, k..), a ConvTranspose (k.., in, out) its (in, out, k..),
+    a sparse conv (K, in, out) its (kd, kh, kw, in, out)."""
+    from torch.nn.modules.batchnorm import _BatchNorm
+
+    from .models.dcn import DeformConv2dV2
+    from .models.head import _CLS_BIAS_INIT
+    from .models.head_clip import Uni3DETRHeadCLIP
+    from .models.sparse_encoder import SparseConvWeight
+
+    w = getattr(mod, "weight", None)
+    if isinstance(mod, _BatchNorm):         # layers.py:27-31, flax BatchNorm
+        rules = {"weight": _ONE, "bias": _ZERO, "running_mean": _ZERO,
+                 "running_var": _ONE, "num_batches_tracked": _ZERO}
+    elif isinstance(mod, nn.LayerNorm):
+        rules = {"weight": _ONE, "bias": _ZERO}
+    elif isinstance(mod, nn.Linear):        # nn.Dense, zero bias
+        rules = {"weight": _ZERO if role == "zero" else _lecun(w.shape[1]),
+                 "bias": Init("const", _CLS_BIAS_INIT)
+                 if role == "cls_prior" else _ZERO}
+    elif isinstance(mod, nn.MultiheadAttention):
+        # flax's attention: q, k, v DenseGeneral (C, heads, dh), fan_in C
+        rules = {"in_proj_weight": _lecun(mod.in_proj_weight.shape[1]),
+                 "in_proj_bias": _ZERO}
+    elif isinstance(mod, (nn.Conv2d, nn.Conv3d)):
+        # nn.Conv, zero bias; the view transformer's 1x1 convs are Dense
+        rules = {"weight": _ZERO if role == "zero"
+                 else _lecun(w[0].numel()), "bias": _ZERO}
+    elif isinstance(mod, nn.ConvTranspose3d):
+        rules = {"weight": _lecun(w[:, 0].numel())}
+    elif isinstance(mod, SparseConvWeight):
+        # sparse_encoder.py:65-67; conv_out is a Dense (:293, :339)
+        fan_in = w[..., 0].numel()
+        rules = {"weight": _lecun(fan_in) if role == "dense"
+                 else _normal(fan_in)}
+    elif isinstance(mod, DeformConv2dV2):   # dcn.py:59
+        rules = {"weight": _normal(w[0].numel())}
+    elif isinstance(mod, nn.Embedding):     # head.py:58-60, head_clip.py:74-76
+        rules = {"weight": Init("normal", std=1.0)}
+    elif isinstance(mod, Uni3DETRHeadCLIP):  # head_clip.py:64-72
+        rules = {"zs_weights": Init("unit_columns")}
+    else:
+        rules = {}
+    if leaf not in rules:
+        raise KeyError(f"init_plan: no initialiser for {name} "
+                       f"({type(mod).__name__}.{leaf})")
+    return rules[leaf]
+
+
+def init_plan(model: nn.Module) -> Dict[str, Init]:
+    """The :class:`Init` of every entry of ``model.state_dict()``, as the
+    JAX package's modules initialise them: flax's defaults (``lecun_normal``
+    kernels, zero biases, norms at scale 1 and bias 0, BN statistics at 0
+    and 1) but for the sparse-conv and DCN kernels (untruncated, variance
+    1 / fan_in), the query and reference embeddings (N(0, 1)), the zero
+    ``attention_weights`` of the cross-attention and the zero DCN offset
+    convs, and the focal prior -log(0.99 / 0.01) on each Lidar cls
+    branch's last bias (the comments cite ``uni3detr_tpu/models/``).
+    Raises KeyError for a leaf no rule covers."""
+    from .models.dcn import DeformConv2dV2
+    from .models.head import Uni3DETRHead
+    from .models.sparse_encoder import SparseEncoderHD
+    from .models.transformer import UniCrossAtten
+
+    roles = {}
+    for m in model.modules():
+        if isinstance(m, UniCrossAtten):        # transformer.py:49
+            roles[id(m.attention_weights)] = "zero"
+        elif isinstance(m, DeformConv2dV2):     # dcn.py:37-38
+            roles[id(m.conv_offset)] = "zero"
+        elif isinstance(m, Uni3DETRHead):       # head.py:31, :80
+            for br in m.cls_branches:
+                roles[id(br[-1])] = "cls_prior"
+        elif isinstance(m, SparseEncoderHD):
+            roles[id(m.conv_out[0])] = "dense"
+    plan = {}
+    for name in model.state_dict():
+        owner, _, leaf = name.rpartition(".")
+        mod = model.get_submodule(owner)
+        plan[name] = _leaf_init(name, mod, leaf, roles.get(id(mod)))
+    return plan
+
+
+def _truncated_normal(rng: np.random.RandomState, shape) -> np.ndarray:
+    """N(0, 1) cut to [-2, 2], entries outside redrawn."""
+    x = rng.standard_normal(shape)
+    out = np.abs(x) > 2.0
+    while out.any():
+        x[out] = rng.standard_normal(int(out.sum()))
+        out = np.abs(x) > 2.0
+    return x
+
+
+def init_state_dict(model: nn.Module, seed: int) -> Dict[str, np.ndarray]:
+    """``model``'s initial weights, every leaf from its
+    :func:`init_plan` rule, drawn in ``state_dict`` order from one
+    ``numpy.random.RandomState(seed)`` (the same numbers on every
+    device). The draws are not flax's, whose generator is JAX's; the
+    families, scales and constants are."""
+    rng = np.random.RandomState(seed)
+    plan = init_plan(model)
+    out = {}
+    for name, t in model.state_dict().items():
+        init, shape = plan[name], tuple(t.shape)
+        if init.kind == "const":
+            a = np.full(shape, init.value)
+        elif init.kind == "normal":
+            a = rng.standard_normal(shape) * init.std
+        elif init.kind == "truncated":
+            a = _truncated_normal(rng, shape) * (init.std / TRUNCATED_STD)
+        else:                                   # unit_columns
+            a = rng.standard_normal(shape)
+            a = a / np.linalg.norm(a, axis=0, keepdims=True)
+        out[name] = np.array(
+            a, np.float32 if t.dtype.is_floating_point else np.int64)
     return out
