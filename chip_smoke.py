@@ -325,15 +325,18 @@ written under ``build/``, each phase printing its host seconds:
 Then the config options that no shipped preset uses (``options``), at
 full width, each phase printing its host seconds:
 
-67. N3 (``u3d_soft_nms``) on the decoded boxes of a random-weight
+67. N3 (``u3d_soft_nms``) and N1's class blocks
+    (``u3d_iou3d_class_blocks``) on the decoded boxes of a random-weight
     forward at the flagship's eval batch (4 scenes, 1000 boxes of 10
-    classes) and at ScanNet's (1 scene, 5000 boxes of 18 classes):
-    ``post_process`` with ``soft_nms`` under
-    ``set_sync_debug_mode("error")`` launches N1's matrix and N3 once,
-    then N3 against ``soft_nms_plain`` on the same matrix: the keep masks
-    and the kept boxes' steps equal (no near-tie flip), the scores within
-    SOFT_SCORE_RTOL; kernel, device and plain ms, the bound and the
-    serial bound (the longest class loop's steps x N3's least step);
+    classes), at ScanNet's (1 scene, 5000 boxes of 18 classes) and on
+    ScanNet's boxes with every label 0 (one class): ``post_process`` with
+    ``soft_nms`` under ``set_sync_debug_mode("error")`` launches the class
+    blocks and N3 once (N1's matrix never), then ``ops.nms.soft_nms``
+    against ``soft_nms_plain`` on N1's matrix: keep masks, scores and the
+    kept boxes' steps equal bit for bit, the class blocks equal to the
+    matrix at every same-class pair; kernel, device and plain ms, the
+    bound and the serial bound (the longest class loop's steps x N3's
+    least step), the class blocks beside N1's matrix, the branch's ms;
 68. ``cli.train configs/uni3detr/uni3detr_sunrgbd.py --max-steps 3`` with
     ``model.iou_cost_type=rdiou model.iou_loss_type=rdiou
     model.post_processing=soft_nms`` on a written SUN RGB-D root at B=4
@@ -2662,11 +2665,11 @@ def sync_debug_inference(mode):
 def infer_per_batch(mc):
     """Kernel launches of one eval batch of a Lidar-point model through
     ``run_inference``: the forward's K1-K4, then N1's NMS bitmask and N2,
-    with box merging N1's matrix form, with soft-NMS N1's matrix form and
+    with box merging N1's matrix form, with soft-NMS N1's class blocks and
     N3."""
     subm, strided = conv_cases(mc)
     post = {"box_merging": {"iou3d_rotated_matrix": 1},
-            "soft_nms": {"iou3d_rotated_matrix": 1, "soft_nms": 1}}.get(
+            "soft_nms": {"iou3d_rotated_blocks": 1, "soft_nms": 1}}.get(
         mc.post_processing, {"iou3d_rotated": 1, "nms_greedy": 1})
     return {"match_positions": len(mc.encoder_channels),
             "gather_conv": sum(c[-1] for c in subm),
@@ -4247,15 +4250,21 @@ def onramps(torch, dev):
 
 
 OPTIONS_DIR = os.path.join(_ROOT, "build", "chip_smoke_options")
-# phase 67: (preset, eval batch) of N3's shapes; decoded boxes a scene are
-# the preset's max_num (1000 of 10 classes, 5000 of 18)
-SOFT_NMS_SHAPES = (("uni3detr_sunrgbd", 4), ("uni3detr_scannet", 1))
-SOFT_SCORE_RTOL = 1e-6
-# N3: fp32 operations a live box and step: the argmax compare, and while
-# the step keeps a box the square, the division, exp, the product and the
-# select of the decay
-SOFT_OPS_PER_BOX_STEP = 6
-SOFT_STEP_BOXES = 256     # phase 67's serial-step probe: one box a thread
+# phase 67: (label, preset, eval batch, every label set to 0) of N3's
+# shapes; decoded boxes a scene are the preset's max_num (1000 of 10
+# classes, 5000 of 18); the one-class shape reuses ScanNet's boxes
+SOFT_NMS_SHAPES = (("flagship", "uni3detr_sunrgbd", 4, False),
+                   ("scannet", "uni3detr_scannet", 1, False),
+                   ("scannet one class", "uni3detr_scannet", 1, True))
+# N3: fp32 operations of a segment entry and step (the argmax compare and
+# the select), and the more of an entry whose IoU with the kept box is not
+# 0 (the square, the division, exp and the product)
+SOFT_OPS_PER_ENTRY = 2
+SOFT_OPS_PER_DECAY = 4
+# N3 reads scores (4), order (8) and labels (4) and writes the score (4),
+# keep flag (1) and step (4) of every box: bytes a box
+SOFT_BYTES_PER_BOX = 25
+SOFT_STEP_BOXES = 256     # phase 67's serial-step probe: 128 threads
 OPT_TRAIN_SCENES, OPT_VAL_SCENES, OPT_STEPS = 8, 4, 3   # phase 68
 OPT_TRAIN_OPTS = ["model.iou_cost_type=rdiou", "model.iou_loss_type=rdiou",
                   "model.post_processing=soft_nms", "log_config.interval=1"]
@@ -4266,59 +4275,65 @@ VOV_SIZE = (480, 640)                      # phase 71: the OV configs' img_size
 VOV_RTOL = 5e-2      # phase 71: bf16 card vs fp32 CPU, of each stage's largest
 
 
-def soft_nms_roofline(B, N, kept, loops):
-    """N3: the kept boxes' IoU rows read once (``kept`` x N x 4 bytes), the
-    scores, labels and valid flags read and the score, keep and step
-    written (B N x 18 bytes); every block scans its N live scores once a
-    step (``kept`` steps that keep a box, each with the decay, and the
-    ``loops`` final steps that keep none) at SOFT_OPS_PER_BOX_STEP fp32
-    operations a box."""
-    return roofline(SOFT_OPS_PER_BOX_STEP * N * kept + N * loops,
-                    4 * kept * N + 18 * B * N, "fp32")
+def soft_nms_roofline(B, N, entries, decays, members):
+    """N3 on this run's data: ``entries`` = sum over classes of kept_c x
+    n_c (the kept boxes' rows of their class blocks, each read once, 4
+    bytes an entry, and each entry scanned once a step), ``decays`` of
+    them not 0 (an IoU 0 skips the decay), ``members`` = sum n_c (the
+    final scan of each loop, which keeps nothing); plus the inputs read
+    and outputs written (SOFT_BYTES_PER_BOX a box)."""
+    return roofline(SOFT_OPS_PER_ENTRY * (entries + members)
+                    + SOFT_OPS_PER_DECAY * decays,
+                    4 * entries + SOFT_BYTES_PER_BOX * B * N, "fp32")
 
 
 def soft_nms_step_ms(torch, dev):
-    """N3's least time for one serial step (a block argmax, its two
-    barriers, the prune test and one IoU row): one scene and one class of
-    SOFT_STEP_BOXES boxes, one a thread of the block, on an IoU matrix of
+    """N3's least time for one serial step (its row loads, the decay pass
+    and the block argmax around one barrier): one scene and one class of
+    SOFT_STEP_BOXES boxes, two a thread of the block, on class blocks of
     zeros with every score above the prune level, so that every step
     keeps a box; (t(n steps) - t(n / 2 steps)) / (n / 2), each t from
     back-to-back launches, which cancels the launch. A class loop of k
     steps takes at least k times this on the card, whatever its width."""
     from uni3detr_tpu_torch.ops import nms
     n = SOFT_STEP_BOXES
-    iou = torch.zeros((1, n, n), device=dev)
-    sc = torch.linspace(1.0, 0.5, n, device=dev)[None]
+    blocks = torch.zeros((1, n, n), device=dev)
+    order = torch.arange(n, device=dev)[None]
     lab = torch.zeros((1, n), dtype=torch.int32, device=dev)
-    val = torch.ones((1, n), dtype=torch.uint8, device=dev)
+    sc = torch.linspace(1.0, 0.5, n, device=dev)[None]
+    fn = nms.soft_nms_segments
     t = {}
     for k in (n // 2, n):
-        before = nms.soft_nms.launches
+        before = fn.launches
         t[k] = back_to_back_ms(
-            torch, lambda: nms.soft_nms(iou, sc, lab, val, 1, 0.5, 0.0, k), 50)
-        if nms.soft_nms.launches - before != 51:
+            torch, lambda: fn(blocks, order, lab, sc, 1, 0.5, 0.0, k), 50)
+        if fn.launches - before != 51:
             fail("N3's step timing: not one launch a call")
-    if not bool(nms.soft_nms(iou, sc, lab, val, 1, 0.5, 0.0, n)[1].all()):
+    if not bool(fn(blocks, order, lab, sc, 1, 0.5, 0.0, n)[1].all()):
         fail("N3's step timing: a step kept no box")
     return (t[n] - t[n // 2]) / (n // 2)
 
 
 def soft_nms_phase(torch, dev, report):
-    """Phase 67: N3 on the decoded boxes of a random-weight forward at
-    the flagship's eval batch (4 scenes, 1000 boxes of 10 classes) and at
-    ScanNet's (1 scene, 5000 boxes of 18 classes). The main path
-    (``post_process`` with ``soft_nms``, under
-    ``set_sync_debug_mode("error")``) launches N1's matrix and N3 once;
-    then N3 against ``soft_nms_plain`` on the same matrix: the keep masks
-    and each kept box's step (the kept indices in order) equal, the
-    scores within SOFT_SCORE_RTOL, the boxes whose step differs (a
-    near-tie flipped) counted and held to 0; kernel, device and plain
-    times, the bound, and the serial bound: the longest class loop's
-    steps (the kept ones and the last, which keeps none) times
-    :func:`soft_nms_step_ms`. The device time is N3's alone, back to back
-    on arguments already in its dtypes; the profiler's reading of N3 and
-    of the wrapper's casts is printed beside it (both 0: it traced no
-    kernel). Returns the main path's launches."""
+    """Phase 67: N3 and N1's class blocks on the decoded boxes of a
+    random-weight forward at the flagship's eval batch (4 scenes, 1000
+    boxes of 10 classes), at ScanNet's (1 scene, 5000 boxes of 18
+    classes), and on ScanNet's boxes with every label 0 (one class of
+    5000). The main path (``post_process`` with ``soft_nms``, under
+    ``set_sync_debug_mode("error")``) launches the class-block IoU and N3
+    once and N1's matrix never; then ``ops.nms.soft_nms`` against
+    ``soft_nms_plain`` on N1's matrix: keep masks, scores and each kept
+    box's step (the kept indices in order) equal bit for bit; the class
+    blocks equal to N1's matrix at every pair of one class bit for bit,
+    and within NMS_IOU_ATOL of the plain IoU (row blocks). Times: N3's
+    kernel, device (back to back on arguments in its dtypes; the
+    profiler's reading beside it) and plain ms, its bound
+    (:func:`soft_nms_roofline`) and serial bound (the longest class
+    loop's steps, the kept ones and the last, which keeps none, times
+    :func:`soft_nms_step_ms`); the class blocks' kernel, device and plain
+    ms beside N1's full matrix; the whole soft-NMS branch
+    (``ops.nms.soft_nms``) and ``post_process``. Returns the main path's
+    launches."""
     import numpy as np
     from uni3detr_tpu_torch.geom.boxes import bottom_center_boxes
     from uni3detr_tpu_torch.geom.iou import iou3d_rotated_pairwise
@@ -4333,20 +4348,28 @@ def soft_nms_phase(torch, dev, report):
     step_ms = soft_nms_step_ms(torch, dev)
     print(f"[soft-nms] N3 one serial step at least {step_ms * 1e3:.3f} us "
           f"({SOFT_STEP_BOXES} boxes of one class, every step keeping one)")
-    for preset, B in SOFT_NMS_SHAPES:
+    decoded = {}
+    for label, preset, B, one_class in SOFT_NMS_SHAPES:
         t0 = time.perf_counter()
         cfg = dataclasses.replace(PRESETS[preset],
                                   post_processing="soft_nms")
-        model = build_model(cfg).eval()
-        model.load_state_dict(_state_dict(torch, model), strict=True)
-        model.to(dev)
-        scenes = [clustered_scene(seed, cfg) for seed in range(B)]
-        pts = torch.from_numpy(np.concatenate([s[0] for s in scenes])).to(dev)
-        rnd = torch.from_numpy(np.concatenate([s[1] for s in scenes])).to(dev)
-        mask = torch.ones(pts.shape[:2], dtype=torch.bool, device=dev)
-        with torch.inference_mode():
-            dec = decode_predictions(model(pts, mask, rnd), cfg)
-        del model
+        if preset not in decoded:
+            model = build_model(cfg).eval()
+            model.load_state_dict(_state_dict(torch, model), strict=True)
+            model.to(dev)
+            scenes = [clustered_scene(seed, cfg) for seed in range(B)]
+            pts = torch.from_numpy(np.concatenate([s[0] for s in scenes])
+                                   ).to(dev)
+            rnd = torch.from_numpy(np.concatenate([s[1] for s in scenes])
+                                   ).to(dev)
+            mask = torch.ones(pts.shape[:2], dtype=torch.bool, device=dev)
+            with torch.inference_mode():
+                decoded[preset] = decode_predictions(model(pts, mask, rnd),
+                                                     cfg)
+            del model
+        dec = decoded[preset]
+        if one_class:
+            dec = (dec[0], dec[1], torch.zeros_like(dec[2]), dec[3])
         boxes, scores, labels, valid = dec
         N, C = scores.shape[1], cfg.num_classes
         args = (scores, labels, valid, C, cfg.soft_nms_sigma,
@@ -4361,63 +4384,112 @@ def soft_nms_phase(torch, dev, report):
         torch.cuda.synchronize()
         run = {k: fn.launches - before[k] for k, fn in wrappers.items()}
         want = dict.fromkeys(wrappers, 0)
-        want.update(iou3d_rotated_matrix=1, soft_nms=1)
+        want.update(iou3d_rotated_blocks=1, soft_nms=1)
         if run != want:
-            fail(f"soft-NMS {preset}: launches {run} != {want}")
+            fail(f"soft-NMS {label}: launches {run} != {want}")
         runs.append(run)
-        iou = iou3d_rotated_pairwise(
-            bottom_center_boxes(boxes)[..., :7].contiguous(), "bottom")
-        got = nms.soft_nms(iou, *args)
+        bx = bottom_center_boxes(boxes)[..., :7].contiguous()
+        iou = iou3d_rotated_pairwise(bx, "bottom")
+        got = nms.soft_nms(bx, *args)
         ref = nms.soft_nms_plain(iou, *args)
-        flipped = int((got[2] != ref[2]).sum())
+        equal = [torch.equal(g, r) for g, r in zip(got, ref)]
         kept = int(ref[1].sum())
-        err = ((got[0] - ref[0]).abs()
-               / ref[0].abs().clamp(min=1e-30)).max().item()
-        per_loop = torch.zeros(B, C, dtype=torch.long, device=dev)
-        per_loop.index_put_((torch.arange(B, device=dev)[:, None].expand(
-            B, N)[ref[1]], labels.long()[ref[1]]),
-            torch.ones(kept, dtype=torch.long, device=dev), accumulate=True)
         if cfg.score_thr is None and cfg.num_thr is None and not (
                 torch.equal(post[3], got[1]) and torch.equal(post[1], got[0])):
-            fail(f"soft-NMS {preset}: post_process's output is not N3's")
-        ms = median_ms(torch, lambda: nms.soft_nms(iou, *args), 20)
-        cast = (scores.float(), labels.to(torch.int32),
-                valid.to(torch.uint8)) + args[3:]
-        before = nms.soft_nms.launches
-        dev_ms = back_to_back_ms(torch, lambda: nms.soft_nms(iou, *cast), 20)
-        if nms.soft_nms.launches - before != 21:
-            fail("N3's timing: not one launch a call")
-        prof = device_ms_by_name(torch, lambda: nms.soft_nms(iou, *args),
-                                 "u3d_soft_nms", 10)
-        pms = median_ms(torch, lambda: nms.soft_nms_plain(iou, *args), 2, 1)
-        bound = soft_nms_roofline(B, N, kept, B * C)
-        longest = int(per_loop.max())
+            fail(f"soft-NMS {label}: post_process's output is not N3's")
+        # N3's own arguments, and the class blocks against N1's matrix
+        order, lab = nms.soft_nms_order(scores, labels, valid, C)
+        bxs = torch.gather(bx, 1, order[..., None].expand(-1, -1, 7))
+        blocks = nms.iou3d_class_blocks(bxs, lab, "bottom")
+        same = (lab[:, :, None] == lab[:, None, :]) & (lab[:, :, None] >= 0)
+        mat = torch.stack([iou[b][order[b]][:, order[b]] for b in range(B)])
+        blocks_equal = torch.equal(blocks[same], mat[same])
+        plain_blocks = plain_iou_rows(torch, bxs)
+        blocks_err = (blocks[same] - plain_blocks[same]).abs().max().item()
+        del mat
+        # the work of this run's loops: each class's kept boxes' rows
+        member = lab >= 0
+        n_c = torch.zeros(B, C, dtype=torch.long, device=dev)
+        n_c.index_put_((torch.arange(B, device=dev)[:, None].expand(B, N)[
+            member], lab.long()[member]), torch.ones(
+                int(member.sum()), dtype=torch.long, device=dev),
+            accumulate=True)
+        kept_c = torch.zeros_like(n_c)
+        kb = torch.arange(B, device=dev)[:, None].expand(B, N)[ref[1]]
+        kept_c.index_put_((kb, labels.long()[ref[1]]), torch.ones(
+            kept, dtype=torch.long, device=dev), accumulate=True)
+        entries = int((kept_c * n_c).sum())
+        rows = torch.gather(ref[1], 1, order)   # kept, in scan order
+        decays = int((same & rows[:, :, None] & (blocks != 0)).sum())
+        bound = soft_nms_roofline(B, N, entries, decays, int(member.sum()))
+        longest = int(kept_c.max())
         chain_ms = (longest + 1) * step_ms
-        print(f"[soft-nms] {preset} B={B} N={N} C={C}: valid="
+        # times: N3, the class blocks beside N1's matrix, the branch
+        seg = (blocks, order, lab, scores.float()) + args[3:]
+        ms = median_ms(torch, lambda: nms.soft_nms_segments(*seg), 20)
+        fn = nms.soft_nms_segments
+        before = fn.launches
+        dev_ms = back_to_back_ms(torch, lambda: fn(*seg), 20)
+        if fn.launches - before != 21:
+            fail("N3's timing: not one launch a call")
+        prof = device_ms_by_name(torch, lambda: fn(*seg), "u3d_soft_nms", 10)
+        pms = median_ms(torch, lambda: nms.soft_nms_plain(iou, *args), 2, 1)
+        blk_ms = median_ms(torch, lambda: nms.iou3d_class_blocks(
+            bxs, lab, "bottom"), 20)
+        blk_dev = back_to_back_ms(torch, lambda: nms.iou3d_class_blocks(
+            bxs, lab, "bottom"), 20)
+        blk_pms = median_ms(torch, lambda: plain_iou_rows(torch, bxs), 2, 1)
+        mat_ms = median_ms(torch, lambda: iou3d_rotated_pairwise(
+            bx, "bottom"), 20)
+        mat_dev = back_to_back_ms(torch, lambda: iou3d_rotated_pairwise(
+            bx, "bottom"), 20)
+        branch_ms = median_ms(torch, lambda: nms.soft_nms(bx, *args), 20)
+        post_ms = median_ms(torch, lambda: post_process(*dec, cfg), 20)
+        # the class blocks clip the same-class pairs that overlap in z
+        # (bottom z); they read the boxes and labels and write the pairs
+        z0, z1 = bxs[..., 2], bxs[..., 2] + bxs[..., 5]
+        zo = (torch.minimum(z1[:, :, None], z1[:, None, :])
+              - torch.maximum(z0[:, :, None], z0[:, None, :])) > 0
+        pairs, clipped = int(same.sum()), int((same & zo).sum())
+        blk_bound = iou_roofline(clipped, pairs, 4 * (7 * B * N + B * N)
+                                 + 4 * pairs)
+        del zo
+        print(f"[soft-nms] {label} B={B} N={N} C={C}: valid="
               f"{int(valid.sum())} kept={kept}, the longest class loop "
-              f"{longest} steps; post_process launches N1 matrix "
-              f"{run['iou3d_rotated_matrix']} N3 {run['soft_nms']} (no host "
-              f"sync); N3 vs plain: keep equal "
-              f"{torch.equal(got[1], ref[1])}, steps equal "
-              f"{torch.equal(got[2], ref[2])}, {flipped} boxes at another "
-              f"step (near-tie flips), score max rel err {err:.3g} (rtol "
-              f"{SOFT_SCORE_RTOL}); ms={ms:.4f} device_ms={dev_ms:.4f} "
-              f"(20 back to back; profiler: N3 {prof[0]:.4f}, the wrapper's "
-              f"dtype casts {prof[1]:.4f}) plain_ms={pms:.4f} bound_ms="
-              f"{bound['bound_ms']:.5f} ({bound['bound_by']}; "
-              f"{bound['bytes']} bytes, {bound['ops']} operations) "
-              f"serial_bound_ms={chain_ms:.4f} ({longest + 1} steps x "
-              f"{step_ms * 1e3:.3f} us) binds "
+              f"{longest} steps, {pairs} same-class pairs ({clipped} "
+              f"overlap in z); post_process "
+              f"launches class blocks {run['iou3d_rotated_blocks']} N3 "
+              f"{run['soft_nms']} N1 matrix {run['iou3d_rotated_matrix']} "
+              f"(no host sync); soft_nms vs soft_nms_plain on N1's matrix: "
+              f"scores, keep, steps equal {equal}; class blocks = N1's "
+              f"matrix at every same-class pair {blocks_equal}, max abs err "
+              f"vs the plain IoU {blocks_err:.3g} (atol {NMS_IOU_ATOL}); "
+              f"N3 ms={ms:.4f} device_ms={dev_ms:.4f} (20 back to back; "
+              f"profiler: N3 {prof[0]:.4f}, other kernels {prof[1]:.4f}) "
+              f"plain_ms={pms:.4f} bound_ms={bound['bound_ms']:.5f} "
+              f"({bound['bound_by']}; {bound['bytes']} bytes, "
+              f"{bound['ops']} operations; {entries} row entries, {decays} "
+              f"decayed) serial_bound_ms={chain_ms:.4f} ({longest + 1} steps"
+              f" x {step_ms * 1e3:.3f} us) binds "
               f"{'serial' if chain_ms > bound['bound_ms'] else bound['bound_by']}"
-              f" ({time.perf_counter() - t0:.1f}s)")
-        if flipped or not torch.equal(got[1], ref[1]) or \
-                not err <= SOFT_SCORE_RTOL:
-            fail(f"N3 soft_nms differs from soft_nms_plain at {preset}")
-        if preset == "uni3detr_scannet":
-            _report_add(report, "soft_nms", err, ms, pms, 1, bound)
+              f"; class blocks ms={blk_ms:.4f} device_ms={blk_dev:.4f} "
+              f"plain_ms={blk_pms:.4f} (row blocks) bound_ms="
+              f"{blk_bound['bound_ms']:.5f} ({blk_bound['bound_by']}) vs N1 "
+              f"matrix ms={mat_ms:.4f} device_ms={mat_dev:.4f}; the soft-NMS "
+              f"branch ms={branch_ms:.4f}, post_process ms={post_ms:.4f} "
+              f"({time.perf_counter() - t0:.1f}s)")
+        if not all(equal) or not blocks_equal or \
+                not blocks_err <= NMS_IOU_ATOL:
+            fail(f"N3 or the class blocks differ from their plain versions "
+                 f"at {label}")
+        if label == "scannet":
+            _report_add(report, "soft_nms", 0.0, ms, pms, 1, bound)
             report["soft_nms"].update(device_ms=dev_ms,
                                       serial_bound_ms=chain_ms)
-        del iou, got, ref, dec, post
+            _report_add(report, "iou3d_rotated_blocks", blocks_err, blk_ms,
+                        blk_pms, 1, blk_bound)
+            report["iou3d_rotated_blocks"].update(device_ms=blk_dev)
+        del iou, got, ref, dec, post, blocks, plain_blocks, same, rows
         torch.cuda.empty_cache()
     return runs
 
@@ -5642,6 +5714,7 @@ def main():
         "iou_bev_rotated_sets": ("nms.cu", "uni3detr_tpu/geom/iou.py:107"),
         "iou_bev_rotated_mask": ("nms.cu", "uni3detr_tpu/geom/iou.py:107"),
         "soft_nms": ("nms.cu", "uni3detr_tpu/ops/nms.py:103"),
+        "iou3d_rotated_blocks": ("nms.cu", "uni3detr_tpu/geom/iou.py:120"),
     }
     kernels = [dict(name=name, route="cuda",
                     source=f"uni3detr_tpu_torch/csrc/{src}", replaces=rep,

@@ -1685,24 +1685,73 @@ def test_trace_context_names_the_kernels(dev, tmp_path):
     assert traced["gather_conv"] > 0 and traced["fps_pair"] == 1
 
 
-@pytest.mark.parametrize("N,C", [(1, 3), (65, 3), (1000, 10), (5000, 18)])
+@pytest.mark.parametrize("N,C", [(1, 3), (65, 3), (1000, 10), (5000, 18),
+                                 (5000, 1)])
 def test_soft_nms_kernel_equals_plain(dev, N, C):
-    """N3 against ``soft_nms_plain`` on the card on N1's matrix: equal
-    keep masks and steps, scores bit-equal (the same fp32 operations in
-    the same order), one launch for every scene and class; scores
-    rounded to 1/8 so that many ties break by index."""
+    """``ops.nms.soft_nms`` on the card (N1's class blocks, then N3)
+    against ``soft_nms_plain`` on N1's matrix: keep masks, steps and
+    scores bit-equal (the same fp32 operations in the same order), one
+    launch of each kernel for every scene and class and none of the
+    matrix; scores rounded to 1/8 so that many ties break by box index;
+    (5000, 1) puts every box in one class."""
     from uni3detr_tpu_torch.geom.iou import iou3d_rotated_pairwise
     from uni3detr_tpu_torch.ops import nms
 
     boxes, scores, labels, valid = (t.to(dev) for t in _nms_scenes(2, N))
     labels = labels % C
+    iou = iou3d_rotated_pairwise(boxes)
     for sc in (scores, torch.round(scores * 8) / 8):
-        iou = iou3d_rotated_pairwise(boxes)
-        before = nms.soft_nms.launches
-        got = nms.soft_nms(iou, sc, labels, valid, C, 0.3, 1e-3, N)
+        before = (nms.iou3d_class_blocks.launches,
+                  nms.soft_nms_segments.launches,
+                  iou3d_rotated_pairwise.launches)
+        got = nms.soft_nms(boxes, sc, labels, valid, C, 0.3, 1e-3, N)
         torch.cuda.synchronize()
-        assert nms.soft_nms.launches == before + 1
+        assert (nms.iou3d_class_blocks.launches,
+                nms.soft_nms_segments.launches,
+                iou3d_rotated_pairwise.launches) == (before[0] + 1,
+                                                     before[1] + 1, before[2])
         ref = nms.soft_nms_plain(iou, sc, labels, valid, C, 0.3, 1e-3, N)
         for g, r in zip(got, ref):
             assert torch.equal(g, r)
         assert got[1].sum() > 0
+
+
+def test_soft_nms_kernel_edge_labels(dev):
+    """Labels outside [0, C), invalid boxes and empty classes: the boxes
+    of no class score 0, stay unkept at step -1, as the plain version."""
+    from uni3detr_tpu_torch.geom.iou import iou3d_rotated_pairwise
+    from uni3detr_tpu_torch.ops import nms
+
+    boxes, scores, labels, valid = (t.to(dev) for t in _nms_scenes(2, 700))
+    labels = (labels % 9) * 3 - 4        # -4 .. 20, classes 2, 5, ... of 12
+    valid = valid & (scores > 0.2)
+    iou = iou3d_rotated_pairwise(boxes)
+    got = nms.soft_nms(boxes, scores, labels, valid, 12, 0.5, 0.05, 40)
+    ref = nms.soft_nms_plain(iou, scores, labels, valid, 12, 0.5, 0.05, 40)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    assert got[1].sum() > 0 and (got[2] == 39).any()
+
+
+@pytest.mark.parametrize("N,C", [(65, 3), (1000, 10), (5000, 18), (5000, 1)])
+def test_class_blocks_equal_the_matrix(dev, N, C):
+    """N1's class blocks on the boxes in scan order equal N1's matrix
+    entry of the same two boxes at every pair of one class, bit for bit;
+    one launch."""
+    from uni3detr_tpu_torch.geom.iou import iou3d_rotated_pairwise
+    from uni3detr_tpu_torch.ops import nms
+
+    boxes, scores, labels, valid = (t.to(dev) for t in _nms_scenes(2, N))
+    labels = labels % C
+    order, lab = nms.soft_nms_order(scores, labels, valid, C)
+    bx = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 7))
+    before = nms.iou3d_class_blocks.launches
+    blocks = nms.iou3d_class_blocks(bx, lab)
+    torch.cuda.synchronize()
+    assert nms.iou3d_class_blocks.launches == before + 1
+    iou = iou3d_rotated_pairwise(boxes)
+    same = (lab[:, :, None] == lab[:, None, :]) & (lab[:, :, None] >= 0)
+    for b in range(2):
+        mat = iou[b][order[b]][:, order[b]]
+        assert torch.equal(blocks[b][same[b]], mat[same[b]])
+    assert (blocks[same] > 0).sum() > (lab >= 0).sum()

@@ -267,8 +267,12 @@ def _plain_cases(shape):
     bitmask = nms.overlap_mask(boxes, labels, 0.2)
     order = torch.arange(N).expand(B, N).contiguous()
     benefit = torch.rand(3, N // 4, N, generator=g)
-    soft = (iou.iou3d_rotated_pairwise(boxes), torch.rand(B, N, generator=g),
-            labels, torch.ones(B, N, dtype=torch.bool), 3, 0.3, 1e-3, N)
+    scores = torch.rand(B, N, generator=g)
+    s_order, s_lab = nms.soft_nms_order(scores, labels,
+                                        torch.ones(B, N, dtype=torch.bool), 3)
+    s_boxes = torch.gather(boxes, 1, s_order[..., None].expand(-1, -1, 7))
+    soft = (nms.iou3d_class_blocks_plain(s_boxes, s_lab), s_order, s_lab,
+            scores, 3, 0.3, 1e-3, N)
     return [
         ("match_positions", sc.match_positions_plain, (sid, qids, V)),
         ("gather_conv", sc.gather_conv_plain, (feats, nb, w)),
@@ -284,7 +288,9 @@ def _plain_cases(shape):
         ("iou_bev_rotated_mask", nms.overlap_mask_plain,
          (boxes, labels, 0.2, "bottom", True)),
         ("nms_greedy", nms.greedy_scan_plain, (bitmask, labels, order)),
-        ("soft_nms", nms.soft_nms_plain, soft),
+        ("soft_nms", nms.soft_nms_segments_plain, soft),
+        ("iou3d_rotated_blocks", nms.iou3d_class_blocks_plain,
+         (s_boxes, s_lab)),
         ("iou3d_rotated_matrix", iou.iou3d_rotated_pairwise, (boxes,)),
         ("iou3d_rotated_sets", iou.iou3d_rotated_sets, (boxes, boxes2)),
         ("iou_bev_rotated_sets", iou.iou_bev_rotated_sets, (boxes, boxes2)),

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time the port's post-processing (per-class rotated NMS) on one GPU,
-without checks.
+"""Time the port's post-processing (per-class rotated NMS, or soft-NMS)
+on one GPU, without checks.
 
-    python3 tools/time_nms.py [ROOT] [TAG] [PRESET ...]
+    python3 tools/time_nms.py [ROOT] [TAG] [PRESET ...] [--soft-nms]
 
 ROOT (default: this checkout) is the tree whose ``uni3detr_tpu_torch`` is
 imported, so that two trees (a parent commit unpacked into a git-ignored
@@ -17,10 +17,17 @@ scene decoded to ``max_num`` boxes, then
   ms (ended by a sync), median of the repeats;
 - under ``torch.profiler``: the device ms per call of all kernels of
   ``post_process``, and of each of the port's NMS kernels (``u3d_iou3d``,
-  ``u3d_nms``) with its launches.
+  ``u3d_nms``, ``u3d_soft``) with its launches.
+
+``--soft-nms`` times ``post_process`` with ``post_processing=soft_nms``
+instead, at three shapes: the flagship's eval batch (``uni3detr_sunrgbd``,
+4 scenes of 1000 boxes, 10 classes), ``uni3detr_scannet`` (one scene of
+5000 boxes, 18 classes) and the same ScanNet boxes with every label set
+to 0 (one class of 5000 boxes); PRESET arguments are then ignored.
 
 ``chip_smoke.py`` checks the NMS kernels against their plain versions.
 """
+import argparse
 import dataclasses
 import statistics
 import subprocess
@@ -28,10 +35,20 @@ import sys
 import time
 from pathlib import Path
 
-ROOT = Path(sys.argv[1] if len(sys.argv) > 1 else
-            Path(__file__).resolve().parents[1]).resolve()
+_parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+_parser.add_argument("root", nargs="?",
+                     default=str(Path(__file__).resolve().parents[1]),
+                     help="the tree whose uni3detr_tpu_torch is imported")
+_parser.add_argument("tag", nargs="?", default="tree")
+_parser.add_argument("presets", nargs="*")
+_parser.add_argument("--soft-nms", action="store_true",
+                     help="post_processing=soft_nms at the flagship (B=4), "
+                     "ScanNet and ScanNet with one class")
+ARGS = _parser.parse_args()
+ROOT = Path(ARGS.root).resolve()
 sys.path.insert(0, str(ROOT))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from uni3detr_tpu_torch.models.detector import Uni3DETR  # noqa: E402
@@ -43,6 +60,10 @@ from uni3detr_tpu_torch.train.coder import (  # noqa: E402
 from uni3detr_tpu_torch.weights import random_state_dict  # noqa: E402
 
 PRESETS = ("uni3detr_sunrgbd", "uni3detr_nuscenes", "uni3detr_scannet")
+# --soft-nms: (label, preset, scenes, every label set to 0)
+SOFT_SHAPES = (("flagship", "uni3detr_sunrgbd", 4, False),
+               ("scannet", "uni3detr_scannet", 1, False),
+               ("scannet-one-class", "uni3detr_scannet", 1, True))
 
 
 def config(name):
@@ -90,14 +111,49 @@ def device_ms(fn, reps):
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         total += e.self_device_time_total
-        if "u3d_iou3d" in e.key or "u3d_nms" in e.key:
+        if any(k in e.key for k in ("u3d_iou3d", "u3d_nms", "u3d_soft")):
             mine[e.key.replace("(anonymous namespace)::", "")
                  .split("(")[0][:60]] = (
                 e.count / reps, e.self_device_time_total / 1e3 / reps)
     return total / 1e3 / reps, mine
 
 
-def main(tag="tree", *names):
+def decoded(cfg, dev, scenes):
+    """Seeded random weights (bf16), ``scenes`` clustered scenes (seeds
+    0, 1, ...) decoded to ``max_num`` boxes each."""
+    model = Uni3DETR(cfg).eval()
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in
+                           random_state_dict(model, 0).items()})
+    model.to(dev)
+    inputs = [clustered_scene(seed, cfg) for seed in range(scenes)]
+    pts, rnd = (torch.from_numpy(np.concatenate(a)).to(dev)
+                for a in zip(*inputs))
+    mask = torch.ones(pts.shape[:2], dtype=torch.bool, device=dev)
+    with torch.inference_mode():
+        dec = decode_predictions(model(pts, mask, rnd), cfg)
+    del model
+    torch.cuda.empty_cache()
+    return dec
+
+
+def report(tag, name, cfg, dec, reps, dev):
+    with torch.inference_mode():
+        stream, host = time_post_process(cfg, dec, reps)
+        total, mine = device_ms(lambda: post_process(*dec, cfg), reps)
+        torch.cuda.reset_peak_memory_stats(dev)
+        post_process(*dec, cfg)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev)
+    B, N = dec[1].shape
+    print(f"[{tag} {name}] post_process B={B} N={N} stream "
+          f"ms={stream:.4f} host ms={host:.4f} device ms (all kernels)"
+          f"={total:.4f} peak_mem_bytes={peak}")
+    for k, (n, ms) in mine.items():
+        print(f"[{tag} {name}]   {k}: {n:g} launches, device ms="
+              f"{ms:.4f}")
+
+
+def main(tag, names, soft):
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     if not cuda_lib.CSRC.is_relative_to(ROOT):
@@ -106,36 +162,24 @@ def main(tag="tree", *names):
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     dev = torch.device("cuda", 0)
+    if soft:
+        for label, name, scenes, one_class in SOFT_SHAPES:
+            cfg = dataclasses.replace(config(name),
+                                      post_processing="soft_nms")
+            dec = decoded(cfg, dev, scenes)
+            if one_class:
+                dec = (dec[0], dec[1], torch.zeros_like(dec[2]), dec[3])
+            report(tag, f"soft-nms {label}", cfg, dec, 5, dev)
+            del dec
+            torch.cuda.empty_cache()
+        return
     for name in names or PRESETS:
         cfg = config(name)
-        model = Uni3DETR(cfg).eval()
-        model.load_state_dict({k: torch.from_numpy(v) for k, v in
-                               random_state_dict(model, 0).items()})
-        model.to(dev)
-        pts, rnd = (torch.from_numpy(a).to(dev)
-                    for a in clustered_scene(0, cfg))
-        mask = torch.ones(pts.shape[:2], dtype=torch.bool, device=dev)
-        with torch.inference_mode():
-            dec = decode_predictions(model(pts, mask, rnd), cfg)
-            del model
-            torch.cuda.empty_cache()
-            reps = 20 if cfg.max_num <= 1000 else 5
-            stream, host = time_post_process(cfg, dec, reps)
-            total, mine = device_ms(lambda: post_process(*dec, cfg),
-                                    reps)
-            torch.cuda.reset_peak_memory_stats(dev)
-            post_process(*dec, cfg)
-            torch.cuda.synchronize()
-            peak = torch.cuda.max_memory_allocated(dev)
-        print(f"[{tag} {name}] post_process N={dec[1].shape[1]} stream "
-              f"ms={stream:.4f} host ms={host:.4f} device ms (all kernels)"
-              f"={total:.4f} peak_mem_bytes={peak}")
-        for k, (n, ms) in mine.items():
-            print(f"[{tag} {name}]   {k}: {n:g} launches, device ms="
-                  f"{ms:.4f}")
+        dec = decoded(cfg, dev, 1)
+        report(tag, name, cfg, dec, 20 if cfg.max_num <= 1000 else 5, dev)
         del dec
         torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":
-    main(*sys.argv[2:])
+    main(ARGS.tag, ARGS.presets, ARGS.soft_nms)

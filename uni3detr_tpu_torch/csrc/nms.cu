@@ -66,24 +66,56 @@
 // row loads a chunk in a chain: 1.29 ms against 0.19 ms device at ScanNet's
 // 5000 boxes on an H100 80GB HBM3 at 700 W, tools/time_nms.py.)
 //
-// N3 u3d_soft_nms_kernel replaces uni3detr_tpu/ops/nms.py::soft_nms3d
-// (:103-135), XLA's serial fori_loop under the soft_nms branch of
-// train/coder.py::post_process (:73-88, vmapped over the classes). One
-// block per (scene, class) holds the class's live scores in shared memory
-// in fp32 (other classes' and invalid boxes at -inf, as in JAX; 20 KB at
-// ScanNet's 5000 boxes). Each step is a block-wide argmax (ties to the
-// lower index, as jnp.argmax), the prune test, and, while the step keeps
-// a box, live[i] *= expf(-(iou[top, i]^2) / sigma) over the row of N1's
-// matrix, then live[top] = -inf. The loop stops at the first step that
-// keeps nothing: JAX's later steps change nothing. The products and the
-// division are rounded one by one (no FMA, a true division as JAX's),
-// so the kernel equals ops/nms.py::soft_nms_plain run on the card bit for
-// bit. Each box has one label, so no two blocks write one box: each block
-// initialises and writes the outputs of its class's boxes (block 0 those
-// of the boxes of no class), the kept box's score, keep flag and step.
-// Bound: the kept boxes' IoU rows read once (kept x N x 4 bytes) against
-// the chain of steps, each a reduction over N and two barriers; compacting
-// each class's boxes, or computing the rows on the fly, is left for later.
+// u3d_iou3d_class_blocks is N1 writing the IoU of same-class pairs only,
+// for N3: the boxes in soft-NMS's scan order (ops/nms.py::soft_nms_order:
+// by class, by descending score within a class, the boxes of no class
+// first) and labels that ascend in that order, so that each (scene,
+// class) owns one segment [s_c, e_c) and its pairs one diagonal block of
+// a (B, N, N) buffer. Out[b, r, c] = IoU(box r clipped by box c) for r and
+// c of one class, by the matrix kernel's make_box and pair_iou, so every
+// entry is bit-equal to the matrix entry of the same two boxes; the rest
+// of the buffer is never written nor read. The labels ascend, so a 64 x
+// 64 tile's rows and columns share a label exactly when their label
+// ranges overlap: the other tiles read four labels and return. One launch
+// across the card clips sum_c n_c^2 pairs (the full matrix only when one
+// class holds every box) and writes sum_c n_c^2 x 4 bytes; the clip stays
+// off N3's serial chain.
+//
+// N3 u3d_soft_nms_segments_kernel replaces
+// uni3detr_tpu/ops/nms.py::soft_nms3d (:103-135), XLA's serial fori_loop
+// under the soft_nms branch of train/coder.py::post_process (:73-88,
+// vmapped over the classes), on N1's class blocks. Block (c, b) runs
+// class c of scene b over its own segment only: every warp finds [s_c,
+// e_c) by a 32-way search of the ascending labels (no host round trip),
+// the block keeps ceil(n_c / 64) warps (two entries a thread,
+// at most 32 warps; the rest exit) and holds the class's live scores and
+// box indices in shared memory. Each step is one pass and one barrier:
+// every thread first loads its entries of the kept box's row of the class
+// block (n_c contiguous floats, from L2 while sum_c n_c^2 x 4 bytes fit
+// there), then decays its live scores, live[i] *= expf(-(iou^2) / sigma)
+// (an entry with IoU 0 decays by exactly 1 and skips the expf: most
+// entries, so most warps skip it), sets the kept box's to -inf and folds
+// its own candidate for the next step; the block's argmax is a warp
+// reduction (redux.sync on a 64-bit key: the score mapped to an
+// order-preserving integer, then the complement of the box's original
+// index, so that ties go to the lower index as jnp.argmax), one barrier
+// and the same reduction over the warps' candidates, double-buffered so
+// that the next step needs no second barrier. The loop stops at the first
+// step that keeps nothing (JAX's later steps change nothing). The products
+// and the division are rounded one by one (no FMA, a true division as
+// JAX's), so the kernel equals ops/nms.py::soft_nms_plain run on the card
+// bit for bit. Each block initialises and writes the outputs of its
+// segment's boxes (block 0 also those of the boxes of no class): the kept
+// box's score, keep flag and step.
+// Bound: the kept boxes' rows of their class blocks read once (sum_c
+// kept_c x n_c x 4 bytes: 0.003 ms at ScanNet's 5000 boxes), far below
+// the chain of steps that it waits on, each an L2 round trip, the decay
+// and two argmax reductions around one barrier: ~2180 cycles a step in
+// ScanNet's longest loop (1097 boxes, 891 steps; warp argmax 287, block
+// argmax 487, row wait 382, decay 1008) on an H100 80GB HBM3 at 700 W
+// (tools/soft_nms_phase_clocks.py). (One entry a thread: 1.08 ms against
+// 0.96 ms device at ScanNet; four: 1.10; eight: 1.45. Every entry decayed
+// without a branch, the IoU-0 ones too: 1.38. tools/time_nms.py.)
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -94,7 +126,12 @@ constexpr int NV = 8;          // max vertices of a rect-rect intersection
 constexpr int IOU_TILE = 64;   // boxes of a row block and of a column block
 constexpr int IOU_THREADS = 256;
 constexpr int SCAN_THREADS = 256;
-constexpr int SOFT_THREADS = 256;
+constexpr int SOFT_THREADS = 1024;  // most threads of an N3 block
+constexpr int SOFT_PER = 8;  // row entries a thread loads before using one
+// segment entries a thread of N3 aims at: fewer warps a step, each with
+// more entries in flight
+constexpr int SOFT_ENTRIES = 2;
+constexpr unsigned FULL = 0xffffffffu;
 typedef unsigned long long u64;
 
 __device__ __forceinline__ float mul(float a, float b) {
@@ -349,6 +386,44 @@ __global__ void __launch_bounds__(IOU_THREADS) u3d_iou3d_rotated_mask_kernel(
     mcol[r0 + tid] = ((u64)s_half[tid][1] << 32) | (u64)s_half[tid][0];
 }
 
+// N1, class blocks: out[b, r, c] = IoU(box r, box c) of the boxes in scan
+// order for r and c of one class (labels equal and >= 0; labels ascend),
+// nothing elsewhere. Grid (column blocks, row blocks, B) of 64 x 64 tiles;
+// thread t covers column t % 64 of rows t / 64 + 4 i.
+__global__ void __launch_bounds__(IOU_THREADS) u3d_iou3d_class_blocks_kernel(
+    const float* __restrict__ boxes, const int* __restrict__ labels, int N,
+    int bottom, float* __restrict__ out) {
+  __shared__ BoxG s_row[IOU_TILE], s_col[IOU_TILE];
+  __shared__ int s_lrow[IOU_TILE], s_lcol[IOU_TILE];
+  const int b = blockIdx.z;
+  const int r0 = blockIdx.y * IOU_TILE, c0 = blockIdx.x * IOU_TILE;
+  const int* lab = labels + (long long)b * N;
+  // the label ranges of the rows and of the columns overlap in [lo, hi];
+  // hi is a label of both, and the tile holds a pair of one class iff
+  // hi >= lo and hi >= 0
+  const int hi = min(lab[min(r0 + IOU_TILE, N) - 1],
+                     lab[min(c0 + IOU_TILE, N) - 1]);
+  if (hi < 0 || max(lab[r0], lab[c0]) > hi) return;
+  const int tid = threadIdx.x;
+  if (tid < IOU_TILE) s_lrow[tid] = r0 + tid < N ? lab[r0 + tid] : -1;
+  else if (tid < 2 * IOU_TILE)
+    s_lcol[tid - IOU_TILE] =
+        c0 + tid - IOU_TILE < N ? lab[c0 + tid - IOU_TILE] : -1;
+  const float* bx = boxes + (long long)b * N * 7;
+  stage_boxes(s_row, s_col, bx, N, r0, bx, N, c0, bottom != 0);
+  __syncthreads();
+  const int col = tid % IOU_TILE;
+  const int c = c0 + col;
+  if (c >= N || s_lcol[col] < 0) return;
+  for (int rr = tid / IOU_TILE; rr < IOU_TILE;
+       rr += IOU_THREADS / IOU_TILE) {
+    const int r = r0 + rr;
+    if (r >= N) break;
+    if (s_lrow[rr] == s_lcol[col])
+      out[((long long)b * N + r) * N + c] = pair_iou(s_row[rr], s_col[col]);
+  }
+}
+
 // N2: one block per scene, over the bitmask in column words (word w of
 // position r at mask[b, w, r]); labels in scan order, -1 for an invalid
 // box. keep[b, order[b, r]] = 1 for the kept positions r. Chunk ch
@@ -412,86 +487,153 @@ __global__ void __launch_bounds__(SCAN_THREADS) u3d_nms_greedy_kernel(
   }
 }
 
-// (v2, i2) ranks above (v1, i1): a higher score, or an equal one at a
-// lower index.
-__device__ __forceinline__ bool ranks_above(float v2, int i2, float v1,
-                                            int i1) {
-  return v2 > v1 || (v2 == v1 && i2 < i1);
+// The first position p of lab[0, N) (ascending) with lab[p] >= v, found by
+// the whole warp: each round probes 32 evenly spaced positions and keeps
+// the gap between the last probe below v and the next (3 rounds at N =
+// 5000). Every lane returns it.
+__device__ int lower_bound_warp(const int* lab, int N, int v, int lane) {
+  int lo = 0, hi = N;
+  while (lo < hi) {
+    const int gap = (hi - lo + 31) / 32;
+    const int p = lo + lane * gap;
+    const int below = __popc(__ballot_sync(FULL, p < hi && lab[p] < v));
+    if (below == 0) return lo;
+    hi = min(lo + below * gap, hi);
+    lo += (below - 1) * gap + 1;
+  }
+  return lo;
 }
 
-// N3: block (c, b) runs the soft-NMS of class c of scene b. iou (B, N, N)
-// row-major with row i box i's; outputs (B, N).
-__global__ void __launch_bounds__(SOFT_THREADS) u3d_soft_nms_kernel(
-    const float* __restrict__ iou, const float* __restrict__ scores,
-    const int* __restrict__ labels, const unsigned char* __restrict__ valid,
-    int N, int C, float sigma, float prune, int max_out,
-    float* __restrict__ out, unsigned char* __restrict__ keep,
-    int* __restrict__ step) {
-  extern __shared__ float s_live[];
-  __shared__ float s_val[SOFT_THREADS / 32];
-  __shared__ int s_idx[SOFT_THREADS / 32];
+// A score as an unsigned integer of the same order (-0 as +0, which it
+// equals; NaN above +inf, as torch.argmax picks it), and back.
+__device__ __forceinline__ unsigned score_key(float v) {
+  const unsigned u = __float_as_uint(v == 0.f ? 0.f : v);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+__device__ __forceinline__ float key_score(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+// Keep (score v at segment position i, tie word 0xffffffff - its box
+// index) if it ranks above the thread's best: a higher score, or an equal
+// one at a lower box index. Key 0 is below every score: no candidate.
+__device__ __forceinline__ void fold(u64& best, int& pos, float v,
+                                     unsigned tie, int i) {
+  const u64 key = ((u64)score_key(v) << 32) | (u64)tie;
+  if (key > best) {
+    best = key;
+    pos = i;
+  }
+}
+
+// The barrier of the block's first T threads (the others have exited).
+__device__ __forceinline__ void bar_sync(int T) {
+  asm volatile("bar.sync 1, %0;" ::"r"(T) : "memory");
+}
+
+// N3: block (c, b) runs the soft-NMS of class c of scene b over its
+// segment. blocks (B, N, N) from u3d_iou3d_class_blocks; order (B, N)
+// int64 and labels (B, N) int32 in scan order (labels ascend); scores and
+// the outputs (B, N) by box index.
+__global__ void __launch_bounds__(SOFT_THREADS) u3d_soft_nms_segments_kernel(
+    const float* __restrict__ blocks, const long long* __restrict__ order,
+    const int* __restrict__ labels, const float* __restrict__ scores, int N,
+    int C, float sigma, float prune, int max_out, float* __restrict__ out,
+    unsigned char* __restrict__ keep, int* __restrict__ step) {
+  extern __shared__ float s_live[];   // N floats, then N tie words
+  unsigned* s_tie = (unsigned*)(s_live + N);
+  // each warp's candidate (key, position), two buffers
+  __shared__ unsigned s_hi[2][SOFT_THREADS / 32];
+  __shared__ unsigned s_lo[2][SOFT_THREADS / 32];
+  __shared__ int s_pos[2][SOFT_THREADS / 32];
   const int c = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const long long off = (long long)b * N;
-  const float* rows = iou + off * N;
-  for (int i = tid; i < N; i += SOFT_THREADS) {
-    const int lab = labels[off + i];
-    const bool mine = valid[off + i] && lab == c;
-    s_live[i] = mine ? scores[off + i] : -CUDART_INF_F;
-    if ((lab >= 0 && lab < C ? lab : 0) == c) {
-      out[off + i] = 0.f;
-      keep[off + i] = 0;
-      step[off + i] = -1;
+  const int* lab = labels + off;
+  const int s = lower_bound_warp(lab, N, c, lane);
+  const int n = lower_bound_warp(lab, N, c + 1, lane) - s;
+  const int T = min(SOFT_THREADS,
+                    max(32, (n + 32 * SOFT_ENTRIES - 1) / (32 * SOFT_ENTRIES)
+                                * 32));
+  if (tid >= T) return;
+  if (c == 0) {   // the boxes of no class: labels below 0 or from C on
+    const int lo = lower_bound_warp(lab, N, 0, lane);
+    const int hi = lower_bound_warp(lab, N, C, lane);
+    for (int p = tid; p < lo + N - hi; p += T) {
+      const long long o = off + order[off + (p < lo ? p : hi + p - lo)];
+      out[o] = 0.f;
+      keep[o] = 0;
+      step[o] = -1;
     }
   }
-  __syncthreads();
+  if (n == 0) return;
+  u64 best = 0ull;
+  int bpos = -1;
+  for (int i = tid; i < n; i += T) {
+    const int o = (int)order[off + s + i];
+    const float v = scores[off + o];
+    const unsigned tie = 0xffffffffu - (unsigned)o;
+    s_live[i] = v;
+    s_tie[i] = tie;
+    out[off + o] = 0.f;
+    keep[off + o] = 0;
+    step[off + o] = -1;
+    fold(best, bpos, v, tie, i);
+  }
+  const float* blk = blocks + (off + s) * N + s;   // row p at blk + p N
+  const int nw = T / 32;
+  int buf = 0;
   for (int k = 0; k < max_out; ++k) {
-    // argmax: a -inf entry never wins, so an all -inf block ends at N
-    float bv = -CUDART_INF_F;
-    int bi = N;
-    for (int i = tid; i < N; i += SOFT_THREADS) {
-      const float v = s_live[i];
-      if (v > bv) {
-        bv = v;
-        bi = i;
-      }
+    // the block's argmax: each warp's best, one barrier, the warps' best
+    const unsigned hi = (unsigned)(best >> 32), lo = (unsigned)best;
+    const unsigned whi = __reduce_max_sync(FULL, hi);
+    const unsigned wlo = __reduce_max_sync(FULL, hi == whi ? lo : 0u);
+    const unsigned own = __ballot_sync(FULL, hi == whi && lo == wlo);
+    if (lane == __ffs(own) - 1) {
+      s_hi[buf][warp] = whi;
+      s_lo[buf][warp] = wlo;
+      s_pos[buf][warp] = bpos;
     }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      const float v = __shfl_xor_sync(0xffffffffu, bv, o);
-      const int i = __shfl_xor_sync(0xffffffffu, bi, o);
-      if (ranks_above(v, i, bv, bi)) {
-        bv = v;
-        bi = i;
-      }
-    }
-    if (lane == 0) {
-      s_val[warp] = bv;
-      s_idx[warp] = bi;
-    }
-    __syncthreads();
-    bv = s_val[0];
-    bi = s_idx[0];
-#pragma unroll
-    for (int w = 1; w < SOFT_THREADS / 32; ++w)
-      if (ranks_above(s_val[w], s_idx[w], bv, bi)) {
-        bv = s_val[w];
-        bi = s_idx[w];
-      }
-    // every thread holds the same (bv, bi): the break is uniform
-    if (bi == N || !(bv > prune)) break;
+    bar_sync(T);
+    const unsigned chi = lane < nw ? s_hi[buf][lane] : 0u;
+    const unsigned clo = lane < nw ? s_lo[buf][lane] : 0u;
+    const unsigned mhi = __reduce_max_sync(FULL, chi);
+    const unsigned mlo = __reduce_max_sync(FULL, chi == mhi ? clo : 0u);
+    const int w = __ffs(__ballot_sync(FULL, chi == mhi && clo == mlo)) - 1;
+    const int top = s_pos[buf][w];
+    buf ^= 1;   // the next step writes the other buffer: no second barrier
+    const float v = key_score(mhi);
+    // every thread holds the same (mhi, v): the break is uniform
+    if (mhi == 0u || !(v > prune)) break;
     if (tid == 0) {
-      out[off + bi] = fmaxf(bv, 0.f);
-      keep[off + bi] = 1;
-      step[off + bi] = k;
+      const long long o = off + (0xffffffffu - mlo);
+      out[o] = fmaxf(v, 0.f);
+      keep[o] = 1;
+      step[o] = k;
     }
-    const float* row = rows + (long long)bi * N;
-    for (int i = tid; i < N; i += SOFT_THREADS) {
-      const float r = row[i];
-      const float decay = expf(__fdiv_rn(-mul(r, r), sigma));
-      s_live[i] = i == bi ? -CUDART_INF_F : mul(s_live[i], decay);
+    const float* row = blk + (long long)top * N;
+    best = 0ull;
+    bpos = -1;
+    for (int base = tid; base < n; base += T * SOFT_PER) {
+      float r[SOFT_PER];
+#pragma unroll
+      for (int j = 0; j < SOFT_PER; ++j) {
+        if (base + j * T >= n) break;
+        r[j] = row[base + j * T];
+      }
+#pragma unroll
+      for (int j = 0; j < SOFT_PER; ++j) {
+        const int i = base + j * T;
+        if (i >= n) break;
+        float x = s_live[i];
+        if (i == top)
+          x = -CUDART_INF_F;
+        else if (r[j] != 0.f)
+          x = mul(x, expf(__fdiv_rn(-mul(r[j], r[j]), sigma)));
+        s_live[i] = x;
+        fold(best, bpos, x, s_tie[i], i);
+      }
     }
-    __syncthreads();
   }
 }
 
@@ -558,26 +700,41 @@ int u3d_nms_greedy(const void* mask, const void* labels, const void* order,
   return (int)cudaGetLastError();
 }
 
-// iou (B, N, N), scores (B, N) fp32, labels (B, N) int32, valid (B, N)
-// uint8 -> out (B, N) fp32, keep (B, N) uint8, step (B, N) int32.
-int u3d_soft_nms(const void* iou, const void* scores, const void* labels,
-                 const void* valid, int B, int N, int C, float sigma,
+// boxes (B, N, 7) fp32 and labels (B, N) int32 in scan order (labels
+// ascend; < 0 for no class) -> out (B, N, N) fp32, written at the pairs of
+// one class only; bottom != 0 for bottom z.
+int u3d_iou3d_class_blocks(const void* boxes, const void* labels, void* out,
+                           int B, int N, int bottom, void* stream) {
+  if (B == 0 || N == 0) return (int)cudaSuccess;
+  const int W = (N + IOU_TILE - 1) / IOU_TILE;
+  if (W > 65535 || B > 65535) return (int)cudaErrorInvalidValue;
+  u3d_iou3d_class_blocks_kernel<<<dim3(W, W, B), IOU_THREADS, 0,
+                                  (cudaStream_t)stream>>>(
+      (const float*)boxes, (const int*)labels, N, bottom, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// blocks (B, N, N) fp32 (u3d_iou3d_class_blocks), order (B, N) int64 and
+// labels (B, N) int32 in scan order, scores (B, N) fp32 by box index ->
+// out (B, N) fp32, keep (B, N) uint8, step (B, N) int32 by box index.
+int u3d_soft_nms(const void* blocks, const void* order, const void* labels,
+                 const void* scores, int B, int N, int C, float sigma,
                  float prune, int max_out, void* out, void* keep,
                  void* step, void* stream) {
   if (B == 0 || N == 0 || C == 0) return (int)cudaSuccess;
   if (C > 65535 || B > 65535) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)N * sizeof(float);
+  const size_t smem = (size_t)N * (sizeof(float) + sizeof(int));
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        u3d_soft_nms_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        u3d_soft_nms_segments_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  u3d_soft_nms_kernel<<<dim3(C, B), SOFT_THREADS, smem,
-                        (cudaStream_t)stream>>>(
-      (const float*)iou, (const float*)scores, (const int*)labels,
-      (const unsigned char*)valid, N, C, sigma, prune, max_out,
-      (float*)out, (unsigned char*)keep, (int*)step);
+  u3d_soft_nms_segments_kernel<<<dim3(C, B), SOFT_THREADS, smem,
+                                 (cudaStream_t)stream>>>(
+      (const float*)blocks, (const long long*)order, (const int*)labels,
+      (const float*)scores, N, C, sigma, prune, max_out, (float*)out,
+      (unsigned char*)keep, (int*)step);
   return (int)cudaGetLastError();
 }
 

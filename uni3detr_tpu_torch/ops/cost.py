@@ -117,7 +117,8 @@ _FLOPS = {
     "fps_pair": _none, "fps": _none, "auction_lap": _none,
     "nms_greedy": _none, "soft_nms": _none,
     "iou3d_rotated": _iou_self, "iou_bev_rotated_mask": _iou_self,
-    "iou3d_rotated_matrix": _iou_self, "iou3d_rotated_sets": _iou_sets,
+    "iou3d_rotated_matrix": _iou_self, "iou3d_rotated_blocks": _iou_self,
+    "iou3d_rotated_sets": _iou_sets,
     "iou_bev_rotated_sets": _iou_sets,
 }
 

@@ -30,9 +30,15 @@ boxes by descending score with a stable sort (lower index first on
 ties), as ``jnp.argsort`` does.
 
 :func:`soft_nms` runs the gaussian soft-NMS of every (scene, class) of a
-batch on a precomputed IoU matrix: N3 (``u3d_soft_nms`` in
-``csrc/nms.cu``, one block per scene and class) for CUDA tensors,
-:func:`soft_nms_plain` for CPU tensors.
+batch of boxes. For CUDA tensors it makes two launches and no host round
+trip: the boxes go in :func:`soft_nms_order` (by class, by descending
+score within a class), :func:`iou3d_class_blocks` (N1 writing the IoU of
+same-class pairs only, ``u3d_iou3d_class_blocks``) fills each class's
+diagonal block of a (B, N, N) buffer, and :func:`soft_nms_segments` (N3,
+``u3d_soft_nms``, one block per scene and class over the class's own
+segment) runs the loops. For CPU tensors it runs the IoU matrix and
+:func:`soft_nms_plain`. :func:`soft_nms_segments_plain` models N3's
+algorithm.
 """
 from __future__ import annotations
 
@@ -351,38 +357,179 @@ def soft_nms_plain(iou, scores, labels, valid, num_classes: int,
     return out, keep, step
 
 
-def soft_nms(iou, scores, labels, valid, num_classes: int, sigma: float,
-             prune: float, max_out: int):
-    """N3: :func:`soft_nms_plain` for every (scene, class) in one launch
-    on CUDA tensors (one block each, the class's live scores in shared
-    memory), with no host synchronisation; the plain version on CPU
-    tensors. Same arguments and results. The third result, each kept
-    box's step, is for checking the kept order against the plain version
-    (the tests and the smoke); ``post_process`` discards it."""
-    _soft_nms_args(iou, scores, labels, valid, "soft_nms")
-    if all(t.device.type == "cpu" for t in (iou, scores, labels, valid)):
-        return soft_nms_plain(iou, scores, labels, valid, num_classes,
-                              sigma, prune, max_out)
-    m = iou.float().contiguous()
-    sc = scores.float().contiguous()
+def soft_nms_order(scores, labels, valid, num_classes: int):
+    """:func:`nms_order` of the boxes of each class in [0,
+    ``num_classes``): (order (B, N) int64, labels in that order (B, N)
+    int32, ascending, -1 for an invalid box or a label outside the
+    classes). Class c's boxes are the segment of positions whose label is
+    c."""
+    member = valid & (labels >= 0) & (labels < num_classes)
+    return nms_order(scores, labels, member)
+
+
+def iou3d_class_blocks_plain(boxes, labels, z_origin: str = "bottom"):
+    """boxes (B, N, >=7) and labels (B, N) in scan order
+    (:func:`soft_nms_order`) -> (B, N, N) fp32: ``out[b, r, c]`` the IoU of
+    box r clipped by box c (:func:`iou3d_rotated`) where r and c have one
+    label >= 0, 0 elsewhere (the kernel leaves those entries unwritten)."""
+    bx = boxes[..., :7]
+    same = ((labels[..., :, None] == labels[..., None, :])
+            & (labels[..., :, None] >= 0))
+    iou = iou3d_rotated(bx, bx, z_origin)
+    return torch.where(same, iou, torch.zeros_like(iou))
+
+
+def iou3d_class_blocks(boxes, labels, z_origin: str = "bottom"):
+    """N1 writing the IoU of same-class pairs only: one launch for all
+    scenes, each 64 x 64 tile without a pair of one class skipped; the
+    entries of pairs of two classes are left unwritten (``torch.empty``)
+    and N3 never reads them. Each written entry equals N1's matrix entry of
+    the same two boxes. See :func:`iou3d_class_blocks_plain`."""
+    if boxes.dim() != 3 or boxes.shape[-1] < 7 or \
+            labels.shape != boxes.shape[:2]:
+        raise ValueError("iou3d_class_blocks: boxes (B, N, >=7), labels "
+                         "(B, N)")
+    if z_origin not in ("bottom", "center"):
+        raise ValueError(f"iou3d_class_blocks: z_origin {z_origin!r}")
+    if boxes.device.type == "cpu" and labels.device.type == "cpu":
+        return iou3d_class_blocks_plain(boxes, labels, z_origin)
+    bx = boxes[..., :7].float().contiguous()
     lab = labels.to(torch.int32).contiguous()
-    val = valid.to(torch.uint8).contiguous()
-    if not all(t.is_cuda and t.device == m.device for t in (sc, lab, val)):
-        raise ValueError("soft_nms: tensors on one CUDA device")
+    if not (bx.is_cuda and lab.device == bx.device):
+        raise ValueError("iou3d_class_blocks: boxes and labels on one CUDA "
+                         "device")
+    B, N = lab.shape
+    out = torch.empty((B, N, N), dtype=torch.float32, device=bx.device)
+    with torch.cuda.device(bx.device):
+        status = cuda_lib.library().u3d_iou3d_class_blocks(
+            bx.data_ptr(), lab.data_ptr(), out.data_ptr(), B, N,
+            int(z_origin == "bottom"),
+            torch.cuda.current_stream(bx.device).cuda_stream)
+    cuda_lib.check(status, "u3d_iou3d_class_blocks")
+    iou3d_class_blocks.launches += 1
+    cost.record("iou3d_rotated_blocks", (bx, lab), out)
+    return out
+
+
+iou3d_class_blocks.launches = 0
+
+
+def _segments_args(blocks, order, labels, scores, name):
+    B, N = scores.shape
+    if blocks.shape != (B, N, N) or order.shape != (B, N) or \
+            labels.shape != (B, N):
+        raise ValueError(f"{name}: blocks (B, N, N), order, labels and "
+                         f"scores (B, N)")
+
+
+def soft_nms_segments_plain(blocks, order, labels, scores, num_classes: int,
+                            sigma: float, prune: float, max_out: int):
+    """The algorithm of N3, one (scene, class) at a time: ``order`` and
+    ``labels`` (B, N) from :func:`soft_nms_order`, ``blocks`` (B, N, N)
+    from :func:`iou3d_class_blocks` (read at pairs of one class only),
+    ``scores`` (B, N) by box index. Class c owns the positions [s_c, e_c)
+    whose label is c (a binary search of the ascending labels); its loop
+    takes the live score of highest value (ties to the lower box index,
+    not the lower position), keeps it while it is above ``prune``, decays
+    every live score of the segment by its row of the class block (an
+    entry 0 leaves the score as it is), and sets the kept score to -inf.
+    Returns what :func:`soft_nms_plain` returns on the IoU matrix."""
+    _segments_args(blocks, order, labels, scores, "soft_nms_segments_plain")
+    B, N = scores.shape
+    dev = scores.device
+    neg = torch.full((), -float("inf"), device=dev)
+    sig = torch.full((), sigma, dtype=torch.float32, device=dev)
+    out = torch.zeros((B, N), dtype=torch.float32, device=dev)
+    keep = torch.zeros((B, N), dtype=torch.bool, device=dev)
+    step = torch.full((B, N), -1, dtype=torch.int32, device=dev)
+    cls = torch.arange(num_classes + 1, dtype=torch.int32, device=dev)
+    for b in range(B):
+        bounds = torch.searchsorted(labels[b].to(torch.int32).contiguous(),
+                                    cls).tolist()
+        for c in range(num_classes):
+            s, e = bounds[c], bounds[c + 1]
+            if s == e:
+                continue
+            idx = order[b, s:e]
+            live = scores[b, idx].float()
+            blk = blocks[b, s:e, s:e].float()
+            for k in range(max_out):
+                best = live.max()
+                top = int(torch.where(live == best, idx, N).argmin())
+                if not bool(best > prune):
+                    break
+                o = idx[top]
+                out[b, o] = best.clamp(min=0.0)
+                keep[b, o] = True
+                step[b, o] = k
+                row = blk[top]
+                live = torch.where(row == 0, live,
+                                   live * torch.exp(-(row * row) / sig))
+                live[top] = neg
+    return out, keep, step
+
+
+def soft_nms_segments(blocks, order, labels, scores, num_classes: int,
+                      sigma: float, prune: float, max_out: int):
+    """N3: :func:`soft_nms_segments_plain` for every (scene, class) in one
+    launch on CUDA tensors (one block each, over the class's segment, its
+    live scores in shared memory), with no host synchronisation; the
+    plain model on CPU tensors."""
+    _segments_args(blocks, order, labels, scores, "soft_nms_segments")
+    if all(t.device.type == "cpu" for t in (blocks, order, labels, scores)):
+        return soft_nms_segments_plain(blocks, order, labels, scores,
+                                       num_classes, sigma, prune, max_out)
+    m = blocks.float().contiguous()
+    order = order.to(torch.int64).contiguous()
+    lab = labels.to(torch.int32).contiguous()
+    sc = scores.float().contiguous()
+    if not all(t.is_cuda and t.device == m.device
+               for t in (order, lab, sc)):
+        raise ValueError("soft_nms_segments: tensors on one CUDA device")
     B, N = sc.shape
     out = torch.empty((B, N), dtype=torch.float32, device=m.device)
     keep = torch.empty((B, N), dtype=torch.bool, device=m.device)
     step = torch.empty((B, N), dtype=torch.int32, device=m.device)
     with torch.cuda.device(m.device):
         status = cuda_lib.library().u3d_soft_nms(
-            m.data_ptr(), sc.data_ptr(), lab.data_ptr(), val.data_ptr(), B,
+            m.data_ptr(), order.data_ptr(), lab.data_ptr(), sc.data_ptr(), B,
             N, int(num_classes), float(sigma), float(prune), int(max_out),
             out.data_ptr(), keep.data_ptr(), step.data_ptr(),
             torch.cuda.current_stream(m.device).cuda_stream)
     cuda_lib.check(status, "u3d_soft_nms")
-    soft_nms.launches += 1
-    cost.record("soft_nms", (m, sc, lab, val), out, keep, step)
+    soft_nms_segments.launches += 1
+    cost.record("soft_nms", (m, order, lab, sc), out, keep, step)
     return out, keep, step
 
 
-soft_nms.launches = 0
+soft_nms_segments.launches = 0
+
+
+def soft_nms(boxes, scores, labels, valid, num_classes: int, sigma: float,
+             prune: float, max_out: int, z_origin: str = "bottom"):
+    """Gaussian soft-NMS of B scenes x ``num_classes`` classes: the JAX
+    package's ``soft_nms3d`` (``ops/nms.py:103``) on each class's boxes
+    (``valid`` and ``labels == c``) of boxes (B, N, >=7), scores, labels
+    and valid (B, N). Returns what :func:`soft_nms_plain` returns on the
+    boxes' rotated 3D IoU matrix (``z_origin`` as :func:`iou3d_rotated`).
+
+    CUDA tensors: :func:`soft_nms_order`, then one
+    :func:`iou3d_class_blocks` and one :func:`soft_nms_segments` launch
+    for all scenes and classes, no host synchronisation. CPU tensors:
+    :func:`iou3d_rotated` and :func:`soft_nms_plain`. The third result,
+    each kept box's step, is for checking the kept order (the tests and
+    the smoke); ``post_process`` discards it."""
+    B, N = scores.shape
+    if boxes.dim() != 3 or boxes.shape[:2] != (B, N) or \
+            boxes.shape[-1] < 7:
+        raise ValueError("soft_nms: boxes (B, N, >=7)")
+    if boxes.device.type == "cpu":
+        bx = boxes[..., :7]
+        return soft_nms_plain(iou3d_rotated(bx, bx, z_origin), scores,
+                              labels, valid, num_classes, sigma, prune,
+                              max_out)
+    order, lab = soft_nms_order(scores, labels, valid, num_classes)
+    bx = torch.gather(boxes[..., :7], 1, order[..., None].expand(-1, -1, 7))
+    blocks = iou3d_class_blocks(bx, lab, z_origin)
+    return soft_nms_segments(blocks, order, lab, scores, num_classes, sigma,
+                             prune, max_out)

@@ -7,8 +7,8 @@ class scores, denormalizes the boxes, masks them by
 Post-processing shifts z to the bottom face, runs rotated 3D-IoU NMS
 per class for all scenes at once (``post_processing="nms"``,
 ``ops.nms.nms_keep``: two kernel launches on the card), or gaussian
-soft-NMS per class (``soft_nms``: N1's IoU matrix, then
-``ops.nms.soft_nms``, N3, one launch each on the card; ``none`` and
+soft-NMS per class (``soft_nms``: ``ops.nms.soft_nms``, N1's IoU of
+same-class pairs, then N3, one launch each on the card; ``none`` and
 ``box_merging`` pass the boxes through, box merging runs on the host
 afterwards in ``eval.postprocess``) and applies ``score_thr`` and
 ``num_thr``. Outputs stay fixed-size with validity masks; nothing here
@@ -26,7 +26,6 @@ import torch
 
 from ..config import Uni3DETRConfig
 from ..geom.boxes import bottom_center_boxes, decode_boxes
-from ..geom.iou import iou3d_rotated_pairwise
 from ..ops.nms import _rank_order, nms_keep, soft_nms
 
 
@@ -62,7 +61,7 @@ def post_process(boxes, scores, labels, valid, cfg: Uni3DETRConfig):
     boxes gravity-centred.
 
     ``soft_nms`` runs ``min(max_num, N)`` steps at most per class on the
-    bottom-z IoU matrix: the kept boxes take their decayed scores, the
+    bottom-z IoU: the kept boxes take their decayed scores, the
     others score 0 and turn invalid. ``score_thr`` (scalar, or one per
     class) keeps scores strictly above it; ``num_thr`` keeps the
     ``num_thr`` best surviving boxes, ties to the lower index as
@@ -77,9 +76,9 @@ def post_process(boxes, scores, labels, valid, cfg: Uni3DETRConfig):
     elif cfg.post_processing == "soft_nms":
         N = scores.shape[1]
         scores, valid, _ = soft_nms(
-            iou3d_rotated_pairwise(boxes[..., :7], "bottom"), scores,
-            labels, valid, cfg.num_classes, cfg.soft_nms_sigma,
-            cfg.soft_nms_prune, min(cfg.max_num, N))
+            boxes, scores, labels, valid, cfg.num_classes,
+            cfg.soft_nms_sigma, cfg.soft_nms_prune, min(cfg.max_num, N),
+            z_origin="bottom")
     if cfg.score_thr is not None:
         thr = cfg.score_thr
         if isinstance(thr, (tuple, list)):
