@@ -1,0 +1,6 @@
+"""Loss, matching (K12), backward and the optimizer: the stream's ms a train step, between the
+CUDA events of its stage (``bench_trace.StageClock``)."""
+
+
+def read(t):
+    return t.stage_ms("after_forward")

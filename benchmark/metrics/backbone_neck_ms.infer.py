@@ -1,0 +1,6 @@
+"""SECOND3D and the FPN (cuDNN): the stream's ms a batch, between the
+CUDA events of its stage (``bench_trace.StageClock``)."""
+
+
+def read(t):
+    return t.stage_ms("backbone_neck")

@@ -1,0 +1,6 @@
+"""FPS (K4) and the decoder head: the stream's ms a batch, between the
+CUDA events of its stage (``bench_trace.StageClock``)."""
+
+
+def read(t):
+    return t.stage_ms("head")

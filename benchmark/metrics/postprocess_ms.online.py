@@ -1,0 +1,6 @@
+"""Decode and per-class NMS (N1, N2): the stream's ms a frame, between the
+CUDA events of its stage (``bench_trace.StageClock``)."""
+
+
+def read(t):
+    return t.stage_ms("postprocess")
