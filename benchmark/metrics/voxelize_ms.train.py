@@ -1,0 +1,7 @@
+"""The voxelizer (``ops/voxelize.py``): the stream's ms a train step in the
+port's span ``voxelize`` (``bench_spans``)."""
+import bench_spans
+
+
+def read(t):
+    return bench_spans.span_ms(t, "voxelize")

@@ -354,8 +354,12 @@ def test_match_queries_to_gt_unassigned_matches_jax():
             use_pallas=False)) for b in range(B)])
     padded = np.full((B * groups, 8), -1, np.int32)
     padded[:, :Gt] = rows
-    with mock.patch.object(tm, "auction_lap",
-                           lambda *a, **k: _t(padded)):
+    counts = torch.zeros((B * groups, 2), dtype=torch.int32)
+
+    def solver(*a, return_counts=False, **k):
+        return (_t(padded), counts) if return_counts else _t(padded)
+
+    with mock.patch.object(tm, "auction_lap", solver):
         got = tm.match_queries_to_gt(_t(cost), _t(valid), nq)
     np.testing.assert_array_equal(got.numpy(), ref)
     assert (ref[:, nq - 1] == 3).all() and (ref[1, nq - 1::nq] == 3).all()

@@ -21,7 +21,6 @@ import json
 import os
 import subprocess
 import sys
-import time
 
 import jax
 import jax.numpy as jnp
@@ -35,7 +34,6 @@ from uni3detr_tpu.models.detector import Uni3DETR as JModel
 from uni3detr_tpu.models.ov_detector import OV_Uni3DETR as JOVModel
 from uni3detr_tpu.train.torch_import import (import_torch_state_dict,
                                              import_torch_state_dict_ov)
-from uni3detr_tpu.utils import profiling as jprofiling
 from uni3detr_tpu_torch import presets as tpresets
 from uni3detr_tpu_torch.config import OVUni3DETRConfig as TOVConfig
 from uni3detr_tpu_torch.models.detector import Uni3DETR as TModel
@@ -359,24 +357,6 @@ def test_params_equal_jax(preset):
         with torch.device("meta"):
             model = TModel(tpresets.PRESETS[preset])
     assert sum(p.numel() for p in model.parameters()) == want
-
-
-def test_step_timer_matches_jax(monkeypatch):
-    clock = iter([1.0, 1.5, 2.25, 2.3, 4.0, 4.1, 4.6, 5.6])
-    ticks = list(clock)
-    for timer_cls in (jprofiling.StepTimer, profiling.StepTimer):
-        it = iter(ticks)
-        monkeypatch.setattr(time, "perf_counter", lambda: next(it))
-        timer = timer_cls(ema=0.8)
-        dts = []
-        for _ in ticks:
-            timer.tick()
-            dts.append(timer.dt)
-        if timer_cls is jprofiling.StepTimer:
-            want, want_sps = dts, timer.steps_per_sec
-        else:
-            assert dts == want and timer.steps_per_sec == want_sps
-    assert want[0] is None and want[1] == 0.5
 
 
 def test_trace_context_writes_a_chrome_trace(tmp_path):

@@ -17,6 +17,7 @@ from ..config import Uni3DETRConfig
 from ..ops.fps import farthest_point_sample_pair
 from ..ops.voxelize import dynamic_voxelize, hard_voxelize
 from ..parallel import dist, spatial as spatial_ops
+from ..utils.profiling import count, full_rows, span
 from .head import Uni3DETRHead
 from .second3d import SECOND3D, SECOND3DFPN
 from .sparse_encoder import SparseEncoderHD
@@ -81,26 +82,36 @@ class PointBranch:
         cfg = self.cfg
         dtype = cfg.torch_dtype
         on = spatial and dist.spatial_active()
-        feats, coords, vmask = self.voxelize(points, pts_mask)
-        volume, grid = self.pts_middle_encoder(feats, coords, vmask,
-                                               spatial=on)
-        x = volume.to(dtype)
-        if on:
-            h = grid[1]
-            if x.shape[2] == h and spatial_ops.divides(h):
-                x = spatial_ops.shard(x, 2)
-            hs = self.pts_backbone.heights(h)
-            ms = self.pts_backbone(x.permute(0, 4, 1, 2, 3), h)
-            fused = self.pts_neck(ms, hs)
-            if fused.shape[3] != self.pts_neck.height(hs):
-                fused = spatial_ops.gather(fused, 3)
-        else:
-            fused = self.pts_neck(self.pts_backbone(x.permute(0, 4, 1, 2, 3)))
-        fused = fused.to(dtype)
-        fused = fused.permute(0, 2, 3, 4, 1).contiguous()   # (B, D, H, W, C)
+        with span("voxelize"):
+            feats, coords, vmask = self.voxelize(points, pts_mask)
+            count("voxels_kept", vmask)
+            # a scene whose every voxel row is taken dropped points
+            count("voxel_budget_full", vmask, full_rows)
+        with span("sparse_encoder"):
+            volume, grid = self.pts_middle_encoder(feats, coords, vmask,
+                                                   spatial=on)
+        with span("backbone"):
+            x = volume.to(dtype)
+            if on:
+                h = grid[1]
+                if x.shape[2] == h and spatial_ops.divides(h):
+                    x = spatial_ops.shard(x, 2)
+                hs = self.pts_backbone.heights(h)
+                ms = self.pts_backbone(x.permute(0, 4, 1, 2, 3), h)
+            else:
+                ms = self.pts_backbone(x.permute(0, 4, 1, 2, 3))
+        with span("neck"):
+            if on:
+                fused = self.pts_neck(ms, hs)
+                if fused.shape[3] != self.pts_neck.height(hs):
+                    fused = spatial_ops.gather(fused, 3)
+            else:
+                fused = self.pts_neck(ms)
+            fused = fused.to(dtype)      # (B, D, H, W, C) below
+            fused = fused.permute(0, 2, 3, 4, 1).contiguous()
 
         nq = cfg.num_query
-        with torch.no_grad():
+        with torch.no_grad(), span("fps"):
             xyz = points[..., :3].float().contiguous()
             # voxel-coordinate FPS: (z, y, x) ints -> (x, y, z) floats
             vc = coords.flip(-1).float()
@@ -140,7 +151,9 @@ class Uni3DETR(PointBranch, nn.Module):
         FPS indices. In eval mode no autograd graph is recorded;
         voxelization and FPS never record one.
         """
-        with torch.set_grad_enabled(self.training and torch.is_grad_enabled()):
+        with span("forward"), torch.set_grad_enabled(
+                self.training and torch.is_grad_enabled()):
             fused, fpsbpts, _, inter = self.point_volume(points, pts_mask)
-            outs = self.pts_bbox_head(fused, fpsbpts, random_points)
+            with span("head"):
+                outs = self.pts_bbox_head(fused, fpsbpts, random_points)
         return (outs, inter) if return_intermediates else outs

@@ -35,6 +35,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..config import OVUni3DETRConfig
+from ..utils.profiling import span
 from .detector import PointBranch
 from .head_clip import Uni3DETRHeadCLIP
 from .resnet import FPN, ResNet
@@ -132,7 +133,8 @@ class OV_Uni3DETR(PointBranch, nn.Module):
         voxelization, the FPS indices, the lifted image features, the
         image volume, the fused volume and ri, where they exist. In eval
         no autograd graph is recorded."""
-        with torch.set_grad_enabled(self.training and torch.is_grad_enabled()):
+        with span("forward"), torch.set_grad_enabled(
+                self.training and torch.is_grad_enabled()):
             return self._forward(batch, random_points, return_intermediates,
                                  modality, generator)
 
@@ -182,5 +184,7 @@ class OV_Uni3DETR(PointBranch, nn.Module):
             inter["fused_volume"] = volume
         else:
             volume = pts_feat if use_pts else img_feat
-        outs = self.pts_bbox_head(volume.to(dtype), fpsbpts, random_points)
+        with span("head"):
+            outs = self.pts_bbox_head(volume.to(dtype), fpsbpts,
+                                      random_points)
         return (outs, inter) if return_intermediates else outs

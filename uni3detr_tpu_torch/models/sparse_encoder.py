@@ -46,6 +46,7 @@ from ..ops.sparse_conv_cuda import (GatherConvFn, GatherConvIdsFn,
                                     match_positions)
 from ..ops.voxelize import scatter_to_dense
 from ..parallel import dist, spatial as spatial_ops
+from ..utils.profiling import count, full_rows
 from .layers import MaskedBatchNorm
 
 
@@ -196,6 +197,10 @@ class SparseEncoderHD(nn.Module):
         if self.impl == "dense":
             return self.dense_forward(feats, coords, vmask, spatial)
         sets = self.site_sets(coords, vmask, backward=torch.is_grad_enabled())
+        # the strided stages' sites; a full budget dropped sites
+        for i, s in enumerate(sets[1:], 2):
+            count(f"sites.encoder_layer{i}", s["mask"])
+            count(f"site_budget_full.encoder_layer{i}", s["mask"], full_rows)
         x = feats.to(self.compute_dtype)
         for i, s in enumerate(sets):
             mods = self.encoder_layers[f"encoder_layer{i + 1}"]

@@ -24,6 +24,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..utils.profiling import count
 from . import cuda_lib
 # ``cost`` names the matching costs in this module
 from .cost import record as record_cost
@@ -244,7 +245,12 @@ def match_queries_to_gt(cost: torch.Tensor, gt_valid: torch.Tensor,
     elif method == "auction":
         benefit, spread, eps_div = auction_problem(cost, gt_valid, num_query,
                                                    gt_repeat, phases)
-        rows = auction_lap(benefit, spread, eps_div)[:, :Mc]
+        item_of, counts = auction_lap(benefit, spread, eps_div,
+                                      return_counts=True)
+        rows = item_of[:, :Mc]
+        # the rounds of the slowest instance set the kernel's time
+        count("auction_rounds", counts, lambda c: c[:, 0].max())
+        count("auction_bids", counts, lambda c: c[:, 1].sum())
     else:
         raise ValueError(f"unknown matcher {method!r}")
     col_ids = torch.arange(Mc, device=cost.device) % Gt

@@ -27,11 +27,17 @@ import torch
 from ..config import Uni3DETRConfig
 from ..geom.boxes import bottom_center_boxes, decode_boxes
 from ..ops.nms import _rank_order, nms_keep, soft_nms
+from ..utils.profiling import count, span
 
 
 def decode_predictions(outs, cfg: Uni3DETRConfig):
     """Head outputs -> (boxes (B, K, 7|9) gravity z, scores (B, K),
     labels (B, K) int32, valid (B, K)), K = min(max_num, Q * ncls)."""
+    with span("decode"):
+        return _decode(outs, cfg)
+
+
+def _decode(outs, cfg):
     cls = outs["all_cls_scores"][1:].mean(dim=0)      # (B, Q, ncls)
     box = outs["all_bbox_preds"][1:].mean(dim=0)
     iou = outs["all_iou_preds"][1:].mean(dim=0)
@@ -69,16 +75,26 @@ def post_process(boxes, scores, labels, valid, cfg: Uni3DETRConfig):
     valid), still fixed size. ``none`` and ``box_merging`` skip the NMS,
     as the JAX coder does.
     """
+    with span("post_process"):
+        return _post_process(boxes, scores, labels, valid, cfg)
+
+
+def _post_process(boxes, scores, labels, valid, cfg):
     boxes = bottom_center_boxes(boxes)
-    if cfg.post_processing == "nms":
-        valid = nms_keep(boxes, scores, labels, valid, cfg.nms_thr,
-                         cfg.num_classes, z_origin="bottom")
-    elif cfg.post_processing == "soft_nms":
-        N = scores.shape[1]
-        scores, valid, _ = soft_nms(
-            boxes, scores, labels, valid, cfg.num_classes,
-            cfg.soft_nms_sigma, cfg.soft_nms_prune, min(cfg.max_num, N),
-            z_origin="bottom")
+    if cfg.post_processing in ("nms", "soft_nms"):
+        with span("nms"):
+            # the candidates in range that enter the NMS, and its keep
+            count("nms_in", valid)
+            if cfg.post_processing == "nms":
+                valid = nms_keep(boxes, scores, labels, valid, cfg.nms_thr,
+                                 cfg.num_classes, z_origin="bottom")
+            else:
+                N = scores.shape[1]
+                scores, valid, _ = soft_nms(
+                    boxes, scores, labels, valid, cfg.num_classes,
+                    cfg.soft_nms_sigma, cfg.soft_nms_prune,
+                    min(cfg.max_num, N), z_origin="bottom")
+            count("nms_kept", valid)
     if cfg.score_thr is not None:
         thr = cfg.score_thr
         if isinstance(thr, (tuple, list)):

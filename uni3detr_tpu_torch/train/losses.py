@@ -42,6 +42,7 @@ from ..geom.iou import (axis_aligned_iou3d, iou3d_rotated,
                         z_interval_iou_aligned)
 from ..ops.matching import match_queries_to_gt
 from ..parallel import dist
+from ..utils.profiling import span
 
 
 def focal_cls_cost(cls_logits, gt_labels, alpha: float = 0.25,
@@ -246,9 +247,15 @@ def uni3detr_loss(outs, gt_boxes, gt_labels, gt_mask, cfg: Uni3DETRConfig
     the others as ``d{i}.loss_*``). The costs of all layers are built
     first and matched in one call; each layer's loss then takes its own
     assignment."""
+    with span("loss"):
+        return _loss(outs, gt_boxes, gt_labels, gt_mask, cfg)
+
+
+def _loss(outs, gt_boxes, gt_labels, gt_mask, cfg):
     L = outs["all_cls_scores"].shape[0]
-    assigned = assign_layers(all_layer_costs(outs, gt_boxes, gt_labels, cfg),
-                             gt_mask, cfg)
+    with span("matching"):
+        assigned = assign_layers(
+            all_layer_costs(outs, gt_boxes, gt_labels, cfg), gt_mask, cfg)
     unc = outs.get("all_uncertainty_preds")
     num_pos = [None] * L
     G = dist.batch_ranks()

@@ -26,6 +26,7 @@ from torch import nn
 from ..config import OVUni3DETRConfig
 from ..geom.boxes import gravity_center_boxes
 from ..parallel import dist
+from ..utils.profiling import span
 from .losses import uni3detr_loss
 
 Schedule = Callable[[int], float]
@@ -82,6 +83,10 @@ class Optimizer:
         clip and the update are the global batch's on every rank; an
         unreached parameter takes part with its zeros (the OV modality
         draw leaves a branch without gradient on every rank alike)."""
+        with span("optimizer"):
+            return self._step()
+
+    def _step(self) -> torch.Tensor:
         grads = []
         for p in self.params:
             if p.grad is None:
@@ -233,6 +238,11 @@ def train_step(model: nn.Module, opt: Optimizer,
     the ranks, the global batch's values; every rank must draw the same
     ``modality``. A train-mode forward or loss outside the step stays
     the rank's own."""
+    with span("train_step"):
+        return _train_step(model, opt, batch, modality_generator, modality)
+
+
+def _train_step(model, opt, batch, modality_generator, modality):
     cfg = model.cfg
     model.train()
     opt.zero_grad()
@@ -250,7 +260,8 @@ def train_step(model: nn.Module, opt: Optimizer,
         # gradients add up to one and the sliced layers' partial ones
         # to the whole (parallel/spatial.py's backward rules)
         S = dist.spatial_size()
-        (total / S if S > 1 else total).backward()
+        with span("backward"):
+            (total / S if S > 1 else total).backward()
     grad_norm = opt.step()
     logs = {k: v.detach() for k, v in logs.items()}
     logs["total_loss"] = total.detach()

@@ -1,3 +1,3 @@
 """Host-side utilities of the port: the BEV drawings of ``cli.test
---show-dir`` (``visualize``) and FLOPs, traces and step timing
+--show-dir`` (``visualize``) and FLOPs, traces, spans and counters
 (``profiling``)."""
