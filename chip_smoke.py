@@ -20,16 +20,19 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    same kernel and steps on one point per block: this design's cost of
    the steps alone); per call shape, summed per scene, and summed per TPU
    kernel that the JAX package would run; K1's and ``torch.searchsorted``'s
-   device times per scene (``torch.profiler``);
+   device times per scene (``torch.profiler``); N4 (the decoder's volume
+   sampler, ``sample_phase``) at the benchmark's eval batch (B = 8, four
+   query groups on the fused volume), bit-equal to its plain version,
+   with ``F.grid_sample`` as its ``library_ms``;
 4. flagship: ``uni3detr_sunrgbd`` as preset (bf16), seeded random
    weights, points -> head -> decode -> per-class NMS on a few scenes,
    then ``eval.indoor_eval`` of the detections against the scenes'
    synthetic GT (``synthetic.clustered_scene_gt``): valid boxes,
    ms/scene, peak memory, and the kernel launch counts of that run,
-   which must be K1 4, K2 17, K3 3 and K4 1 per scene and N1's two-set
-   form once a scene in the metric; ``eval_phase`` then holds that
-   form's overlaps to the plain IoU and the metric to the one from the
-   plain overlaps;
+   which must be K1 4, K2 17, K3 3, K4 1 and N4 3 (a decoder layer) per
+   scene and N1's two-set form once a scene in the metric;
+   ``eval_phase`` then holds that form's overlaps to the plain IoU and
+   the metric to the one from the plain overlaps;
 5. fp32: one scene through the port on the card (kernels) and on the
    CPU (plain versions), TF32 off: voxels and FPS indices must be equal,
    head outputs close;
@@ -52,7 +55,7 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    warm-up steps, then timed steps on one fixed batch; per step the loss,
    gradient norm, ms and peak memory. Losses and gradients must be
    finite, the loss must fall, and each step must launch K1 4, K2 33, K3
-   6, K4 1, K7 17, K10 3 and K12 once;
+   6, K4 1, K7 17, K10 3, K12 once and N4 3 and its backward 3;
 8. fp32 train parity: one step in fp32, dropout 0, scipy matching, TF32
    off, on the card (kernels) and on the CPU (plain versions): losses and
    gradients close.
@@ -64,9 +67,10 @@ voxels, 900 queries, a 10-dim box code with velocity):
    K10, K12: its own costs are 36 x 96 x 1024), as phases 3 and 6, each
    shape marked with the kernel the TPU package would run there (the
    lane-packed K5/K6/K8/K9 where a stage's feature table does not fit
-   VMEM);
-10. inference, bf16, as phase 4: K1 4, K2 17, K3 3, K4 1 per scene and
-    at most ``num_thr`` (500) valid boxes; ms/scene and peak memory;
+   VMEM); N4 forward and backward (both gradients) at the train batch
+   (B = 4, three query groups), with the peak memory each backward adds;
+10. inference, bf16, as phase 4: K1 4, K2 17, K3 3, K4 1, N4 3 per scene
+    and at most ``num_thr`` (500) valid boxes; ms/scene and peak memory;
 11. fp32 card vs CPU on one scene, as phase 5, with the first decoder
     layer held to the tolerance and the chaotic later layers by the
     share of outputs within it (see ``fp32_phase``);
@@ -166,15 +170,17 @@ sizes:
     step schedule (milestones inside the run) with its lr multipliers;
     ri drawn each step from a seeded CPU generator and each step's
     launches asserted by ri (ri 1, 2: K1 4, K2 33, K3 6, K4 1, K7 17,
-    K10 3, K12 1; ri 0: K1 4, K2 17, K3 3, K4 1, K12 1); the loss must
+    K10 3, K12 1; ri 0: K1 4, K2 17, K3 3, K4 1, K12 1; N4 once a
+    decoder layer and a lift level, its backward as often but for the
+    lift's under ri 1); the loss must
     fall, ri take all three values and the frozen ResNet stages end
     bit-equal;
 46. checkpoint round trip as phase 13, the modality generator
     included;
 47. one fp32 mm step card vs CPU at B=2 (ri 2), as phase 8, with the
     image backbone, FPN + proj + depth and view convs + fusion groups;
-48/49. pc at B=8 and rgb at B=2 (K12 alone): seven steps each, launches
-    asserted.
+48/49. pc at B=8 and rgb at B=2 (rgb: K12 and N4 alone): seven steps
+    each, launches asserted.
 
 Then the evaluation entry point (``cli``), on a SUN RGB-D data root
 written under ``build/`` (CLI_SCENES scenes of CLI_POINTS points from
@@ -714,6 +720,117 @@ def nms_scan_roofline(B, N):
     return roofline(0, 8 * B * N * W + 12 * B * N + B * N, "fp32")
 
 
+# N4: fp32 operations of a sampled channel: a product and a sum a corner
+SAMPLE_OPS_PER_CHANNEL = 16
+
+
+def sample_roofline(B, N, C, elem, volume_bytes=0, coords_grad=False):
+    """N4 forward: per point eight corner rows of C channels read, one row
+    written, three fp32 coordinates read; SAMPLE_OPS_PER_CHANNEL fp32
+    operations a channel. The backward (``volume_bytes`` > 0): the
+    cotangent row read, eight corner rows added into a gradient volume of
+    ``volume_bytes`` zero-filled once (with ``coords_grad`` the corner rows
+    read as well)."""
+    rows = (1 + 8) * B * N * C * elem + 12 * B * N
+    if volume_bytes:
+        rows += volume_bytes + (8 * B * N * C * elem if coords_grad else 0)
+    return roofline(SAMPLE_OPS_PER_CHANNEL * B * N * C, rows, "fp32")
+
+
+def sample_phase(torch, model, pts, dev, tag, B, groups, backward=False):
+    """N4 (the decoder's volume sampler) at a preset's decoder shapes: its
+    fused volume (from one forward of ``pts``) at batch ``B``, ``groups``
+    x num_query points in [-1.1, 1.1]^3, bf16. The forward must equal the
+    plain version bit for bit; kernel ms (events), device ms (profiler),
+    the plain version's ms, ``F.grid_sample``'s ms on the same volume as
+    NCDHW (``library_ms``, a yardstick the port never calls) and the
+    bound. With ``backward``: both gradients against the plain backward
+    (the volume's within 4 bf16 ulps of its largest entry: atomics sum in
+    another order; the coordinates' within 1e-4), kernel ms (zero-fills
+    included) against autograd of the plain forward, and the peak memory
+    each adds. Returns the report by kernel (calls: the decoder layers)."""
+    from torch.nn import functional as F
+    from uni3detr_tpu_torch.ops import sample
+
+    cfg = model.cfg
+    mask = torch.ones(pts.shape[:2], dtype=torch.bool, device=dev)
+    D, H, W, C = model.point_volume(pts, mask)[0].shape[1:]
+    N = groups * cfg.num_query
+    L = cfg.num_decoder_layers
+    gen = torch.Generator(device=dev).manual_seed(4)
+    vol = torch.randn((B, D, H, W, C), generator=gen, device=dev).to(
+        torch.bfloat16)
+    xyz = torch.rand((B, N, 3), generator=gen, device=dev) * 2.2 - 1.1
+    if not torch.equal(sample.grid_sample_3d(vol, xyz),
+                       sample.grid_sample_3d_plain(vol, xyz)):
+        fail(f"{tag}: N4 grid_sample_3d differs from the plain version at "
+             f"B={B} N={N} volume {(D, H, W, C)}")
+    fwd = lambda: sample.grid_sample_3d(vol, xyz)       # noqa: E731
+    ms = median_ms(torch, fwd, 20)
+    dms = device_ms_by_name(torch, fwd, "u3d_grid_sample_3d_kernel")[0]
+    pms = median_ms(torch, lambda: sample.grid_sample_3d_plain(vol, xyz), 10)
+    # F.grid_sample takes the grid in the input's dtype
+    ncdhw = vol.permute(0, 4, 1, 2, 3)
+    grid = xyz.to(vol.dtype)[:, :, None, None, :]
+    lms = median_ms(torch, lambda: F.grid_sample(
+        ncdhw, grid, mode="bilinear", padding_mode="zeros",
+        align_corners=False), 20)
+    bound = sample_roofline(B, N, C, 2)
+    print(f"[{tag}] N4 grid_sample_3d B={B} N={N} volume={(D, H, W, C)} "
+          f"bf16 exact ms={ms:.4f} device_ms={dms:.4f} plain_ms={pms:.4f} "
+          f"F.grid_sample_ms={lms:.4f} bound_ms={bound['bound_ms']:.5f} "
+          f"({bound['bound_by']}, {bound['bytes']} B) x{L} a batch")
+    report = {}
+    _report_add(report, "grid_sample_3d", 0.0, ms, pms, L, bound,
+                library_ms=lms)
+    if not backward:
+        return report
+    g = torch.randn((B, N, C), generator=gen, device=dev).to(torch.bfloat16)
+    bwd = lambda: sample.grid_sample_3d_backward(     # noqa: E731
+        vol, xyz, g, True, True)
+    gv, gc = bwd()
+    pv, pc = sample.grid_sample_3d_backward_plain(vol, xyz, g, True, True)
+    err_v = (gv.float() - pv.float()).abs().max().item()
+    err_c = (gc - pc).abs().max().item()
+    tol_v = 4 * 2.0 ** -8 * pv.float().abs().max().item()
+    tol_c = 1e-4 * pc.abs().max().item()
+    if not (err_v <= tol_v and err_c <= tol_c):
+        fail(f"{tag}: N4 backward err {err_v} (tol {tol_v}) / coords "
+             f"{err_c} (tol {tol_c})")
+    del gv, gc, pv, pc
+    v = vol.detach().requires_grad_()
+    c = xyz.clone().requires_grad_()
+
+    def plain_bwd():
+        with torch.enable_grad():
+            return torch.autograd.grad(sample.grid_sample_3d_plain(v, c),
+                                       (v, c), g)
+
+    def peak(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated(dev) - base
+
+    bms = median_ms(torch, bwd, 10)
+    bdms, fill = device_ms_by_name(torch, bwd,
+                                   "u3d_grid_sample_3d_backward_kernel")
+    pbms = median_ms(torch, plain_bwd, 5) - pms
+    kpeak, ppeak = peak(bwd), peak(plain_bwd)
+    bbound = sample_roofline(B, N, C, 2, vol.numel() * 2, True)
+    print(f"[{tag}] N4 grid_sample_3d_backward (volume and coordinates) "
+          f"max_abs_err={err_v:.3g} coords {err_c:.3g} ms={bms:.4f} "
+          f"device_ms={bdms:.4f} (zero-fills {fill:.4f}) plain_ms="
+          f"{pbms:.4f} (autograd less the plain forward) bound_ms="
+          f"{bbound['bound_ms']:.5f} ({bbound['bound_by']}) peak bytes "
+          f"added: kernel {kpeak} plain autograd {ppeak} x1 a step")
+    _report_add(report, "grid_sample_3d_backward", err_v, bms, pbms, 1,
+                bbound)
+    return report
+
+
 def _report_add(report, name, err, ms, plain_ms, calls, bound,
                 gemm_ms=None, library_ms=None):
     """Sum a call shape's numbers into ``report[name]`` (x ``calls``);
@@ -933,7 +1050,8 @@ def kernel_wrappers():
     bitmask); on the box-merging path its matrix form
     ``geom.iou.iou3d_rotated_pairwise``, and in the metrics its two-set 3D
     and BEV forms; on the TTA merge its BEV bitmask,
-    ``ops.nms.overlap_mask_bev``."""
+    ``ops.nms.overlap_mask_bev``; N4 (``sample.grid_sample_3d`` and its
+    backward) in both."""
     from uni3detr_tpu_torch.ops import kernel_wrappers as wrappers
     return wrappers()
 
@@ -994,7 +1112,9 @@ def infer_phase(torch, model, scenes, dev, tag, gts=None):
                  "iou3d_rotated": int(not merging),
                  "nms_greedy": int(not merging),
                  "iou3d_rotated_matrix": int(merging),
-                 "iou3d_rotated_sets": 0, "iou_bev_rotated_sets": 0}
+                 "iou3d_rotated_sets": 0, "iou_bev_rotated_sets": 0,
+                 "grid_sample_3d": sampler_per_forward(cfg),
+                 "grid_sample_3d_backward": 0}
     wrappers = {k: v for k, v in kernel_wrappers().items()
                 if k in per_scene}
     data = [scene_inputs(torch, sc, dev) for sc in scenes]
@@ -1479,15 +1599,29 @@ def fp32_phase(torch, base_cfg, sd, scene, dev, tag, every_layer=True,
              f"{within} of the outputs within {FP32_ATOL}")
 
 
+def sampler_per_forward(cfg):
+    """N4's launches in one forward: one a decoder layer and, with an OV
+    preset's camera branch, one a feature level of the lift (its depth
+    volume)."""
+    return cfg.num_decoder_layers + (
+        cfg.fpn_levels if is_ov(cfg) and cfg.use_camera else 0)
+
+
 def train_per_step(cfg, modality=None):
-    """Kernel launches of one train step: the forward's K1-K4, K2/K3
+    """Kernel launches of one train step: the forward's K1-K4 and N4, K2/K3
     again for the feature gradients (not of conv_input, whose input needs
     none), K7/K10 for every weight gradient, K12 once for the instances
-    of all decoder layers. OV-Uni3DETR: camera-only runs K12 alone; under
-    the modality draw ri = 0 ([image, image]) no gradient reaches the
-    point branch, which still runs forward."""
+    of all decoder layers, N4's backward for every sample that takes a
+    gradient. OV-Uni3DETR: camera-only runs K12 and N4 alone; under the
+    modality draw ri = 0 ([image, image]) no gradient reaches the point
+    branch, under ri = 1 ([points, points]) none the image branch's lift;
+    both branches still run forward."""
     counts = dict.fromkeys(kernel_wrappers(), 0)
     counts["auction_lap"] = 1
+    n4 = sampler_per_forward(cfg)
+    lift = n4 - cfg.num_decoder_layers
+    counts.update(grid_sample_3d=n4, grid_sample_3d_backward=n4 - lift * (
+        modality == 1))
     if is_ov(cfg) and not cfg.use_lidar:
         return counts
     subm, strided = conv_cases(cfg)
@@ -2087,6 +2221,9 @@ def flagship(torch, dev):
     with torch.inference_mode():
         kernel_phase(torch, model, torch.from_numpy(scenes[0][0]).to(dev),
                      dev, "kernels")
+        # the benchmark's eval batch: B = 8, four query groups
+        sample_phase(torch, model, torch.from_numpy(scenes[0][0]).to(dev),
+                     dev, "kernels", 8, 4)
         run, dets, metric = infer_phase(torch, model, scenes, dev,
                                         "flagship", gts=gts)
         launches = [run]
@@ -2141,6 +2278,10 @@ def nuscenes(torch, dev):
     with torch.no_grad():
         report.update(dw_phase(torch, model.train(), batch, dev,
                                "nuscenes-train-kernels", False))
+        # the train batch: B = 4, three query groups, with the backward
+        report.update(sample_phase(
+            torch, model.eval(), torch.from_numpy(scenes[0][0]).to(dev), dev,
+            "nuscenes-train-kernels", TRAIN_B, 3, backward=True))
     del model
     torch.cuda.empty_cache()
     total = NUS_WARMUP + NUS_STEPS
@@ -2382,8 +2523,8 @@ def ov_train(torch, cfg, sd, dev, tag):
     at the batch), train steps under the step schedule with the config's
     multipliers (ri drawn each step, launches by ri, frozen stages
     bit-equal), one fp32 step card vs CPU, a checkpoint round trip. pc
-    and rgb: a few steps, launches asserted (rgb: K12 alone). Returns the
-    launches of the timed steps."""
+    and rgb: a few steps, launches asserted (rgb: K12 and N4 alone).
+    Returns the launches of the timed steps."""
     from uni3detr_tpu_torch.presets import OV_SUNRGBD_MM_LR_MULT
     from uni3detr_tpu_torch.synthetic import ov_train_batch
     from uni3detr_tpu_torch.train.step import step_lr_schedule
@@ -2664,16 +2805,17 @@ def sync_debug_inference(mode):
 
 def infer_per_batch(mc):
     """Kernel launches of one eval batch of a Lidar-point model through
-    ``run_inference``: the forward's K1-K4, then N1's NMS bitmask and N2,
-    with box merging N1's matrix form, with soft-NMS N1's class blocks and
-    N3."""
+    ``run_inference``: the forward's K1-K4 and N4, then N1's NMS bitmask
+    and N2, with box merging N1's matrix form, with soft-NMS N1's class
+    blocks and N3."""
     subm, strided = conv_cases(mc)
     post = {"box_merging": {"iou3d_rotated_matrix": 1},
             "soft_nms": {"iou3d_rotated_blocks": 1, "soft_nms": 1}}.get(
         mc.post_processing, {"iou3d_rotated": 1, "nms_greedy": 1})
     return {"match_positions": len(mc.encoder_channels),
             "gather_conv": sum(c[-1] for c in subm),
-            "gather_conv_ids": len(strided), "fps_pair": 1, **post}
+            "gather_conv_ids": len(strided), "fps_pair": 1,
+            "grid_sample_3d": sampler_per_forward(mc), **post}
 
 
 def cli_run(torch, tag, config, root, n_scenes, per_batch, ckpt=None,
@@ -2806,7 +2948,7 @@ def cli(torch, dev):
     from uni3detr_tpu_torch.synthetic import write_sunrgbd_root
     from uni3detr_tpu_torch.train.checkpoint import save_checkpoint
 
-    from uni3detr_tpu_torch.config_file import load_config
+    from uni3detr_tpu_torch.config_file import build_model_config, load_config
 
     shutil.rmtree(CLI_DIR, ignore_errors=True)
     root, ov_root = (os.path.join(CLI_DIR, d) for d in ("sunrgbd", "ov"))
@@ -2842,8 +2984,10 @@ def cli(torch, dev):
     write_sunrgbd_root(ov_root, PRESETS["ov_uni3detr_sunrgbd_mm"],
                        load_config(OV_MM_CONFIG).class_names, CLI_OV_SCENES,
                        camera=True, num_points=CLI_POINTS)
+    ov_mc = build_model_config(load_config(OV_MM_CONFIG))
     run, r = cli_run(torch, "cli-ov-mm", OV_MM_CONFIG, ov_root,
-                     CLI_OV_SCENES, per_batch)
+                     CLI_OV_SCENES, dict(per_batch, grid_sample_3d=(
+                         sampler_per_forward(ov_mc))))
     runs.append(run)
     if not any("seen" in k for k in r["metrics"]):
         fail(f"cli-ov-mm: no seen / unseen split in {sorted(r['metrics'])}")
@@ -4568,7 +4712,8 @@ def dense_phase(torch, dev):
     (the gather route without budgets, so that it cuts no site), within
     DENSE_RTOL / DENSE_ATOL; then the bf16 dense model's forward on the
     scene and DENSE_STEPS train steps at B=4: ms, peak memory and
-    launches (K4 and, in training, K12 alone). Returns the launches."""
+    launches (K4 and N4 and, in training, K12 and N4's backward alone).
+    Returns the launches."""
     import numpy as np
     from uni3detr_tpu_torch.presets import SUNRGBD
     from uni3detr_tpu_torch.synthetic import (clustered_scene,
@@ -4632,7 +4777,7 @@ def dense_phase(torch, dev):
         ms = (time.perf_counter() - t0) * 1e3
     run = {k: fn.launches - before[k] for k, fn in wrappers.items()}
     want = dict.fromkeys(wrappers, 0)
-    want["fps_pair"] = 1
+    want.update(fps_pair=1, grid_sample_3d=cfg.num_decoder_layers)
     print(f"[dense] bf16 forward, one scene (after a warm-up): ms={ms:.3f} "
           f"peak_mem_bytes={torch.cuda.max_memory_allocated(dev)} launches "
           f"{ {k: v for k, v in run.items() if v} }")
@@ -4642,7 +4787,7 @@ def dense_phase(torch, dev):
     opt = make_optimizer(model, TRAIN_LR)
     batch = {k: torch.from_numpy(v).to(dev) for k, v in
              clustered_train_batch(0, cfg, TRAIN_B).items()}
-    want["auction_lap"] = 1
+    want.update(auction_lap=1, grid_sample_3d_backward=cfg.num_decoder_layers)
     for i in range(DENSE_STEPS):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -5715,6 +5860,9 @@ def main():
         "iou_bev_rotated_mask": ("nms.cu", "uni3detr_tpu/geom/iou.py:107"),
         "soft_nms": ("nms.cu", "uni3detr_tpu/ops/nms.py:103"),
         "iou3d_rotated_blocks": ("nms.cu", "uni3detr_tpu/geom/iou.py:120"),
+        "grid_sample_3d": ("sample.cu", "uni3detr_tpu/ops/sample.py:24"),
+        "grid_sample_3d_backward": ("sample.cu",
+                                    "uni3detr_tpu/ops/sample.py:24"),
     }
     kernels = [dict(name=name, route="cuda",
                     source=f"uni3detr_tpu_torch/csrc/{src}", replaces=rep,

@@ -1118,6 +1118,175 @@ def test_grid_sample_2d_card_equals_cpu(dev):
     assert (got - ref).abs().max().item() <= 1e-5
 
 
+# -- N4: the volume sampler ----------------------------------------------------
+#
+# The decoder's shapes: SUN RGB-D's eval batch (B = 8, 4 x 300 queries, the
+# (15, 40, 40) fused volume of 256 channels) and nuScenes' train batch
+# (B = 4, 3 x 900 queries, (5, 180, 180)); OV's depth volume, C = 1 and a
+# permuted view; widths whose rows are not 16-byte chunks, and a volume
+# view 2 bytes off alignment (the scalar path). The forward must equal the
+# plain version bit for bit. The backward sums in another order (atomics
+# against the plain version's corner-by-corner scatter_add): the volume's
+# gradient within 4 ulps of its dtype at the largest entry, the
+# coordinates' (fp32 sums over C in another order) within 1e-4 of the
+# largest entry of the plain backward, and within 2^-5 (bf16) / 1e-4 of
+# autograd of the plain forward, whose bf16 chain rounds every step.
+
+_N4_SHAPES = {"sunrgbd_eval": (8, 1200, (15, 40, 40), 256),
+              "nuscenes_train": (4, 2700, (5, 180, 180), 256),
+              "narrow": (2, 500, (6, 20, 24), 12),
+              "odd": (2, 500, (6, 20, 24), 6)}
+
+
+def _n4_inputs(dev, shape, dtype, seed=0):
+    """(volume, coords) on ``dev``: a random volume and points uniform in
+    [-1.1, 1.1]^3 (some corners outside); "ov_depth" is a permuted view of
+    a (B*N, Hl, Wl, DD) depth map, "misaligned" a view one element off."""
+    g = torch.Generator().manual_seed(seed)
+    if shape == "ov_depth":
+        depth = torch.rand(12, 24, 44, 64, generator=g).to(dtype).to(dev)
+        vol = depth.permute(0, 3, 1, 2)[..., None]
+        B, N = 12, 3000
+    elif shape == "misaligned":
+        B, N, (D, H, W), C = _N4_SHAPES["narrow"]
+        flat = torch.randn(B * D * H * W * C + 1, generator=g).to(dtype)
+        vol = flat.to(dev)[1:].view(B, D, H, W, C)
+    else:
+        B, N, (D, H, W), C = _N4_SHAPES[shape]
+        vol = torch.randn(B, D, H, W, C, generator=g).to(dtype).to(dev)
+    pts = (torch.rand(B, N, 3, generator=g) * 2.2 - 1.1).to(dev)
+    return vol, pts
+
+
+_N4_CASES = list(_N4_SHAPES) + ["ov_depth", "misaligned"]
+
+
+def _ulps(dtype, n=4):
+    return n * (2.0 ** -8 if dtype == torch.bfloat16 else 2.0 ** -23)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", _N4_CASES)
+def test_grid_sample_3d_kernel_equals_plain(dev, shape, dtype):
+    from uni3detr_tpu_torch.ops import sample
+
+    vol, pts = _n4_inputs(dev, shape, dtype)
+    before = sample.grid_sample_3d.launches
+    got = sample.grid_sample_3d(vol, pts)
+    assert sample.grid_sample_3d.launches == before + 1
+    ref = sample.grid_sample_3d_plain(vol, pts)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == ref.shape
+    assert torch.equal(got, ref)
+    assert (ref != 0).any() and (ref == 0).any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", _N4_CASES)
+def test_grid_sample_3d_backward_kernel_equals_plain(dev, shape, dtype):
+    from uni3detr_tpu_torch.ops import sample
+
+    vol, pts = _n4_inputs(dev, shape, dtype, seed=1)
+    v = vol.detach().requires_grad_()
+    c = pts.clone().requires_grad_()
+    before = (sample.grid_sample_3d.launches,
+              sample.grid_sample_3d_backward.launches)
+    out = sample.grid_sample_3d(v, c)
+    g = torch.randn(out.shape, device=dev).to(dtype)
+    gv, gc = torch.autograd.grad(out, (v, c), g)
+    assert (sample.grid_sample_3d.launches,
+            sample.grid_sample_3d_backward.launches) == (
+        before[0] + 1, before[1] + 1)
+    pv, pc = sample.grid_sample_3d_backward_plain(vol, pts, g, True, True)
+    out_p = sample.grid_sample_3d_plain(v, c)
+    av, ac = torch.autograd.grad(out_p, (v, c), g)
+    torch.cuda.synchronize()
+    assert gv.shape == vol.shape and gv.dtype == dtype
+    for ref in (pv, av):
+        tol = _ulps(dtype) * ref.float().abs().max().item()
+        assert (gv.float() - ref.float()).abs().max().item() <= tol
+    scale = pc.abs().max().item()
+    assert (gc - pc).abs().max().item() <= 1e-4 * scale
+    rtol = 2.0 ** -5 if dtype == torch.bfloat16 else 1e-4
+    assert (gc - ac).abs().max().item() <= rtol * ac.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grid_sample_3d_backward_kernel_one_term_a_voxel(dev, dtype):
+    """Points whose 2 x 2 x 2 neighbourhoods are disjoint: every voxel's
+    gradient is one product, so the atomics' order cannot show and the
+    kernel equals the plain backward bit for bit."""
+    from uni3detr_tpu_torch.ops import sample
+
+    rng = np.random.RandomState(2)
+    D, H, W, C = 9, 13, 17, 256
+    cells = np.stack(np.meshgrid(np.arange(0, W - 1, 4),
+                                 np.arange(0, H - 1, 4),
+                                 np.arange(0, D - 1, 4), indexing="ij"),
+                     -1).reshape(-1, 3)
+    pos = cells + rng.uniform(0.05, 0.95, cells.shape)
+    pts = torch.from_numpy(((2 * pos + 1) / np.array([W, H, D]) - 1)
+                           .astype(np.float32))[None].repeat(2, 1, 1)
+    vol = torch.from_numpy(rng.randn(2, D, H, W, C).astype(np.float32)) \
+        .to(dtype)
+    g = torch.from_numpy(rng.randn(2, pts.shape[1], C).astype(np.float32)) \
+        .to(dtype)
+    gv, _ = sample.grid_sample_3d_backward(vol.to(dev), pts.to(dev),
+                                           g.to(dev))
+    pv, _ = sample.grid_sample_3d_backward_plain(vol, pts, g)
+    assert torch.equal(gv.cpu(), pv)
+
+
+def test_grid_sample_3d_wrappers_count_and_never_sync(dev):
+    """One launch a forward and one a backward, each asked gradient set
+    alone; none when no gradient is asked; forward + backward under
+    ``set_sync_debug_mode("error")``, so no host sync."""
+    from uni3detr_tpu_torch.ops import sample
+
+    vol, pts = _n4_inputs(dev, "nuscenes_train", torch.bfloat16)
+    g = torch.ones(*pts.shape[:2], vol.shape[-1], device=dev,
+                   dtype=vol.dtype)
+    fwd, bwd = sample.grid_sample_3d, sample.grid_sample_3d_backward
+    for which, n in (((True, False), 1), ((False, True), 1),
+                     ((True, True), 1), ((False, False), 0)):
+        before = bwd.launches
+        gv, gc = bwd(vol, pts, g, *which)
+        assert bwd.launches == before + n
+        assert (gv is not None, gc is not None) == which
+    v = vol.detach().requires_grad_()
+    c = pts.clone().requires_grad_()
+    torch.cuda.synchronize()
+    before = (fwd.launches, bwd.launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = sample.grid_sample_3d(v, c)
+        out.float().sum().backward()
+        with torch.no_grad():
+            sample.grid_sample_3d(vol, pts)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert (fwd.launches, bwd.launches) == (before[0] + 2, before[1] + 1)
+    assert v.grad is not None and c.grad is not None
+
+
+def test_grid_sample_3d_counts_its_points_under_a_profiler(dev):
+    """The port's counters: one ``grid_sample3d.kernel`` and B * N
+    ``grid_sample3d.points`` a call, recorded while a profiler runs."""
+    from uni3detr_tpu_torch.ops import sample
+    from uni3detr_tpu_torch.utils import profiling
+
+    vol, pts = _n4_inputs(dev, "sunrgbd_eval", torch.bfloat16)
+    profiling.RECORDER.reset()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        for _ in range(3):
+            sample.grid_sample_3d(vol, pts)
+    counts = profiling.report()["counts"]
+    profiling.RECORDER.reset()
+    assert counts["grid_sample3d.kernel"] == 3
+    assert counts["grid_sample3d.points"] == 3 * pts.shape[0] * pts.shape[1]
+
+
 @pytest.mark.parametrize("stride", [1, 2])
 def test_dcn_card_equals_cpu(dev, no_tf32, stride):
     """Offsets of several pixels (taps between pixels, outside the
@@ -1610,7 +1779,8 @@ def test_get_flops_card_count_equals_cpu_count(dev):
     """``cli.get_flops`` on the tiny config: the card's FLOPs (cuDNN,
     flash attention, the kernels' records) equal the CPU's (the plain
     versions under ``FlopCounterMode``); the kernels' records name K1-K4
-    with one launch each as the launch counters."""
+    with one launch each as the launch counters, and N4 (the decoder's
+    volume sampler) as its counter, one a decoder layer."""
     from uni3detr_tpu_torch.cli import get_flops
     from uni3detr_tpu_torch.ops import kernel_wrappers
 
@@ -1624,7 +1794,8 @@ def test_get_flops_card_count_equals_cpu_count(dev):
     assert {k: v["launches"] for k, v in card["kernels"].items()} == \
         {k: v for k, v in launched.items() if v}
     assert set(card["kernels"]) == {"match_positions", "gather_conv",
-                                    "gather_conv_ids", "fps_pair"}
+                                    "gather_conv_ids", "fps_pair",
+                                    "grid_sample_3d"}
     assert cpu["kernels"] == {}
 
 

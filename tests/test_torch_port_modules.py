@@ -35,6 +35,7 @@ from uni3detr_tpu_torch.geom.iou import iou3d_rotated as t_iou3d
 from uni3detr_tpu_torch.models.detector import Uni3DETR as TModel
 from uni3detr_tpu_torch.models.layers import sine_pos_embed as t_sine
 from uni3detr_tpu_torch.ops import nms as tnms
+from uni3detr_tpu_torch.ops import sample as t_sample
 from uni3detr_tpu_torch.ops.sample import grid_sample_3d as t_grid_sample
 from uni3detr_tpu_torch.ops.sparse_conv import downsample_sites as t_downsample
 from uni3detr_tpu_torch.ops.voxelize import hard_voxelize as t_voxelize
@@ -255,6 +256,40 @@ def test_grid_sample_3d_matches_jax(dtype):
         tol = 4 * 2.0 ** -8 * np.abs(ref).max()
         np.testing.assert_allclose(got.float().numpy(), ref, rtol=0,
                                    atol=tol)
+
+
+@pytest.mark.parametrize("spread", [1.2, 1.02])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grid_sample_3d_backward_plain_matches_jax_grad(dtype, spread):
+    """The port's plain backward of the sampler, which its card kernel
+    follows, against ``jax.vjp`` of the JAX package's sampler on the same
+    volume, points (corners across every face; ``spread`` 1.2 puts some
+    points wholly outside) and cotangent. The volume's gradient: the same
+    products summed in another order, within 4 ulps of the dtype at the
+    largest entry. The coordinates': the port sums each point's C-channel
+    dot products and the weights' factors in fp32, where JAX's chain
+    rounds every step to the volume's dtype, so within 2^-5 of the largest
+    entry under bf16 and 1e-5 in fp32."""
+    rng = np.random.RandomState(11)
+    vol = rng.randn(2, 4, 6, 7, 16).astype(np.float32)
+    coords = rng.uniform(-spread, spread, (2, 120, 3)).astype(np.float32)
+    g = rng.randn(2, 120, 16).astype(np.float32)
+    jd, td = jnp.dtype(dtype), getattr(torch, dtype)
+    out, vjp = jax.vjp(j_grid_sample, jnp.asarray(vol, jd),
+                       jnp.asarray(coords))
+    ref_v, ref_c = vjp(jnp.asarray(g, jd))
+    got_v, got_c = t_sample.grid_sample_3d_backward_plain(
+        _t(vol).to(td), _t(coords), _t(g).to(td), True, True)
+    assert got_v.dtype == td and got_c.dtype == torch.float32
+    ref_v = np.asarray(ref_v.astype(jnp.float32))
+    ref_c = np.asarray(ref_c.astype(jnp.float32))
+    ulp = 2.0 ** -8 if dtype == "bfloat16" else 2.0 ** -23
+    np.testing.assert_allclose(got_v.float().numpy(), ref_v, rtol=0,
+                               atol=4 * ulp * np.abs(ref_v).max())
+    rtol = 2.0 ** -5 if dtype == "bfloat16" else 1e-5
+    np.testing.assert_allclose(got_c.numpy(), ref_c, rtol=0,
+                               atol=rtol * np.abs(ref_c).max())
+    assert np.abs(ref_c).max() > 0 and (ref_v == 0).any()
 
 
 def test_sine_pos_embed_matches_jax():

@@ -39,7 +39,7 @@ from uni3detr_tpu_torch.config import OVUni3DETRConfig as TOVConfig
 from uni3detr_tpu_torch.models.detector import Uni3DETR as TModel
 from uni3detr_tpu_torch.models.ov_detector import OV_Uni3DETR as TOVModel
 from uni3detr_tpu_torch.ops import cost, kernel_wrappers
-from uni3detr_tpu_torch.ops import fps, matching, nms
+from uni3detr_tpu_torch.ops import fps, matching, nms, sample
 from uni3detr_tpu_torch.ops import sparse_conv_cuda as sc
 from uni3detr_tpu_torch.geom import iou
 from uni3detr_tpu_torch.train.torch_import import load_reference_state_dict
@@ -271,6 +271,9 @@ def _plain_cases(shape):
     s_boxes = torch.gather(boxes, 1, s_order[..., None].expand(-1, -1, 7))
     soft = (nms.iou3d_class_blocks_plain(s_boxes, s_lab), s_order, s_lab,
             scores, 3, 0.3, 1e-3, N)
+    vol = torch.randn(B, 3, 5, 4, C, generator=g)
+    pts = torch.rand(B, N, 3, generator=g) * 2.4 - 1.2
+    gs = torch.randn(B, N, C, generator=g)
     return [
         ("match_positions", sc.match_positions_plain, (sid, qids, V)),
         ("gather_conv", sc.gather_conv_plain, (feats, nb, w)),
@@ -292,6 +295,9 @@ def _plain_cases(shape):
         ("iou3d_rotated_matrix", iou.iou3d_rotated_pairwise, (boxes,)),
         ("iou3d_rotated_sets", iou.iou3d_rotated_sets, (boxes, boxes2)),
         ("iou_bev_rotated_sets", iou.iou_bev_rotated_sets, (boxes, boxes2)),
+        ("grid_sample_3d", sample.grid_sample_3d_plain, (vol, pts)),
+        ("grid_sample_3d_backward", sample.grid_sample_3d_backward_plain,
+         (vol, pts, gs, True, True)),
     ]
 
 

@@ -9,9 +9,11 @@ def kernel_wrappers():
     training; N1 as the NMS bitmask, its BEV bitmask (TTA), its matrix
     (box merging and soft-NMS) and its two-set 3D and BEV forms (the
     metrics); N3 and N1's class blocks (the IoU of same-class pairs that
-    N3 reads) in the coder's ``soft_nms`` post-processing."""
+    N3 reads) in the coder's ``soft_nms`` post-processing; N4, the volume
+    sampler, once a decoder layer (and an OV feature level's depth
+    volume) in every forward, its backward as often in training."""
     from ..geom import iou
-    from . import fps, matching, nms, sparse_conv_cuda as sc
+    from . import fps, matching, nms, sample, sparse_conv_cuda as sc
     return {"match_positions": sc.match_positions,
             "gather_conv": sc.gather_conv,
             "gather_conv_ids": sc.gather_conv_ids,
@@ -26,7 +28,9 @@ def kernel_wrappers():
             "iou_bev_rotated_sets": iou.iou_bev_rotated_sets,
             "gather_conv_dw": sc.gather_conv_dw,
             "gather_conv_ids_dw": sc.gather_conv_ids_dw,
-            "auction_lap": matching.auction_lap}
+            "auction_lap": matching.auction_lap,
+            "grid_sample_3d": sample.grid_sample_3d,
+            "grid_sample_3d_backward": sample.grid_sample_3d_backward}
 
 
 def launch_counts():

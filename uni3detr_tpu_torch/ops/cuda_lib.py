@@ -50,6 +50,8 @@ _SIGNATURES = {
     "u3d_iou3d_class_blocks": [_P, _P, _P, _I, _I, _I, _P],
     "u3d_soft_nms": [_P] * 4 + [_I] * 3 + [ctypes.c_float] * 2
     + [_I] + [_P] * 4,
+    "u3d_grid_sample_3d": [_P] * 3 + [_I] * 8 + [_P],
+    "u3d_grid_sample_3d_backward": [_P] * 5 + [_I] * 8 + [_P],
 }
 _ERROR_STRING = "u3d_error_string"
 KERNEL_PREFIX = "u3d_"
