@@ -1,5 +1,6 @@
 """A cell as data: its entry in ``BENCHMARK.json``, its configuration file
-(``configs/<config>.json``), its traffic mix (``traffic/<traffic>.json``),
+(``configs/<config>.json``), the model family that the file names
+(``families/<family>.py``), its traffic mix (``traffic/<traffic>.json``),
 its limits (``limits/<workload>.json``) and the readers of its per-layer
 metrics (``metrics/<metric>.py``), all found by name."""
 from __future__ import annotations
@@ -10,10 +11,33 @@ import json
 import os
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+# the family of a configuration file that names none
+DEFAULT_FAMILY = "uni3detr"
 
 
-def _tuples(v):
-    return tuple(_tuples(x) for x in v) if isinstance(v, list) else v
+def _module(path, name):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def families(bench_dir: str = HERE) -> list:
+    """The names of the model families under ``families/``."""
+    files = os.listdir(os.path.join(bench_dir, "families"))
+    return sorted(f[:-3] for f in files
+                  if f.endswith(".py") and not f.startswith("_"))
+
+
+def family(name: str, bench_dir: str = HERE):
+    """The model family ``families/<name>.py`` (its interface:
+    ``families/__init__.py``)."""
+    known = families(bench_dir)
+    if name not in known:
+        raise SystemExit(f"unknown family {name!r}; the families are "
+                         f"{known}")
+    return _module(os.path.join(bench_dir, "families", f"{name}.py"),
+                   f"bench_family_{name}")
 
 
 @dataclasses.dataclass
@@ -26,24 +50,16 @@ class Cell:
     end_to_end: list      # metric entries of BENCHMARK.json
     per_layer: list
     bench_dir: str        # the benchmark's files
+    family: object        # the configuration's model family, a module
 
     @property
     def model(self) -> dict:
         return self.config["model"]
 
-    def port_config(self):
-        """The configuration as the port's ``Uni3DETRConfig``."""
-        from uni3detr_tpu_torch.config import Uni3DETRConfig
-        return Uni3DETRConfig(**{k: _tuples(v) for k, v in
-                                 self.model.items()})
-
     def reader(self, metric: str):
-        path = os.path.join(self.bench_dir, "metrics", f"{metric}.py")
-        spec = importlib.util.spec_from_file_location(
-            f"bench_metric_{metric.replace('.', '_')}", path)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        return mod.read
+        return _module(os.path.join(self.bench_dir, "metrics",
+                                    f"{metric}.py"),
+                       f"bench_metric_{metric.replace('.', '_')}").read
 
 
 def _listed(entry, cell):
@@ -65,10 +81,11 @@ def load(root: str, workload: str, bench_dir: str = HERE) -> Cell:
             return json.load(f)
 
     config = read(root, cfg_entry["file"])
+    fam = family(config.get("family", DEFAULT_FAMILY), bench_dir)
     traffic = read(bench_dir, "traffic", f"{w['traffic']}.json")
     lim_path = os.path.join(bench_dir, "limits", f"{workload}.json")
     limits = read(lim_path) if os.path.exists(lim_path) else {}
     e2e = [m for m in bench["end_to_end"] if _listed(m, workload)]
     per = [m for m in bench["per_layer"] if _listed(m, workload)]
     return Cell(workload, int(w["chips"]), config, traffic, limits, e2e,
-                per, bench_dir)
+                per, bench_dir, fam)

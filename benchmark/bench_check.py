@@ -1,6 +1,7 @@
 """The comparison that decides ``correct``: what the timed path produced,
-judged against the plain reference (``reference/``) run after the window
-on the same inputs and the same drawn weights.
+judged against the plain reference (``reference/``, as the cell's model
+family gives it: ``families/``) run after the window on the same inputs
+and the same drawn weights.
 
 Training (the steps set-up drives through the window's own call): each
 step's loss (``loss_gap``, the largest relative gap), the norm of the
@@ -35,9 +36,7 @@ import torch
 
 import bench_weights
 from reference import geometry as RG
-from reference.loss import adamw_step, total_loss
-from reference.model import Detector, quantizer
-from reference.postprocess import detect
+from reference.loss import adamw_step
 
 
 @contextlib.contextmanager
@@ -141,14 +140,15 @@ def bn_moves(model, before):
 def train_reference(cell, seed, batches, device, precision="float32"):
     """The reference's steps on ``batches`` (host tensors) from the drawn
     weights: ``{"loss", "grad", "change"}``."""
-    cfg, tcfg = cell.model, cell.config["train"]
+    fam, cfg, tcfg = cell.family, cell.model, cell.config["train"]
     lr, beta1 = schedules(tcfg)
-    quant = quantizer(precision)
+    quant = fam.quantizer(precision)
     with no_tf32(precision):
-        ref = Detector(cfg).to(device)
-        drawn = bench_weights.draw(ref, seed, cell.traffic["weights"], device)
+        ref = fam.reference(cfg).to(device)
+        drawn = bench_weights.draw(ref, seed, cell.traffic["weights"], device,
+                                   fam.weight_rule)
         ref.load_state_dict(drawn)
-        params = dict(ref.named_parameters())
+        params = {k: p for k, p in ref.named_parameters() if p.requires_grad}
         init = {k: p.detach().clone() for k, p in params.items()}
         state, losses, grad = {}, [], None
         for k, host in enumerate(batches):
@@ -156,7 +156,8 @@ def train_reference(cell, seed, batches, device, precision="float32"):
             ref.train()
             ref.zero_grad(set_to_none=True)
             torch.manual_seed(step_seed(seed, k))
-            loss = total_loss(ref(batch["points"], quant=quant), batch, cfg)
+            loss = fam.reference_loss(fam.reference_forward(ref, batch, quant),
+                                      batch, cfg)
             loss.backward()
             clipped = adamw_step(params, state, lr(k), beta1(k),
                                  tcfg["optimizer"]["weight_decay"],
@@ -183,7 +184,7 @@ WRONG_SCORE = 0.5
 def judge_scene(out, ref):
     """``out``: one scene of the program's post-processed output (numpy
     boxes (K, 7|9) bottom z, scores, labels, valid); ``ref``: the
-    reference's :func:`detect` of it. -> (score gap, box gap, kept by one
+    family's ``reference_detect`` of it. -> (score gap, box gap, kept by one
     side only, kept by either)."""
     kept = np.nonzero(out["valid"])[0]
     if len(kept):
@@ -234,22 +235,23 @@ class InferReference:
     time."""
 
     def __init__(self, cell, seed, device, precision="float32"):
+        self.family = fam = cell.family
         self.cfg = cell.model
         self.device = device
         self.precision = precision
-        self.quant = quantizer(precision)
+        self.quant = fam.quantizer(precision)
         with no_tf32():
-            self.model = Detector(self.cfg).to(device).eval()
+            self.model = fam.reference(self.cfg).to(device).eval()
             self.model.load_state_dict(bench_weights.draw(
-                self.model, seed, cell.traffic["weights"], device))
+                self.model, seed, cell.traffic["weights"], device,
+                fam.weight_rule))
 
     @torch.no_grad()
     def scene(self, host_batch, b):
         with no_tf32(self.precision):
-            pts = host_batch["points"][b:b + 1].to(self.device)
-            rnd = host_batch["random_points"][b:b + 1].to(self.device)
-            outs = self.model(pts, rnd, self.quant)
-            return detect({k: v[:, 0] for k, v in outs.items()}, self.cfg)
+            outs = self.family.reference_scene(self.model, host_batch, b,
+                                               self.device, self.quant)
+            return self.family.reference_detect(outs, self.cfg)
 
     def as_output(self, det):
         """A reference detection in the program's output layout (for the

@@ -9,8 +9,9 @@ iterations (:class:`Work`), as the per-layer readers ask for them.
   feature gradient (the same pairs, Cin and Cout swapped; none for the
   first conv, whose input needs none) and the weight gradient (the same
   pairs).
-- Dense ops (SECOND3D, the FPN, the head): ``FlopCounterMode`` over the
-  plain reference on meta tensors, forward (inference) or forward and
+- Dense ops (SECOND3D, the FPN, the head): the model family's count
+  (``families/<family>.py``: ``FlopCounterMode`` over the plain
+  reference on meta tensors), forward (inference) or forward and
   backward (training).
 - Least times: the larger of operations over the H100's peak for their
   type and bytes over its memory rate, each input read once and each
@@ -194,33 +195,6 @@ def fps_work(points_valid, voxels, cfg, V):
                for pv, nv in zip(points_valid, voxels))
 
 
-def dense_flops(cfg, batch, train):
-    """FLOPs of SECOND3D, the FPN and the head for a batch of ``batch``
-    scenes: ``FlopCounterMode`` over the plain reference on meta tensors
-    (forward; with ``train`` also the backward of the outputs' sum)."""
-    import torch
-    from torch.utils.flop_counter import FlopCounterMode
-
-    from reference.model import Detector, quantizer
-
-    with torch.device("meta"):
-        ref = Detector(cfg)
-    ref.train(train)
-    D, H, W = cfg["grid_size"]
-    for pad in cfg["encoder_downsample_paddings"]:
-        D, H, W = ((g + 2 * p - 3) // 2 + 1 for g, p in zip((D, H, W), pad))
-    nq = cfg["num_query"]
-    vol = torch.empty(batch, D, H, W, cfg["encoder_out_channels"],
-                      device="meta", requires_grad=train)
-    seeds = torch.empty(batch, 2 * nq, 3, device="meta")
-    rnd = torch.empty(batch, nq, 3, device="meta")
-    with FlopCounterMode(display=False) as fc:
-        outs = ref.dense(vol, seeds, rnd, quantizer("float32"))
-        if train:
-            sum(v.sum() for v in outs.values()).backward()
-    return float(fc.get_total_flops())
-
-
 def scene_counts(points, cfg, V):
     """Per scene: the stage list of :func:`scene_sites` and its valid
     voxels."""
@@ -234,11 +208,13 @@ class Work:
     the per-layer readers: ``batches`` holds, per traced iteration, its
     pool index and its points (B, P, C); each pool batch is counted once.
     ``per_iter(fn)`` is the mean over the traced iterations of ``fn(work,
-    counts)``, ``counts`` being the iteration's :func:`scene_counts`."""
+    counts)``, ``counts`` being the iteration's :func:`scene_counts`;
+    ``dense(cfg, batch, train)`` gives the dense FLOPs of a batch."""
 
-    def __init__(self, cfg, V, batch, train, batches):
+    def __init__(self, cfg, V, batch, train, batches, dense):
         self.cfg, self.V, self.batch, self.train = cfg, V, batch, train
         self.batches = batches
+        self.dense = dense
         self._counts = {}
         self._dense = None
 
@@ -250,7 +226,7 @@ class Work:
 
     def dense_flops(self):
         if self._dense is None:
-            self._dense = dense_flops(self.cfg, self.batch, self.train)
+            self._dense = self.dense(self.cfg, self.batch, self.train)
         return self._dense
 
     def per_iter(self, fn):

@@ -1,6 +1,8 @@
 """Set-up, the measured window and the check of one run of a cell.
 
-One general runner, steered by the traffic mix's parameters:
+One general runner, steered by the traffic mix's parameters, on the
+model family that the configuration names (``families/``: the model,
+its scenes, its weights, its inference call and its reference):
 
 - ``kind: train``: ``train_step`` back to back on batches of ``batch``
   scenes cycled from a pool of ``pool_batches``; set-up drives the first
@@ -27,8 +29,6 @@ import numpy as np
 import torch
 
 import bench_check
-import bench_count
-import bench_scenes
 import bench_trace
 import bench_weights
 
@@ -61,15 +61,15 @@ class Tracer:
     ``trace_iters`` with the stage clock, ``trace_iters`` with the device
     profiled alone (kernels, busy share, launches), then ``HOST_ITERS``
     with host and device profiled (what the host did in each idle
-    gap)."""
+    gap). ``stages``: the family's ``STAGE_MODULES``."""
 
     HOST_ITERS = 2
 
-    def __init__(self, model, traffic, device):
+    def __init__(self, model, traffic, device, stages):
         self.skip = traffic["trace_skip"]
         self.n = traffic["trace_iters"]
         self.device = device
-        self.clock = bench_trace.StageClock(model, device)
+        self.clock = bench_trace.StageClock(model, device, stages)
         self.kernels = self.host = self.span = None
         self.traced = []       # pool indices of the profiled iterations
 
@@ -142,12 +142,6 @@ def _peak(device):
         if device.type == "cuda" else 0
 
 
-def _work(cell, pool, traced, train, V, batch):
-    """The traced iterations' inputs, for the per-layer readers' counts."""
-    return bench_count.Work(cell.model, V, batch, train,
-                            [(i, pool[i]["points"].numpy()) for i in traced])
-
-
 class Marks:
     """Host-clock marks of a run: the steps of its set-up (from the
     process's start) and, in the window, the end of each iteration;
@@ -180,28 +174,31 @@ def run_train(cell, seed, seconds, trace, device, t_start, fault=None):
     """One run of a train cell. ``fault`` plants a fault in the timed
     path (tests and calibration only): ``"half_batch"`` drops the second
     half of every batch, ``"frozen"`` skips the optimizer's update."""
-    from uni3detr_tpu_torch.models.detector import Uni3DETR
     from uni3detr_tpu_torch.train import step as tstep
 
     marks = Marks(t_start)
     marks.step("imports")
+    fam = cell.family
     tr, m, tc = cell.traffic, cell.model, cell.config["train"]
     B, npool, nchk = tr["batch"], tr["pool_batches"], tr["checked_steps"]
-    pool = [_pin(bench_scenes.train_batch(seed, m, B, i), device)
+    pool = [_pin(fam.train_batch(seed, m, B, i), device)
             for i in range(npool)]
     marks.step("scene_pool")
-    model = Uni3DETR(cell.port_config()).to(device)
-    sd = bench_weights.draw(model, seed, tr["weights"], device)
+    model = fam.build(fam.port_config(m)).to(device)
+    sd = bench_weights.draw(model, seed, tr["weights"], device,
+                            fam.weight_rule)
     model.load_state_dict(sd)
-    init = {k: sd[k].to("cpu") for k, _ in model.named_parameters()}
+    # the parameters the optimizer holds: a frozen stage's are left out
+    params = [(k, p) for k, p in model.named_parameters() if p.requires_grad]
+    init = {k: sd[k].to("cpu") for k, _ in params}
     bn0 = {k: v.to("cpu") for k, v in sd.items()
            if k.endswith(("running_mean", "running_var"))}
     del sd
     lr, beta1 = bench_check.schedules(tc)
     opt = tstep.make_optimizer(
         model, lr, tc["optimizer"]["weight_decay"],
-        tc["optimizer"]["clip_norm"], momentum_schedule=beta1)
-    params = list(model.named_parameters())
+        tc["optimizer"]["clip_norm"], momentum_schedule=beta1,
+        **fam.optimizer_kwargs(cell.config))
 
     def step(batch):
         if fault == "half_batch":
@@ -231,7 +228,7 @@ def run_train(cell, seed, seconds, trace, device, t_start, fault=None):
     del init
     marks.step("model_and_checked_steps")
 
-    tracer = Tracer(model, tr, device) if trace else None
+    tracer = Tracer(model, tr, device, fam.STAGE_MODULES) if trace else None
     _sync(device)
     t0 = time.perf_counter()
     setup_s = t0 - t_start
@@ -262,9 +259,8 @@ def run_train(cell, seed, seconds, trace, device, t_start, fault=None):
               "train_scenes_per_s": B * i / window,
               "setup_steps": marks.setup, "chunk_rates": marks.chunks(t0, B)}
     if tracer:
-        V = m["max_voxels"]
         result["trace"] = tracer.data(
-            _work(cell, pool, tracer.traced, True, V, B), [])
+            fam.work(m, True, B, [(j, pool[j]) for j in tracer.traced]), [])
     del model, opt, params, logs, prev, tracer
     _free()
     ref = bench_check.train_reference(cell, seed, pool[:nchk], device)
@@ -283,29 +279,27 @@ def run_infer(cell, seed, seconds, trace, device, t_start, fault=None):
     it, ``"half_empty"`` returns no box for the second half of every
     batch, ``"no_nms"`` skips the NMS (every candidate over the score and
     count cuts is kept)."""
-    from uni3detr_tpu_torch.models.detector import Uni3DETR
     from uni3detr_tpu_torch.train.coder import decode_predictions, \
         post_process
 
     marks = Marks(t_start)
     marks.step("imports")
-    tr, m = cell.traffic, cell.model
+    fam, tr, m = cell.family, cell.traffic, cell.model
     B, npool = tr["batch"], tr["pool_batches"]
-    pool = [_pin(bench_scenes.infer_batch(seed, m, B, i), device)
+    pool = [_pin(fam.infer_batch(seed, m, B, i), device)
             for i in range(npool)]
     marks.step("scene_pool")
-    cfg = cell.port_config()
-    model = Uni3DETR(cfg).to(device).eval()
+    cfg = fam.port_config(m)
+    model = fam.build(cfg).to(device).eval()
     model.load_state_dict(bench_weights.draw(model, seed, tr["weights"],
-                                             device))
+                                             device, fam.weight_rule))
     marks.step("model")
     post_cfg = dataclasses.replace(cfg, post_processing="none") \
         if fault == "no_nms" else cfg
 
     @torch.no_grad()
     def detect(batch):
-        outs = model(batch["points"], batch["pts_mask"],
-                     batch["random_points"])
+        outs = fam.infer(model, batch)
         res = post_process(*decode_predictions(outs, cfg), post_cfg)
         if fault == "half_empty":
             boxes, scores, labels, valid = res
@@ -345,7 +339,7 @@ def run_infer(cell, seed, seconds, trace, device, t_start, fault=None):
     outputs.clear()
     marks.step("warmup")
 
-    tracer = Tracer(model, tr, device) if trace else None
+    tracer = Tracer(model, tr, device, fam.STAGE_MODULES) if trace else None
     frames = []
     failed = 0
     _sync(device)
@@ -408,9 +402,8 @@ def run_infer(cell, seed, seconds, trace, device, t_start, fault=None):
         ms = sorted(f for f, _ in frames)
         result["frame_ms_p95"] = 1e3 * float(np.percentile(ms, 95))
     if tracer:
-        V = m["max_voxels_test"]
         result["trace"] = tracer.data(
-            _work(cell, pool, tracer.traced, False, V, B),
+            fam.work(m, False, B, [(j, pool[j]) for j in tracer.traced]),
             [f for f, traced in frames if not traced])
     del model, tracer, res, ring
     _free()

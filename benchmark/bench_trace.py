@@ -6,10 +6,12 @@ short profile of host and device together, whose host spans name what
 the host was doing in each of the device's idle gaps.
 
 Stages (the layers of ``PERF.md``), each the stream's time between two
-events: ``encoder`` (voxelize + sparse encoder: the detector's forward
-pre-hook to ``pts_middle_encoder``'s end), ``backbone_neck`` (to
-``pts_neck``'s end), ``head`` (FPS and ``pts_bbox_head``, to the head's
-end), then ``postprocess`` (decode + NMS, to the return of
+events: the model family's ``STAGE_MODULES``, each from the end of the
+one before (the first from the detector's forward pre-hook) to its
+module's end (``uni3detr``: ``encoder``, voxelize + sparse encoder, to
+``pts_middle_encoder``'s end; ``backbone_neck`` to ``pts_neck``'s end;
+``head``, FPS and ``pts_bbox_head``, to the head's end), then from the
+last one's end ``postprocess`` (decode + NMS, to the return of
 ``post_process``) in inference and ``after_forward`` (loss, matching,
 backward, optimizer, to the return of ``train_step``) in training.
 """
@@ -23,9 +25,6 @@ import torch
 
 import bench_count
 
-STAGE_MODULES = (("encoder", "pts_middle_encoder"),
-                 ("backbone_neck", "pts_neck"),
-                 ("head", "pts_bbox_head"))
 # the port's kernels carry this prefix (``ops/cuda_lib.py``); a profiler
 # shows them demangled, ``void u3d_...<...>(...)``
 PORT_PREFIX = "u3d_"
@@ -44,17 +43,20 @@ class _HostEvent:
 
 class StageClock:
     """Records, while armed, one CUDA event at each stage boundary of an
-    iteration; ``mark(name)`` adds the events recorded after a call
-    returns."""
+    iteration, ``stages`` being the family's ``STAGE_MODULES``;
+    ``mark(name)`` adds the events recorded after a call returns."""
 
-    def __init__(self, model, device):
+    AFTER = ("postprocess", "after_forward")
+
+    def __init__(self, model, device, stages):
         self.cuda = device.type == "cuda"
         self.armed = False       # record events
         self.spans = False       # open record_function spans
         self.iters = []
         self._spans = []
+        self.order = ["start"] + [s for s, _ in stages] + list(self.AFTER)
         self._handles = [model.register_forward_pre_hook(self._start)]
-        for stage, mod in STAGE_MODULES:
+        for stage, mod in stages:
             m = getattr(model, mod)
             self._handles.append(m.register_forward_pre_hook(
                 lambda *_, s=stage: self._open(s)))
@@ -93,15 +95,13 @@ class StageClock:
 
     def stage_ms(self):
         """Mean stream ms a iteration of each stage."""
-        order = ["start", "encoder", "backbone_neck", "head",
-                 "postprocess", "after_forward"]
+        last = self.order[-len(self.AFTER) - 1]
         out = collections.defaultdict(list)
         for it in self.iters:
-            names = [n for n in order if n in it]
+            names = [n for n in self.order if n in it]
             prev = names[0]
             for n in names[1:]:
-                base = "head" if n in ("postprocess", "after_forward") \
-                    else prev
+                base = last if n in self.AFTER else prev
                 out[n].append(it[base].elapsed_time(it[n]))
                 prev = n
         return {k: statistics.fmean(v) for k, v in out.items()}

@@ -4,7 +4,9 @@ Every entry of a model's ``state_dict`` gets a family by its module's
 (plain ``torch.nn``) type and its name, and all entries are drawn from one
 ``torch.Generator`` on the device in two large calls (one normal, one
 uniform), in sorted name order, so that the system under test and the
-reference, whose entries have the same names, get the same numbers.
+reference, whose entries have the same names, get the same numbers. A
+model family's own rule (its ``weight_rule``) is tried before the shared
+ones below.
 
 ``init``: the state training starts from (the JAX package's
 initialisers): norms at scale 1 and bias 0, BN statistics 0 and 1,
@@ -96,23 +98,29 @@ def _random_rule(name, mod, leaf, t):
 RULES = {"init": _init_rule, "random": _random_rule}
 
 
-def plan(model: nn.Module, kind: str):
-    """name -> (family, a, b, shape, dtype), sorted by name."""
+def plan(model: nn.Module, kind: str, model_rule=None):
+    """name -> (family, a, b, shape, dtype), sorted by name; ``model_rule``
+    is a model family's ``weight_rule``."""
     owner = _owners(model)
     rule = RULES[kind]
     out = {}
     for name, t in sorted(model.state_dict().items()):
         mod, leaf = owner[name]
-        fam = ("const", 0.0, 0) if not t.dtype.is_floating_point \
-            else rule(name, mod, leaf, t)
+        if not t.dtype.is_floating_point:
+            fam = ("const", 0.0, 0)
+        else:
+            fam = model_rule and model_rule(kind, name, mod, leaf, t)
+            fam = fam or rule(name, mod, leaf, t)
         out[name] = (*fam, tuple(t.shape), t.dtype)
     return out
 
 
 @torch.no_grad()
-def draw(model: nn.Module, seed: int, kind: str, device) -> dict:
-    """The ``state_dict`` of ``model`` drawn from ``seed`` on ``device``."""
-    p = plan(model, kind)
+def draw(model: nn.Module, seed: int, kind: str, device,
+         model_rule=None) -> dict:
+    """The ``state_dict`` of ``model`` drawn from ``seed`` on ``device``
+    (``model_rule``: as :func:`plan`'s)."""
+    p = plan(model, kind, model_rule)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed) % (2 ** 63))
     sizes = {k: math.prod(v[3]) for k, v in p.items()}

@@ -166,6 +166,7 @@ def _brute_pairs(ids, grid, out_ids, out_grid, stride, pad):
 
 
 def test_pairs_flops_and_bytes_agree_with_a_hand_count():
+    import bench_cell
     import bench_count
     cfg = fx.tiny_model()
     rng = np.random.default_rng(0)
@@ -213,9 +214,9 @@ def test_pairs_flops_and_bytes_agree_with_a_hand_count():
         bench_count.H100_BYTES_PER_S
     assert got == pytest.approx(2 * (2 * 100 * 16 + 27 * 16 * 32
                                      + 2 * 50 * 32) + 4 * 2 * 50 * 27)
-    assert bench_count.dense_flops(cfg, 2, False) > 0
-    assert bench_count.dense_flops(cfg, 2, True) > \
-        2 * bench_count.dense_flops(cfg, 2, False)
+    dense = bench_cell.family("uni3detr").dense_flops
+    assert dense(cfg, 2, False) > 0
+    assert dense(cfg, 2, True) > 2 * dense(cfg, 2, False)
 
 
 def test_no_jax_module_is_loaded():
@@ -229,6 +230,10 @@ def test_no_jax_module_is_loaded():
         "uni3detr_tpu_torch.train.step, uni3detr_tpu_torch.train.coder\n"
         "c = bench_cell.load(%r, 'nuscenes.train.b4')\n"
         "[c.reader(m['name']) for m in c.per_layer]\n"
+        "import torch\n"
+        "with torch.device('meta'):\n"
+        "    c.family.build(c.family.port_config(c.model))\n"
+        "[bench_cell.family(f) for f in bench_cell.families()]\n"
         "print(sorted({n.split('.')[0] for n in sys.modules}))\n"
     ) % (fx.ROOT, fx.BENCH, fx.ROOT)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
