@@ -1,13 +1,14 @@
 """The port's spans and counters (``utils/profiling.py``): nothing at all
 with no profiler running; with one, nested spans, iterations, self time,
 the ring of iterations, the counters against hand counts on a tiny
-forward and train step, and span names the benchmark's trace takes for
-annotations (CPU; no JAX).
+forward and train step and on a tiny OV-Uni3DETR forward, and span names
+the benchmark's trace takes for annotations (CPU; no JAX).
 
     python -m pytest tests/test_torch_port_tracing.py -q
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib.util
 import os
 import re
@@ -18,8 +19,11 @@ import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from uni3detr_tpu_torch import presets
+from uni3detr_tpu_torch import presets, synthetic
+from uni3detr_tpu_torch.models.dcn import DeformConv2dV2
 from uni3detr_tpu_torch.models.detector import Uni3DETR
+from uni3detr_tpu_torch.models.ov_detector import OV_Uni3DETR
+from uni3detr_tpu_torch.models.view_trans import project_voxels
 from uni3detr_tpu_torch.ops import matching, nms
 from uni3detr_tpu_torch.train import step as tstep
 from uni3detr_tpu_torch.train.coder import decode_predictions, post_process
@@ -219,6 +223,58 @@ def test_counters_of_a_train_step_equal_hand_counts(tiny, monkeypatch):
                                         "optimizer"))
 
 
+@pytest.fixture(scope="module")
+def tiny_ov():
+    """The tiny OV preset with a 48 x 64 image and a 2 x 4 x 4 encoder
+    grid mostly in front of the synthetic camera, and a batch of two."""
+    torch.manual_seed(1)
+    box = (-2.0, -0.5, -0.5, 2.0, 3.5, 0.5)
+    cfg = dataclasses.replace(presets.OV_TINY_SYNTHETIC, img_size=(48, 64),
+                              pc_range=box, post_center_range=box,
+                              grid_size=(16, 32, 32),
+                              voxel_size=(0.125, 0.125, 0.0625))
+    B, P = 2, cfg.num_points
+    lo, hi = torch.tensor(box[:3]), torch.tensor(box[3:])
+    batch = {"points": torch.cat([lo + (hi - lo) * torch.rand(B, P, 3),
+                                  torch.rand(B, P, cfg.in_point_features
+                                             - 3)], -1),
+             "pts_mask": torch.ones(B, P, dtype=torch.bool),
+             "images": torch.randn(B, 1, 48, 64, 3),
+             "lidar2img": torch.from_numpy(synthetic.lidar2img(
+                 cfg.img_size)).expand(B, 1, 4, 4).contiguous(),
+             "uni_rot_aug": torch.eye(3).expand(B, 3, 3).contiguous()}
+    return cfg, OV_Uni3DETR(cfg).eval(), batch
+
+
+def test_ov_counters_equal_hand_counts(tiny_ov):
+    cfg, model, batch = tiny_ov
+    shapes = []
+    hooks = [m.register_forward_hook(lambda m, i, o: shapes.append(o.shape))
+             for m in model.modules() if isinstance(m, DeformConv2dV2)]
+    rp = torch.rand(2, cfg.num_query, 3)
+    profiling.RECORDER.reset()
+    try:
+        with torch.no_grad(), _profiled():
+            model(batch, rp)
+    finally:
+        for h in hooks:
+            h.remove()
+    counts = profiling.report()["counts"]
+    vt = model.view_trans
+    _, _, mask = project_voxels(vt.reference_voxels(batch["uni_rot_aug"]),
+                                batch["lidar2img"], cfg.img_size,
+                                cfg.depth_dim)
+    X, Y, Z = vt.voxel_shape
+    assert counts["lift_pairs"] == 2 * 1 * X * Y * Z == mask.numel()
+    assert counts["lift_in_view"] == mask.sum().item() > 0
+    assert counts["lift_in_view"] < counts["lift_pairs"]
+    # a DCN a block of the DCN stages, 9 taps an output position
+    assert len(shapes) == sum(n for n, dcn in zip(
+        (3, 4, 6, 3), cfg.stage_with_dcn) if dcn)
+    assert counts["dcn_taps"] == sum(b * h * w * 9
+                                     for b, _, h, w in shapes) > 0
+
+
 def _bench_trace():
     bench = os.path.join(ROOT, "benchmark")
     sys.path.insert(0, bench)
@@ -233,11 +289,13 @@ def _bench_trace():
     return mod
 
 
-def test_every_span_name_is_an_annotation_of_the_benchmark(tiny):
-    """The names in the port's source, and those a train step and an
-    evaluation open under a profiler, are one set, and the benchmark's
-    trace takes each for an annotation, not device work."""
+def test_every_span_name_is_an_annotation_of_the_benchmark(tiny, tiny_ov):
+    """The names in the port's source, and those a train step, an
+    evaluation and an OV-Uni3DETR evaluation open under a profiler, are
+    one set, and the benchmark's trace takes each for an annotation, not
+    device work."""
     cfg, model, batch = tiny
+    ov_cfg, ov_model, ov_batch = tiny_ov
     in_source = set()
     for d, _, files in os.walk(PORT):
         for f in files:
@@ -253,10 +311,12 @@ def test_every_span_name_is_an_annotation_of_the_benchmark(tiny):
             outs = model(batch["points"], batch["pts_mask"],
                          torch.rand(2, cfg.num_query, 3))
             post_process(*decode_predictions(outs, cfg), cfg)
+            ov_outs = ov_model(ov_batch, torch.rand(2, ov_cfg.num_query, 3))
+            post_process(*decode_predictions(ov_outs, ov_cfg), ov_cfg)
     opened = {e.name for e in prof.events()
               if e.name.startswith(profiling.STAGE_PREFIX)}
     assert opened == {profiling.STAGE_PREFIX + n for n in in_source}
-    assert len(opened) == 15
+    assert len(opened) == 20
     bench_trace = _bench_trace()
     assert all(bench_trace._annotation(n) for n in opened)
     assert bench_trace.STAGE_SPAN == profiling.STAGE_PREFIX

@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from ..ops.sample import grid_sample_2d
+from ..utils.profiling import count
 
 
 class DeformConv2dV2(nn.Module):
@@ -62,6 +63,7 @@ class DeformConv2dV2(nn.Module):
         grid = torch.stack([(px * 2 + 1) / W - 1, (py * 2 + 1) / H - 1], -1)
         taps = grid_sample_2d(x.permute(0, 2, 3, 1),
                               grid.reshape(B, Ho * Wo * k * k, 2))
+        count("dcn_taps", B * Ho * Wo * k * k)
         taps = taps.reshape(B, Ho, Wo, k * k, C) * mask[..., None]
         # (out, in, kh, kw) -> (kh*kw*in, out): the taps' (tap, channel) order
         w = self.weight.permute(2, 3, 1, 0).reshape(k * k * C, -1)

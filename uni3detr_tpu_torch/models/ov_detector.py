@@ -94,14 +94,17 @@ class OV_Uni3DETR(PointBranch, nn.Module):
         x = x.permute(0, 3, 1, 2)
         if x.is_cuda:
             x = x.contiguous(memory_format=torch.channels_last)
-        feats = self.img_neck(self.img_backbone(x), cfg.fpn_levels)
-        mlvl, depths = [], []
-        for f in feats:
-            p = self.input_proj(f)
-            d = F.softmax(self.depth_net(p), dim=1)
-            for out, t in ((mlvl, p), (depths, d)):
-                t = t.permute(0, 2, 3, 1)
-                out.append(t.reshape(B, N, *t.shape[1:]))
+        with span("image_backbone"):
+            stages = self.img_backbone(x)
+        with span("image_neck"):
+            feats = self.img_neck(stages, cfg.fpn_levels)
+            mlvl, depths = [], []
+            for f in feats:
+                p = self.input_proj(f)
+                d = F.softmax(self.depth_net(p), dim=1)
+                for out, t in ((mlvl, p), (depths, d)):
+                    t = t.permute(0, 2, 3, 1)
+                    out.append(t.reshape(B, N, *t.shape[1:]))
         return mlvl, depths
 
     def image_volume(self, batch):
@@ -177,10 +180,11 @@ class OV_Uni3DETR(PointBranch, nn.Module):
                 self.last_modality = inter["modality"] = ri
                 pair = ((img_feat, img_feat), (pts_feat, pts_feat),
                         pair)[ri]
-            unified = torch.cat(pair, dim=-1)
-            fused = self.conv_trans_head_1(            # (B, 2C, D, H, W) in
-                unified.float().permute(0, 4, 1, 2, 3))
-            volume = fused.to(dtype).permute(0, 2, 3, 4, 1)
+            with span("fusion"):
+                unified = torch.cat(pair, dim=-1)
+                fused = self.conv_trans_head_1(        # (B, 2C, D, H, W) in
+                    unified.float().permute(0, 4, 1, 2, 3))
+                volume = fused.to(dtype).permute(0, 2, 3, 4, 1)
             inter["fused_volume"] = volume
         else:
             volume = pts_feat if use_pts else img_feat

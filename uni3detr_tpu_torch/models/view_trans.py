@@ -23,6 +23,7 @@ import torch
 from torch import nn
 
 from ..ops.sample import grid_sample_2d, grid_sample_3d
+from ..utils.profiling import count, span
 from .second3d import BatchNorm3d
 
 DEPTH_EPS = 1e-5
@@ -81,6 +82,9 @@ def sample_camera_features(mlvl_feats, depths, ref_voxels, lidar2img,
     grid2d, grid3d, mask = project_voxels(
         ref_voxels, lidar2img, img_shape, depths[0].shape[-1], img_rot_aug,
         img_trans_aug)
+    # (camera, voxel) pairs, and those inside the frustum
+    count("lift_pairs", mask.numel())
+    count("lift_in_view", mask)
     out = None
     for lvl, feat in enumerate(mlvl_feats):
         f = grid_sample_2d(feat.reshape(B * N, *feat.shape[2:]), grid2d)
@@ -167,24 +171,26 @@ class Uni3DViewTrans(nn.Module):
         """-> (B, D, H, W, C) (and the lifted (B, N, V, C) voxel features
         with ``return_lifted``)."""
         S = self.num_sweeps
-        per_cam = self.lift(mlvl_feats, depths, lidar2img, uni_rot_aug,
-                            img_shape, img_rot_aug, img_trans_aug)
-        B, _, V, C = per_cam.shape
-        feats = per_cam.reshape(B, S, -1, V, C).sum(dim=2)    # (B, S, V, C)
-        if S > 1 and "with_time" in self.sweep_fusion:
-            t = sweep_times if sweep_times is not None \
-                else feats.new_zeros(B, S)
-            t = t[:, :, None, None].to(feats.dtype).expand(B, S, V, 1)
-            feats = self.time_conv(torch.cat([feats, t], -1))
-        if S > 1 and "sweep_cat" in self.sweep_fusion:
-            feats = self.trans_conv(
-                feats.transpose(1, 2).reshape(B, V, S * C))
-        else:
-            feats = feats.sum(dim=1)
-        X, Y, Z = self.voxel_shape
-        # (B, X*Y*Z, C) x-major -> (B, C, Z, Y, X) = (B, C, D, H, W)
-        vol = feats.reshape(B, X, Y, Z, -1).permute(0, 4, 3, 2, 1)
-        for k in range(self.num_convs):
-            vol = getattr(self, f"conv_trans_head_{k + 1}")(vol)
-        vol = vol.permute(0, 2, 3, 4, 1)                     # (B, D, H, W, C)
+        with span("lift"):
+            per_cam = self.lift(mlvl_feats, depths, lidar2img, uni_rot_aug,
+                                img_shape, img_rot_aug, img_trans_aug)
+            B, _, V, C = per_cam.shape
+            feats = per_cam.reshape(B, S, -1, V, C).sum(dim=2)  # (B, S, V, C)
+            if S > 1 and "with_time" in self.sweep_fusion:
+                t = sweep_times if sweep_times is not None \
+                    else feats.new_zeros(B, S)
+                t = t[:, :, None, None].to(feats.dtype).expand(B, S, V, 1)
+                feats = self.time_conv(torch.cat([feats, t], -1))
+            if S > 1 and "sweep_cat" in self.sweep_fusion:
+                feats = self.trans_conv(
+                    feats.transpose(1, 2).reshape(B, V, S * C))
+            else:
+                feats = feats.sum(dim=1)
+        with span("view_convs"):
+            X, Y, Z = self.voxel_shape
+            # (B, X*Y*Z, C) x-major -> (B, C, Z, Y, X) = (B, C, D, H, W)
+            vol = feats.reshape(B, X, Y, Z, -1).permute(0, 4, 3, 2, 1)
+            for k in range(self.num_convs):
+                vol = getattr(self, f"conv_trans_head_{k + 1}")(vol)
+            vol = vol.permute(0, 2, 3, 4, 1)                 # (B, D, H, W, C)
         return (vol, per_cam) if return_lifted else vol
